@@ -1,0 +1,213 @@
+"""Progressive renderer: frame function + accumulation (counterpart of
+``optix_renderer_tpu/engine/renderer.py``; reference
+cuda_src/deviceCode.cu:59-175).
+
+Each frame adds its color into ``accum`` and the displayed image divides
+by the frame count (deviceCode.cu:158-174).  PyTorch runs eagerly, so a
+frame is a plain function call on tensors of the Renderer's ``device``;
+the host issues every frame and so knows ``accum_id`` without asking the
+device.  The only host sync of :meth:`Renderer.render` is the one
+``torch.cuda.synchronize()`` at its end.
+
+The JAX package orders primary rays in square pixel blocks; that order
+only serves its cluster tier's per-tile cull.  RNG streams are keyed by
+the absolute pixel id, so the image is identical without it, and the port
+keeps rays in row-major pixel order.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from optix_renderer_tpu.engine.modes import DETERMINISTIC_MODES, GBUFFER_MODES, RendererType
+from optix_renderer_tpu.scene.config import Scene, SceneCamera
+
+from ..accel.build import BVH, build_bvh
+from ..core import rng as rnglib
+from ..core.types import Camera, GBuffers, RenderState
+from ..scene.device import DeviceScene, build_device_scene
+from . import camera as cameralib
+from .shade import trace_closest_si
+
+
+def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
+                mode: RendererType, width: int, height: int, path_depth: int):
+    """Render the whole width x height frame as one tile (the JAX
+    package's row tiles serve its multi-device split, not yet ported).
+    RNG streams are keyed by the linear pixel id (deviceCode.cu:65-66).
+
+    Returns (color (height*width, 3), gbuffers (height, width, ...), aux dict).
+    """
+    from ..integrators.gbuffer import gbuffer_color
+    from ..integrators.path import path_color
+
+    lin = torch.arange(height * width, dtype=torch.int64, device=ds.miss_color.device)
+    # get_rng(accumId + 10007, pixel, dims) -- deviceCode.cu:65-66
+    rstate = rnglib.make_rng(accum_id + 10007, lin)
+    rstate, ju = rnglib.lcg_randomf(rstate)
+    rstate, jv = rnglib.lcg_randomf(rstate)
+    rays = cameralib.primary_rays(camera, width, height, ju, jv, lin=lin)
+    si, _ = trace_closest_si(ds, bvh, rays)  # the brute tier's trace stats are zero
+
+    aux: dict = {}
+    if mode in GBUFFER_MODES:
+        color = gbuffer_color(mode, si, ds.miss_color)
+    elif mode == RendererType.PATH:
+        color, rstate, alive_counts, _ = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth)
+        aux["path_alive_counts"] = alive_counts
+    else:
+        raise NotImplementedError(
+            f"mode {mode.name} is not ported yet (ROADMAP.md queue A, slice 2)")
+
+    gb = GBuffers(
+        position=si.p.reshape(height, width, 3),
+        normal=si.n_geom.reshape(height, width, 3),
+        albedo=si.diffuse.reshape(height, width, 3),
+        alpha=si.alpha.reshape(height, width),
+        uv=si.uv.reshape(height, width, 2),
+        material_id=si.material_id.to(torch.float32).reshape(height, width),
+    )
+    return color, gb, aux
+
+
+def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
+                width: int, height: int, path_depth: int):
+    """One frame over the whole image: ``(state', gbuffers, aux)``."""
+    color, gb, aux = render_tile(state.camera, state.accum_id, ds, bvh,
+                                 mode=mode, width=width, height=height, path_depth=path_depth)
+    state.accum += color.reshape(height, width, 3)  # in place: no second (H, W, 3) buffer
+    return RenderState(accum=state.accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux
+
+
+class Renderer:
+    """Owns the scene tensors on ``device`` and the render loop."""
+
+    def __init__(
+        self,
+        scene: Scene,
+        width: int | None = None,
+        height: int | None = None,
+        mode: RendererType = RendererType.PATH,
+        path_depth: int = 10,
+        *,
+        device,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Renderer(device={str(device)!r}) needs a CUDA device, and torch.cuda.is_available() "
+                "is false; pass device='cpu' to render with the plain PyTorch trace"
+            )
+        self.scene = scene
+        self.width = int(width or scene.img_width)
+        self.height = int(height or scene.img_height)
+        self.mode = RendererType(mode)
+        self.path_depth = path_depth
+
+        self.device_scene, host = build_device_scene(scene, self.device)
+        tri_idx = host["tri_index"]
+        norms = host["normals"][tri_idx].sum(axis=1)  # (T, 3)
+        norms /= np.maximum(np.linalg.norm(norms, axis=-1, keepdims=True), 1e-20)
+        self.bvh = build_bvh(host["vertices"][tri_idx], self.device,
+                             tri_normal=norms, tri_mesh=host["tri_mesh"])
+
+        self.state: RenderState = None  # set by set_camera
+        self.gbuffers: GBuffers | None = None
+        self.aux: dict = {}
+        # honest ray accounting: primary rays + the NEE and bounce rays the
+        # integrator traced.  Per-bounce counts stay on the device until
+        # ``metrics`` is read, so the render loop never syncs for them.
+        self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": []}
+        self._pending_counts: list[torch.Tensor] = []
+        self.set_camera(scene.cameras[0])
+
+    def _zero_accum(self) -> torch.Tensor:
+        return torch.zeros((self.height, self.width, 3), dtype=torch.float32, device=self.device)
+
+    def set_mode(self, mode: RendererType) -> None:
+        """Switch renderer mode and restart accumulation."""
+        mode = RendererType(mode)
+        if mode == self.mode:
+            return
+        self.mode = mode
+        self.state = RenderState(accum=self._zero_accum(), accum_id=0, camera=self.state.camera)
+
+    def set_camera(self, cam: SceneCamera) -> None:
+        """Reset accumulation and rebuild the basis (viewer.hpp:621-657)."""
+        device_cam = cameralib.camera_from_lookat(
+            cam.from_, cam.at, cam.up, cam.cos_fovy, self.width, self.height, self.device)
+        self.state = RenderState(accum=self._zero_accum(), accum_id=0, camera=device_cam)
+
+    def render(self, n_frames: int = 1) -> None:
+        """Advance progressive accumulation by ``n_frames`` frames."""
+        t0 = time.perf_counter()
+        frames = 0
+        for _ in range(n_frames):
+            if self.mode in DETERMINISTIC_MODES and self.state.accum_id >= 1:
+                break  # analytic modes converge in one frame
+            self.state, self.gbuffers, self.aux = _frame_impl(
+                self.state, self.device_scene, self.bvh, mode=self.mode,
+                width=self.width, height=self.height, path_depth=self.path_depth,
+            )
+            frames += 1
+            if "path_alive_counts" in self.aux:
+                self._pending_counts.append(self.aux["path_alive_counts"])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the frames are done, not just enqueued
+        self._metrics["seconds"] += time.perf_counter() - t0
+        self._metrics["frames"] += frames
+        self._metrics["rays_traced"] += frames * self.width * self.height  # primary
+
+    @property
+    def metrics(self) -> dict:
+        """Observability dict; drains the device-side per-bounce counts."""
+        if self._pending_counts:
+            # (frames, depth, 3): [alive lanes, shadow rays traced, bounce
+            # rays traced] per bounce (integrators.path.path_color)
+            alive = torch.stack(self._pending_counts).cpu().numpy()
+            self._pending_counts = []
+            self._metrics["alive_per_bounce"] = [int(a) for a in alive[-1][:, 0]]
+            self._metrics["rays_traced"] += int(alive[:, :, 1:].sum())
+        secs = self._metrics["seconds"]
+        self._metrics["mrays_per_sec"] = self._metrics["rays_traced"] / secs / 1e6 if secs else 0.0
+        return self._metrics
+
+    def image(self) -> np.ndarray:
+        """Displayed image: accum / frame count (deviceCode.cu:172)."""
+        return (self.state.accum / max(self.state.accum_id, 1)).cpu().numpy()
+
+    # -- checkpoint / resume: the JAX package's .npz keys -------------------
+    def save_checkpoint(self, path: str) -> None:
+        cam = self.state.camera
+        np.savez(
+            path,
+            accum=self.state.accum.cpu().numpy(),
+            accum_id=self.state.accum_id,
+            cam_pos=cam.pos.cpu().numpy(),
+            cam_dir_00=cam.dir_00.cpu().numpy(),
+            cam_dir_du=cam.dir_du.cpu().numpy(),
+            cam_dir_dv=cam.dir_dv.cpu().numpy(),
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        with np.load(path) as z:
+            arrs = {k: np.asarray(z[k], np.float32) for k in
+                    ("accum", "cam_pos", "cam_dir_00", "cam_dir_du", "cam_dir_dv")}
+            accum_id = int(z["accum_id"])
+        if arrs["accum"].shape != (self.height, self.width, 3):
+            raise ValueError(
+                f"checkpoint accumulates a {arrs['accum'].shape} image; this renderer is "
+                f"({self.height}, {self.width}, 3)")
+
+        def f32(key):
+            return torch.as_tensor(arrs[key], device=self.device)
+
+        self.state = RenderState(
+            accum=f32("accum"),
+            accum_id=accum_id,
+            camera=Camera(pos=f32("cam_pos"), dir_00=f32("cam_dir_00"),
+                          dir_du=f32("cam_dir_du"), dir_dv=f32("cam_dir_dv")),
+        )

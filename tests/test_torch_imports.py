@@ -1,0 +1,94 @@
+"""The port imports no JAX, and its CUDA entry points never fall back.
+
+A fresh interpreter imports every module of ``optix_renderer_tpu_torch``,
+renders one 16^2 PATH frame on the CPU and must not have loaded ``jax``.
+Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
+``--device cuda`` must fail with a clear message rather than render on
+the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import importlib, pkgutil, sys, tempfile
+import numpy as np
+import optix_renderer_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+from optix_renderer_tpu_torch.engine import RendererType
+from optix_renderer_tpu_torch.engine.renderer import Renderer
+from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene
+scene = parse_scene(write_cornell_scene(tempfile.mkdtemp(), width=16, height=16))
+r = Renderer(scene, width=16, height=16, mode=RendererType.PATH, path_depth=4, device="cpu")
+r.render(1)
+img = r.image()
+assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0, img.mean()
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("MODULES", len(mods))
+print("JAX", loaded)
+"""
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"  # like the test modules' torch.set_num_threads(2): no oversubscription
+    return env
+
+
+def test_port_imports_and_renders_without_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=tmp_path, env=_child_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines() if ln.startswith(("MODULES", "JAX")))
+    assert int(lines["MODULES"]) >= 15, out.stdout
+    assert lines["JAX"] == "[]", f"the port loaded JAX: {lines['JAX']}"
+
+
+def test_cuda_renderer_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal path cannot be exercised")
+    from optix_renderer_tpu.scene import procedural
+    from optix_renderer_tpu.scene.config import parse_scene
+    from optix_renderer_tpu_torch.engine.renderer import Renderer
+
+    scene = parse_scene(procedural.write_cornell_scene(str(tmp_path), width=8, height=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Renderer(scene, width=8, height=8, device="cuda")
+
+
+def test_cli_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal path cannot be exercised")
+    scene = os.path.join(REPO, "scenes", "cornell", "scene.json")
+    out_dir = tmp_path / "out"
+    cmd = [sys.executable, "-m", "optix_renderer_tpu_torch.engine.cli", "--scene", scene,
+           "--res", "8", "--spp", "1", "--out", str(out_dir)]
+    out = subprocess.run(cmd, cwd=tmp_path, env=_child_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert not out_dir.exists(), "nothing may be rendered without the requested device"
+
+
+def test_cli_renders_on_cpu(tmp_path):
+    scene = os.path.join(REPO, "scenes", "cornell", "scene.json")
+    out_dir = tmp_path / "out"
+    ckpt = tmp_path / "ck.npz"
+    cmd = [sys.executable, "-m", "optix_renderer_tpu_torch.engine.cli", "--scene", scene, "--renderer", "path",
+           "--res", "16", "--spp", "2", "--depth", "2", "--out", str(out_dir), "--cpu", "--save-npy",
+           "--save-checkpoint", str(ckpt)]
+    out = subprocess.run(cmd, cwd=tmp_path, env=_child_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert (out_dir / "path.png").exists() and (out_dir / "render.json").exists() and ckpt.exists()
+    import numpy as np
+
+    img = np.load(out_dir / "path.npy")
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
