@@ -1,5 +1,5 @@
 """Vectorized device math: the subset of ``optix_renderer_tpu/core/math.py``
-that the PATH slice uses.
+that the port's modes use.
 
 Same conventions: a "vec3 batch" has shape ``(..., 3)``; a 3x3 frame is
 row-major ``(..., 3, 3)`` with row ``i`` = basis vector ``i``.  All math is
@@ -10,10 +10,13 @@ multiply-adds in a fixed order ((x + y) + z), so no matmul -- and no TF32
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PI = 3.14159265358979323846  # include/common.h:4, used as fp32
 EPS = 1e-5  # cuda_include/frostbite.cuh:8
+
+_CONSTANTS: dict = {}
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -52,6 +55,17 @@ def apply_mat(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack([dot(mat[..., 0, :], v), dot(mat[..., 1, :], v), dot(mat[..., 2, :], v)], dim=-1)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root rounded to nearest, as the card's IEEE ``sqrtf`` and XLA
+    give it.  torch's float32 sqrt on the CPU comes from a vector library
+    and can be 1 ulp off; the float64 root of a float32 rounds back to the
+    nearest float32 exactly.  The LTC pipeline uses it, so that its plain
+    version repeats kernel B6's rounding on either device."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def axis_vector(i: int, value: float, like: torch.Tensor) -> torch.Tensor:
     """(3,) vector with ``value`` at index ``i`` on ``like``'s device and
     dtype, filled on the device: a tensor made from a Python list is a
@@ -59,6 +73,20 @@ def axis_vector(i: int, value: float, like: torch.Tensor) -> torch.Tensor:
     v = like.new_zeros(3)
     v.narrow(0, i, 1).fill_(value)  # a fill kernel; ``v[i] = value`` copies a host scalar
     return v
+
+
+def device_constant(name: str, array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A module's numpy constant table on ``device``, uploaded once per
+    device.  On a card the upload is an asynchronous copy from pinned
+    memory, so even the first use does not make the host wait."""
+    key = (name, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        _CONSTANTS[key] = t
+    return t
 
 
 def orthonormal_basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -83,6 +111,29 @@ def sample_point_on_triangle(v1, v2, v3, u1, u2) -> torch.Tensor:
     su1 = torch.sqrt(u1)[..., None]
     u2e = u2[..., None]
     return (1.0 - su1) * v1 + su1 * ((1.0 - u2e) * v2 + u2e * v3)
+
+
+def matrix_inverse_3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) 3x3 inverse, batched, in the JAX package's
+    order of operations (it replaces the reference's Gauss-Jordan loop,
+    cuda_include/utils.cuh:76-138)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    co00 = e * i - f * h
+    co01 = f * g - d * i
+    co02 = d * h - e * g
+    det = a * co00 + b * co01 + c * co02
+    inv_det = 1.0 / det
+    row0 = torch.stack([co00, c * h - b * i, b * f - c * e], dim=-1)
+    row1 = torch.stack([co01, a * i - c * g, c * d - a * f], dim=-1)
+    row2 = torch.stack([co02, b * g - a * h, a * e - b * d], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
+
+
+def spherical_theta(p: torch.Tensor) -> torch.Tensor:
+    """acos(z) (cuda_include/utils.cuh:201-204)."""
+    return torch.acos(torch.clamp(p[..., 2], -1.0, 1.0))
 
 
 def balance_heuristic(nf: float, f_pdf: torch.Tensor, ng: float, g_pdf: torch.Tensor) -> torch.Tensor:

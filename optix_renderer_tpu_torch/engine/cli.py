@@ -1,14 +1,17 @@
 """Command-line renderer (counterpart of ``optix_renderer_tpu/engine/cli.py``).
 
 The subset of the JAX CLI that the port's modes support: scene, renderer
-mode, samples, resolution, path depth, output directory, checkpoints and
-the device.  ``--device`` defaults to ``cuda`` and fails when no CUDA
-device is present; ``--cpu`` is ``--device cpu``.  Outputs are the JAX
-CLI's files, written through ``optix_renderer_tpu.postprocess.io``.
+mode, samples, resolution, path depth, output directory, checkpoints, the
+RATIO denoise-and-combine stage and the device.  ``--device`` defaults to
+``cuda`` and fails when no CUDA device is present; ``--cpu`` is
+``--device cpu``.  Outputs are the JAX CLI's files, written through
+``optix_renderer_tpu.postprocess.io``.
 
-Example:
+Examples:
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json \\
       --renderer path --spp 16 --res 1024 --depth 4 --out out/
+  python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell3/scene.json \\
+      --renderer ratio --spp 16 --res 1024 --denoise-ratio --out out/
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--scene", required=True, help="scene JSON (reference schema)")
     p.add_argument("--renderer", default=None,
-                   help="mode name or int id (g-buffer modes or path); default: scene's first renderer")
+                   help=f"one of {sorted(set(_MODE_BY_NAME))} or an int mode id; "
+                        "default: the scene's first renderer")
     p.add_argument("--spp", type=int, default=None, help="samples per pixel (default: scene spp)")
     p.add_argument("--res", type=int, default=None, help="square resolution override")
     p.add_argument("--width", type=int, default=None)
@@ -60,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-npy", action="store_true", help="also dump lossless .npy")
     p.add_argument("--checkpoint", default=None, help="resume accumulation from this .npz")
     p.add_argument("--save-checkpoint", default=None, help="write accumulation state here")
+    p.add_argument("--denoise-ratio", action="store_true",
+                   help="RATIO mode: denoise the stochastic buffers and combine them with the LTC "
+                        "buffer on the device; writes ratio_final.png and ratio_final.npy")
     p.add_argument("--device", default="cuda", help="torch device to render on (default: cuda)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
     return p
@@ -107,6 +114,15 @@ def main(argv=None) -> int:
     save_png(os.path.join(args.out, f"{name}.png"), img)
     if args.save_npy:
         save_npy(os.path.join(args.out, f"{name}.npy"), img)
+    if mode == RendererType.RATIO and r.aux:
+        for k in ("ltc", "sto_direct", "sto_no_vis"):
+            save_png(os.path.join(args.out, f"{k}.png"), r.aux[k].cpu().numpy())
+        if args.denoise_ratio:
+            from ..postprocess.denoise import denoise_and_combine
+
+            final = denoise_and_combine(r.aux, r.gbuffers).cpu().numpy()
+            save_png(os.path.join(args.out, "ratio_final.png"), final)
+            save_npy(os.path.join(args.out, "ratio_final.npy"), final)
     if args.save_checkpoint:
         r.save_checkpoint(args.save_checkpoint)
         log.info("checkpoint -> %s", args.save_checkpoint)

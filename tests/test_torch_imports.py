@@ -1,7 +1,8 @@
 """The port imports no JAX, and its CUDA entry points never fall back.
 
 A fresh interpreter imports every module of ``optix_renderer_tpu_torch``,
-renders one 16^2 PATH frame on the CPU and must not have loaded ``jax``.
+renders one 16^2 PATH frame and one 16^2 RATIO frame on the CPU and must
+not have loaded ``jax``.
 Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
 ``--device cuda`` must fail with a clear message rather than render on
 the CPU.
@@ -31,6 +32,9 @@ r = Renderer(scene, width=16, height=16, mode=RendererType.PATH, path_depth=4, d
 r.render(1)
 img = r.image()
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0, img.mean()
+r = Renderer(scene, width=16, height=16, mode=RendererType.RATIO, device="cpu")
+r.render(1)
+assert np.isfinite(r.image()).all() and float(r.aux["sto_no_vis"].max()) > 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("MODULES", len(mods))
 print("JAX", loaded)
