@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA GPU, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-Phases, each printing one line or a few (any failure raises and exits
-non-zero):
+Phases, each printing one line or a few and its seconds (any failure
+raises and exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
-   one nvcc per library, all started together, with ptxas' register and
-   spill report;
+   one nvcc per library (brute_trace, ltc, cluster_trace), all started
+   together, with ptxas' register and spill report;
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
    turns (plain, kernel, kernel, plain): B1 (closest hit) and B2
    (occlusion) on the Cornell table (1024^2 primary rays, 1M bounce-like
@@ -20,12 +20,19 @@ non-zero):
    at 1024^2 on Cornell (2 triangle lights) and on the three-light Cornell
    (6), and on 1M seeded random operands with 7 lights, so that every clip
    case occurs (tolerance of tests/unit/test_ltc_pallas.py, and at least
-   99.99 % of rays bit-equal);
-4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box at
-   64^2 against ``tests/goldens`` (g-buffers and ltc_direct 1e-4, path
-   5e-3 relative RMSE), and RATIO at 64^2 over 4 frames against the
-   port's own ``device="cpu"`` run of the same frames (ltc 1e-4, the
-   stochastic buffers 5e-3);
+   99.99 % of rays bit-equal); then, on the 1M-triangle terrain (BASELINE
+   config 5), B3 on 1024^2 primaries with tile lists and on 1M cosine
+   bounce rays from their hits with corridor-sorted per-lane lists, B4 on
+   1M NEE shadow rays, B5 on the primaries' winners (B3 and B4 against the
+   plain versions on a seeded sample of 64 tiles with the lists the cull
+   made for them: every lane bit-equal for B3, B4 and B5), and the checked
+   overflow fallback on the card;
+4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
+   on the gallery at 64^2 against ``tests/goldens`` (g-buffers, LTC and
+   the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE), RATIO at 64^2
+   over 4 frames against the port's own ``device="cpu"`` run of the same
+   frames (ltc 1e-4, the stochastic buffers 5e-3), and the terrain at
+   64^2 card against CPU (NORMALS 1e-4, PATH depth 4 5e-3);
 5. main path PATH: depth 4, ``scenes/cornell/scene.json`` at 1024^2,
    2 warm-up frames (under CUDA sync debugging: no frame may make the
    host wait for the card) then 16 timed frames;
@@ -35,12 +42,23 @@ non-zero):
 7. main path RATIO: the three-light Cornell at 1024^2 with 4 shadow
    samples per pixel, 2 warm-up frames under sync debugging, 16 timed
    frames, then denoise x2 and ratio-combine, checked for the invariants
-   of tests/integration/test_ratio_render.py.
+   of tests/integration/test_ratio_render.py;
+8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame (host
+   syncs counted: at most one per trace call), then 16 single frames,
+   each after ``set_camera``;
+9. main path config 6: the gallery, PATH depth 4 at 512^2, 2 warm-up
+   frames under sync debugging (no sync allowed), then 16 timed frames;
+10. main path config 5b: terrain PATH depth 4 at 1024^2, 1 warm-up frame
+   (syncs counted), then 2 timed frames.
 
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
-those three reads.  The last three lines are the kernels' JSON record, the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.
+those six reads.  Each kernel's ``bound_ms`` is the larger of the bytes it
+must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
+published H100 SXM peaks), counted from this run's inputs; B3 and B4 count
+the slab and ray/triangle tests their walk ran, read back from the kernel.
+The last three lines are the kernels' JSON record, the nvidia-smi line and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +90,29 @@ RTOL, ATOL = 1e-5, 1e-6
 # only a few lanes reach stays under test_ltc_pallas' loose bounds, not
 # under this floor
 LTC_BIT_EQUAL_MIN = 0.9999
+# the cluster tier: BASELINE config 5's terrain (2 * 707^2 = 999,698
+# heightfield triangles + the Cornell walls) and config 6's gallery
+TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 2
+GALLERY_RES = 512
+GALLERY_GOLDENS = {"gallery_diffuse": ("DIFFUSE", 1), "gallery_ltc": ("LTC_BASELINE", 1),
+                   "gallery_path": ("PATH", 2)}  # tests/goldens/generate.py GALLERY_MODES
+SAMPLE_TILES = 64  # the plain B3/B4 walk a seeded sample of the 1024 tiles
+# the forced fallback against the default list cap: the same hits, but the
+# lists run in another order, so a packed key tied between two clusters may
+# keep the other cluster's id (B3 takes a cid on a strict decrease only)
+FALLBACK_EQUAL_MIN = 0.9999
+FORCED_MAX_VISITS = 128  # a list cap that overflows on the terrain: the checked fallback must run
+# bounds: published peaks of one H100 SXM (NVIDIA data sheet, dense, without sparsity)
+PEAK_F32_OPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+MT_OPS = 53  # f32 operations of one Moller-Trumbore test, counted in csrc mt_row
+SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
+B6_OPS = 572  # f32 adds/multiplies, divisions and square roots of one ray-light pair (csrc/ltc.cu)
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least time in ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -234,7 +275,8 @@ def _random_ltc_operands(torch, cm, ltc, n: int, n_lights: int, device):
 
 
 def _no_implicit_syncs(torch, fn) -> list:
-    """Run ``fn`` under CUDA sync debugging; returns where it synchronized."""
+    """Run ``fn`` under CUDA sync debugging; returns where it synchronized,
+    once per sync."""
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -242,7 +284,95 @@ def _no_implicit_syncs(torch, fn) -> list:
             fn()  # Renderer.render ends in torch.cuda.synchronize(), which is not flagged
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sorted({f"{w.filename}:{w.lineno}" for w in caught if "synchronizing" in str(w.message)})
+    return sorted(f"{w.filename}:{w.lineno}" for w in caught if "synchronizing" in str(w.message))
+
+
+def _tile_sample(torch, n_tiles: int, tile: int, device):
+    """A seeded sample of SAMPLE_TILES tile ids (ascending) and their lanes."""
+    g = torch.Generator().manual_seed(SEED)
+    sel = torch.randperm(n_tiles, generator=g)[:SAMPLE_TILES].sort().values.to(device)
+    return sel, (sel[:, None] * tile + torch.arange(tile, device=device)[None, :]).reshape(-1)
+
+
+def _check_walk(torch, ct, kind: str, bvh, walk, o, d, extra, label: str) -> dict:
+    """B3 (``kind`` "closest", ``extra`` = (key0, cid0)) or B4 ("any",
+    ``extra`` = (t_max,)) over every tile of the cull products ``walk`` =
+    (lists, counts, scales, cid_bits), held against the plain version on
+    SAMPLE_TILES seeded tiles with the lists the cull made for them; times
+    the kernel on every tile, and the kernel and the plain version on the
+    sample in turns.  The bound counts the slab and ray/triangle tests the
+    kernel ran (its ``work`` counter), the rays, lists and outputs, and the
+    4 KB of table rows of every distinct listed cluster."""
+    lists, counts, scales, cb = walk
+    tab, cmin, cmax = bvh.tri_tab, bvh.cluster_min, bvh.cluster_max
+    closest = kind == "closest"
+    cuda_fn = ct.trace_closest_clusters_cuda if closest else ct.trace_any_clusters_cuda
+    plain_fn = ct.trace_closest_clusters_plain if closest else ct.trace_any_clusters_plain
+    work = torch.zeros(2, dtype=torch.int64, device=o.device)
+    full = cuda_fn(tab, cmin, cmax, lists, counts, scales, cb, o, d, *extra, work=work)
+    sel, lanes = _tile_sample(torch, lists.shape[0], ct.TILE, o.device)
+    sub = (tab, cmin, cmax, lists[sel].contiguous(), counts[sel].contiguous(), scales[sel].contiguous(), cb,
+           o[lanes].contiguous(), d[lanes].contiguous(), *(e[lanes].contiguous() for e in extra))
+    plain = plain_fn(*sub)
+    torch.cuda.synchronize()
+    if closest:
+        key_k, cid_k = full[0][lanes], full[1][lanes]
+        same = (key_k == plain[0]) & (cid_k == plain[1])
+        t_up = lambda k: (k | 63).view(torch.float32)  # noqa: E731
+        err = (t_up(key_k) - t_up(plain[0])).abs().max().item()
+        agree = same.float().mean().item()
+        # the same lists in the same order and the same f32 operations: every lane
+        _require(agree == 1.0, f"B3 {label}: key and cid differ from the plain version on {1 - agree:.7f} of lanes")
+        hits = int((plain[1] >= 0).sum().item())
+    else:
+        err = (full[lanes].float() - plain.float()).abs().max().item()
+        agree = (full[lanes] == plain).float().mean().item()
+        _require(agree == 1.0, f"B4 {label}: occlusion differs from the plain version on {1 - agree:.7f} of lanes")
+        hits = int(plain.sum().item())
+    ms = _time_ms(torch, lambda: cuda_fn(tab, cmin, cmax, lists, counts, scales, cb, o, d, *extra), 10)
+    ms_sample, plain_ms = _in_turns(torch, lambda: plain_fn(*sub), lambda: cuda_fn(*sub), 1, 10)
+    n = o.shape[0]
+    valid = torch.arange(lists.shape[1], device=o.device)[None, :] < counts[:, None]
+    n_clusters = torch.unique(lists[valid] & ((1 << cb) - 1)).numel()
+    listed = int(counts.sum().item())
+    ray_bytes = n * (24 + 16) if closest else n * (24 + 4 + 1)  # rays, key0/cid0 or t_max, outputs
+    n_bytes = ray_bytes + 4 * listed + 8 * lists.shape[0] + n_clusters * (64 * 16 * 4 + 24)
+    slabs, tests = (int(w) for w in work.tolist())
+    bound_ms, bound_by = _bound(n_bytes, slabs * SLAB_OPS + tests * MT_OPS)
+    name = "B3" if closest else "B4"
+    print(f"  {name} {label}: {n} rays, {lists.shape[0]} tiles, lists {tuple(lists.shape)}, {listed} entries "
+          f"({n_clusters} distinct clusters), {slabs} slab tests, {tests} ray/triangle tests; "
+          f"{SAMPLE_TILES}-tile sample: {hits} {'hits' if closest else 'occluded'}, "
+          f"{'key+cid bit-equal' if closest else 'equal'} {agree:.7f}, max |err| {err:.3g}; "
+          f"kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}); sample: kernel {ms_sample:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "sample_ms": ms_sample, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _sorted_lane_walk(torch, cluster, Ray, bvh, rays, active, t_max):
+    """What the port does with incoherent rays (accel/traverse.trace_closest_winners,
+    cluster.trace_any_clusters_sorted): inactive lanes become above-scene
+    up-rays, one supercluster sweep gives the corridor keys and t bounds,
+    the rays are sorted by key and culled per lane.  Returns (sorted origin,
+    direction, t bound, (lists, counts, scales, cid_bits), overflow,
+    per-lane cull ms)."""
+    C = bvh.num_clusters
+    rays_m = cluster.rays_above_scene(bvh, rays, active)
+    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, t_max)
+    perm = torch.argsort(keys)
+    o, d, te = (a[perm].contiguous() for a in (rays_m.origin, rays_m.direction, t_eff))
+    maxv = cluster._pad128(min(cluster._SC_KEEP * cluster._SC_GROUP, C))
+    n = o.shape[0]
+    cull = lambda: cluster.cull_clusters_per_lane(  # noqa: E731
+        bvh.cluster_min, bvh.cluster_max, Ray(origin=o, direction=d), te, n, maxv)
+    lists, counts, scales, overflow, _ = cull()
+    cull_ms = _time_ms(torch, cull, 1)
+    return o, d, te, (lists, counts, scales, cluster._cid_bits(C)), overflow, cull_ms
+
+
+def _stats_str(stats) -> str:
+    return ", ".join(f"{k} {int(v)}" for k, v in stats.items())
 
 
 def _golden_rmse(got, want) -> float:
@@ -271,25 +401,40 @@ def main() -> int:
     import numpy as np
 
     from optix_renderer_tpu_torch.accel import brute_trace as bt
+    from optix_renderer_tpu_torch.accel import cluster
+    from optix_renderer_tpu_torch.accel import cluster_trace as ct
     from optix_renderer_tpu_torch.core import math as cm
     from optix_renderer_tpu_torch.core import rng as rnglib
     from optix_renderer_tpu_torch.engine import RendererType
+    from optix_renderer_tpu_torch.core.types import Ray
     from optix_renderer_tpu_torch.engine.camera import primary_rays
-    from optix_renderer_tpu_torch.engine.renderer import Renderer
-    from optix_renderer_tpu_torch.engine.shade import trace_closest_si
+    from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
+    from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused, trace_closest_si
     from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
-    from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene
-    from optix_renderer_tpu_torch.shading import ltc
+    from optix_renderer_tpu_torch.integrators.path import RAY_EPS
+    from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene, write_terrain_scene
+    from optix_renderer_tpu_torch.shading import bsdf, ltc
     from optix_renderer_tpu_torch.shading import ltc_kernel as lk
     from optix_renderer_tpu_torch.utils import cuda_build
 
     def reset_counts():
         bt.reset_launch_counts()
         lk.reset_launch_counts()
+        ct.reset_launch_counts()
 
-    def counts():
-        return {**bt.LAUNCHES, **lk.LAUNCHES}
+    def launch_counts():
+        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES}
+
+    def expected(**launched):
+        return {**{k: 0 for k in launch_counts()}, **launched}
+
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"  ({name}: {now - phase_t0[0]:.1f} s)", flush=True)
+        phase_t0[0] = now
 
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -297,9 +442,10 @@ def main() -> int:
     smi = _nvidia_smi()
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    phase_done("phase 1")
 
     # ---- 2. build: one nvcc per library, all started together --------------
-    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES}
+    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(cuda_build.build_library, name, srcs) for name, srcs in libs.items()}
@@ -307,11 +453,13 @@ def main() -> int:
     build_wall = time.perf_counter() - t0
     bt.kernel_library()
     lk.kernel_library()
+    ct.kernel_library()
     print(f"[2 build] {len(libs)} libraries in {build_wall:.2f} s wall", flush=True)
     for name, (lib_path, build_s) in built.items():
         with open(lib_path + ".log") as f:
             usage = [ln.split("info    :")[-1].strip() for ln in f if "Used" in ln or "spill" in ln]
         print(f"  {os.path.relpath(lib_path, ROOT)} in {build_s:.2f} s; ptxas: {usage}", flush=True)
+    phase_done("phase 2")
 
     # ---- 3. kernels vs plain at the main paths' shapes --------------------
     cornell = parse_scene(os.path.join(ROOT, "scenes", "cornell", "scene.json"))
@@ -362,6 +510,123 @@ def main() -> int:
     print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain): "
           + "; ".join(f"B6 1024^2 {k} {v[0]:.4f} ms vs plain {v[1]:.4f} ms" for k, v in ltc_times.items()),
           flush=True)
+    # bounds: each input byte read once, each output byte written once
+    rows = tab.shape[0]
+    bound_c = _bound(n_px * (28 + 16) + rows * 40, n_px * rows * MT_OPS)
+    bound_a = _bound(BOUNCE_RAYS * (24 + 4 + 1) + rows * 40, int((btm_a > 0).sum().item()) * rows * MT_OPS)
+    n_l2, lights_l2 = ops_l2[0].shape[0], ops_l2[5].shape[0]
+    bound_l = _bound(n_l2 * 112 + lights_l2 * 64, n_l2 * lights_l2 * B6_OPS)
+    print(f"  bounds: B1 primary {bound_c[0]:.4f} ms ({bound_c[1]}), B2 shadow {bound_a[0]:.4f} ms ({bound_a[1]}), "
+          f"B6 L=2 {bound_l[0]:.4f} ms ({bound_l[1]})", flush=True)
+
+    # the cluster tier on the 1M-triangle terrain (BASELINE config 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        terrain = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRID, width=TERRAIN_RES, height=TERRAIN_RES))
+        rt = Renderer(terrain, width=TERRAIN_RES, height=TERRAIN_RES, mode=RendererType.NORMALS,
+                      path_depth=MAIN_DEPTH, device=dev)
+        setup_s = time.perf_counter() - t0
+    tb = rt.bvh
+    C = tb.num_clusters
+    _require(tb.clustered and tb.num_tris > 4096, "the terrain does not take the cluster tier")
+    print(f"  terrain: {tb.num_tris} triangles, {C} clusters, table {tuple(tb.tri_tab.shape)}, "
+          f"write + parse + build {setup_s:.1f} s", flush=True)
+    n_t = TERRAIN_RES * TERRAIN_RES
+    lin_t = pixel_order(TERRAIN_RES, TERRAIN_RES, dev)  # the renderer's block order
+    st = rnglib.make_rng(10007, lin_t)
+    st, ju = rnglib.lcg_randomf(st)
+    st, jv = rnglib.lcg_randomf(st)
+    prim_t = primary_rays(rt.state.camera, TERRAIN_RES, TERRAIN_RES, ju, jv, lin=lin_t)
+    cb = cluster._cid_bits(C)
+    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38)
+    maxv = cluster._pad128(min(cluster.DEFAULT_MAX_VISITS, C))
+    cull_p = lambda: cluster.cull_clusters(  # noqa: E731
+        tb.cluster_min, tb.cluster_max, prim_t, t_eff, n_t, maxv)
+    lists, counts, scales, overflow_p, _ = cull_p()
+    cull_p_ms = _time_ms(torch, cull_p, 3)
+    key0 = (t_eff.view(torch.int32) & ~63) | 63
+    cid0 = torch.full_like(key0, -1)
+    b3 = _check_walk(torch, ct, "closest", tb, (lists, counts, scales, cb), prim_t.origin, prim_t.direction,
+                     (key0, cid0), "terrain primary 1024^2, tile lists")
+    key_p, cid_p = ct.trace_closest_clusters_cuda(tb.tri_tab, tb.cluster_min, tb.cluster_max, lists, counts,
+                                                  scales, cb, prim_t.origin, prim_t.direction, key0, cid0)
+    # B5 on the primaries' winners, every lane
+    cols_k = ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key_p, cid_p)
+    cols_p = ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key_p, cid_p)
+    torch.cuda.synchronize()
+    _require(bool((cols_k == cols_p).all()), "B5: winner attributes differ from the plain gather")
+    err_b5 = (cols_k - cols_p).abs().max().item()
+    win_rows, _ = ct.winner_rows(key_p, cid_p)
+    tab26 = torch.cat([tb.shade_a, tb.shade_b[:, :6]], dim=1)  # the library call's table, made once
+    ms_b5, plain_b5 = _in_turns(torch, lambda: ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key_p, cid_p),
+                                lambda: ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key_p, cid_p), 10, 50)
+    lib_b5 = _time_ms(torch, lambda: torch.index_select(tab26, 0, win_rows), 50)
+    hits_p = int((cid_p >= 0).sum().item())
+    # bytes: key and cid in, the (26, N) columns out, and the 26 used
+    # columns of each distinct winning row read once
+    distinct_p = torch.unique(win_rows[cid_p >= 0]).numel()
+    bound_b5 = _bound(n_t * 8 + n_t * ct.N_SHADE_ATTR * 4 + distinct_p * ct.N_SHADE_ATTR * 4, 0)
+    print(f"  B5 terrain primary winners: {n_t} lanes, {hits_p} hits ({distinct_p} distinct triangles), "
+          f"bit-equal on every lane; kernel "
+          f"{ms_b5:.4f} ms vs plain {plain_b5:.4f} ms, torch.index_select of the same rows {lib_b5:.4f} ms, "
+          f"bound {bound_b5[0]:.4f} ms ({bound_b5[1]})", flush=True)
+
+    # 1M cosine bounce rays from the primary hits, and 1M NEE shadow rays
+    si_p = build_surface_interaction_fused(rt.device_scene, prim_t, cid_p, cols_k)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand((4, n_t), generator=g, device=dev)
+    _, to_world = cm.orthonormal_basis(si_p.n_geom)
+    d_b = cm.normalize(cm.apply_mat(to_world, bsdf.sample_cosine_hemisphere(u[0], u[1])), eps=1e-30)
+    org_b = si_p.p + si_p.n_geom * RAY_EPS
+    bounce = Ray(origin=org_b, direction=d_b)
+    ob, db, teb, walk_b, overflow_b, cull_b_ms = _sorted_lane_walk(torch, cluster, Ray, tb, bounce, si_p.hit,
+                                                                   3.0e38)
+    b3b = _check_walk(torch, ct, "closest", tb, walk_b, ob, db,
+                      ((teb.view(torch.int32) & ~63) | 63, torch.full_like(key0, -1)),
+                      "terrain 1M cosine bounce, corridor-sorted per-lane lists")
+    ds_t = rt.device_scene
+    lidx = torch.randint(0, ds_t.num_lights, (n_t,), generator=g, device=dev)
+    lp = cm.sample_point_on_triangle(ds_t.light_v1[lidx], ds_t.light_v2[lidx], ds_t.light_v3[lidx], u[2], u[3])
+    to_light = lp - org_b
+    dist = cm.length(to_light)
+    ldir = to_light / torch.clamp(dist, min=1e-30)[:, None]
+    needed = si_p.hit & ~si_p.is_light & (cm.dot(si_p.n_geom, ldir) > 0.0)
+    tm_s = torch.where(needed, dist * (1.0 - 1e-3), 0.0)
+    shadow = Ray(origin=org_b, direction=ldir)
+    os_, ds_, tes, walk_s, overflow_s, cull_s_ms = _sorted_lane_walk(torch, cluster, Ray, tb, shadow, tm_s > 0.0,
+                                                                     tm_s)
+    b4 = _check_walk(torch, ct, "any", tb, walk_s, os_, ds_, (tes,), "terrain 1M NEE shadow, per-lane lists")
+    print(f"  culls (CUDA events): tile-frustum cull of the 1024^2 primaries {cull_p_ms:.3f} ms "
+          f"(overflow {int(overflow_p.sum().item())}); per-lane cull of the bounce rays {cull_b_ms:.3f} ms "
+          f"(overflow {int(overflow_b.sum().item())}), of the shadow rays {cull_s_ms:.3f} ms "
+          f"(overflow {int(overflow_s.sum().item())})", flush=True)
+
+    # the checked overflow fallback on the card: the port's trace entry
+    # points on the same rays, then a list cap that overflows
+    ct.reset_launch_counts()
+    _, _, _, st_b = cluster.trace_closest_clusters_packed(tb, Ray(origin=ob, direction=db), refine=True, t_eff=teb)
+    _, st_s = cluster.trace_any_clusters(tb, Ray(origin=os_, direction=ds_), refine=True, t_eff=tes)
+    default_max_visits = cluster.DEFAULT_MAX_VISITS
+    cluster.DEFAULT_MAX_VISITS = FORCED_MAX_VISITS
+    try:
+        key_f, cid_f, _, st_f = cluster.trace_closest_clusters_packed(tb, prim_t)
+    finally:
+        cluster.DEFAULT_MAX_VISITS = default_max_visits
+    key_e, cid_e, _, st_e = cluster.trace_closest_clusters_packed(tb, prim_t)
+    torch.cuda.synchronize()
+    fb_launches = dict(ct.LAUNCHES)
+    _require(int(st_f["retraced"]) > 0 and int(st_f["unresolved_tiles"]) > 0,
+             f"DEFAULT_MAX_VISITS={FORCED_MAX_VISITS} left no tile unresolved: {_stats_str(st_f)}")
+    same = ((key_f == key_e) & (cid_f == cid_e)).float().mean().item()
+    _require(same >= FALLBACK_EQUAL_MIN,
+             f"the checked fallback changed key and cid on {1 - same:.7f} of lanes "
+             f"(DEFAULT_MAX_VISITS={FORCED_MAX_VISITS})")
+    print(f"  checked fallback on the card: bounce trace {_stats_str(st_b)}; shadow trace {_stats_str(st_s)}; "
+          f"primaries at DEFAULT_MAX_VISITS={FORCED_MAX_VISITS}: {_stats_str(st_f)}, key+cid equal to the default "
+          f"cap's ({_stats_str(st_e)}) on {same:.7f} of lanes; launches {fb_launches}", flush=True)
+    del bounce, shadow, ob, db, teb, walk_b, os_, ds_, tes, walk_s, si_p, cols_k, cols_p, tab26, u
+    del lists, counts, scales, key_f, cid_f, key_e, cid_e, lp, to_light, ldir, org_b, d_b
+    phase_done("phase 3")
 
     # ---- 4. the slice against the committed goldens ------------------------
     goldens = {"mask": RendererType.MASK, "normal": RendererType.NORMALS,
@@ -392,10 +657,38 @@ def main() -> int:
         for k, err in ratio_rmse.items():
             tol = 5e-3 if k.startswith("sto") else 1e-4
             _require(err < tol, f"RATIO card vs cpu {k}: relative RMSE {err:.3g} >= {tol}")
+    gallery = parse_scene(os.path.join(ROOT, "scenes", "gallery", "scene.json"))
+    for name, (mode, spp) in GALLERY_GOLDENS.items():
+        g = Renderer(gallery, width=GOLDEN_RES, height=GOLDEN_RES, mode=RendererType[mode],
+                     path_depth=GOLDEN_DEPTH, device=dev)
+        _require(g.bvh.clustered, "the gallery does not take the cluster tier")
+        g.render(spp)
+        want = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npy"))
+        got = g.image()
+        _require(got.shape == want.shape, f"golden {name}: shape {got.shape} != {want.shape}")
+        rmse[name] = _golden_rmse(got, want)
+        tol = 5e-3 if mode == "PATH" else 1e-4
+        _require(rmse[name] < tol, f"golden {name}: relative RMSE {rmse[name]:.3g} >= {tol}")
+    # the terrain at 64^2: the card against the port's plain versions on the CPU
+    terrain_rmse = {}
+    for mode, tol in ((RendererType.NORMALS, 1e-4), (RendererType.PATH, 5e-3)):
+        imgs = []
+        for device in (dev, "cpu"):
+            g = Renderer(terrain, width=GOLDEN_RES, height=GOLDEN_RES, mode=mode, path_depth=GOLDEN_DEPTH,
+                         device=device)
+            g.render(1)
+            imgs.append(g.image())
+        terrain_rmse[mode.name] = _golden_rmse(*imgs)
+        _require(terrain_rmse[mode.name] < tol,
+                 f"terrain {mode.name} card vs cpu: relative RMSE {terrain_rmse[mode.name]:.3g} >= {tol}")
+    del g
     print("[4 goldens] relative RMSE vs tests/goldens (tol 1e-4, path 5e-3): "
           + ", ".join(f"{k} {v:.3g}" for k, v in rmse.items())
           + f"; RATIO {GOLDEN_RES}^2 x {GOLDEN_RATIO_FRAMES} frames, card vs cpu (tol 1e-4, sto 5e-3): "
-          + ", ".join(f"{k} {v:.3g}" for k, v in ratio_rmse.items()), flush=True)
+          + ", ".join(f"{k} {v:.3g}" for k, v in ratio_rmse.items())
+          + f"; terrain {GOLDEN_RES}^2 depth {GOLDEN_DEPTH} card vs cpu (NORMALS 1e-4, PATH 5e-3): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in terrain_rmse.items()), flush=True)
+    phase_done("phase 4")
 
     # ---- 5. main path PATH at full size -------------------------------------
     syncs = _no_implicit_syncs(torch, lambda: r.render(WARMUP_FRAMES))
@@ -404,13 +697,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     r.render(TIMED_FRAMES)
-    launches_path = counts()
+    launches_path = launch_counts()
     m1 = dict(r.metrics)
     img = r.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3), f"image shape {img.shape}")
     _require(bool(np.isfinite(img).all()), "image has non-finite values")
     _require(float(img.mean()) > 0.0, "image is black")
-    want = {"brute_closest": TIMED_FRAMES * (1 + MAIN_DEPTH), "brute_any": TIMED_FRAMES * MAIN_DEPTH, "ltc": 0}
+    want = expected(brute_closest=TIMED_FRAMES * (1 + MAIN_DEPTH), brute_any=TIMED_FRAMES * MAIN_DEPTH)
     _require(launches_path == want, f"PATH launch counts {launches_path}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -421,6 +714,7 @@ def main() -> int:
           f"peak {peak_gib:.3f} GiB, launches {launches_path}, implicit syncs in {WARMUP_FRAMES} warm-up frames: "
           f"{len(syncs)}, on {smi}", flush=True)
     del r
+    phase_done("phase 5")
 
     # ---- 6. main path LTC_BASELINE at full size -----------------------------
     rl.render(1)  # warm-up
@@ -431,8 +725,8 @@ def main() -> int:
         s0 = rl.metrics["seconds"]
         rl.render(1)
         secs += rl.metrics["seconds"] - s0
-    launches_ltc = counts()
-    want = {"brute_closest": TIMED_FRAMES, "brute_any": 0, "ltc": TIMED_FRAMES}
+    launches_ltc = launch_counts()
+    want = expected(brute_closest=TIMED_FRAMES, ltc=TIMED_FRAMES)
     _require(launches_ltc == want, f"LTC_BASELINE launch counts {launches_ltc}, expected {want}")
     img = rl.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
@@ -441,6 +735,7 @@ def main() -> int:
           f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {TIMED_FRAMES * n_px / secs / 1e6:.3f} Mrays/s "
           f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}, on {smi}", flush=True)
     del rl, ops_l2
+    phase_done("phase 6")
 
     # ---- 7. main path RATIO at full size, then denoise and combine ---------
     syncs = _no_implicit_syncs(torch, lambda: rr.render(WARMUP_FRAMES))
@@ -448,9 +743,9 @@ def main() -> int:
     m0 = dict(rr.metrics)
     reset_counts()
     rr.render(TIMED_FRAMES)
-    launches_ratio = counts()
+    launches_ratio = launch_counts()
     m1 = dict(rr.metrics)
-    want = {"brute_closest": TIMED_FRAMES, "brute_any": TIMED_FRAMES, "ltc": TIMED_FRAMES}
+    want = expected(brute_closest=TIMED_FRAMES, brute_any=TIMED_FRAMES, ltc=TIMED_FRAMES)
     _require(launches_ratio == want, f"RATIO launch counts {launches_ratio}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -476,23 +771,132 @@ def main() -> int:
           f"implicit syncs in {WARMUP_FRAMES} warm-up frames: {len(syncs)}; denoise x2 + ratio_combine "
           f"{post_ms:.3f} ms (CUDA events), ratio_final mean {shadowed:.5f} vs LTC {unshadowed:.5f} on lit "
           f"pixels, on {smi}", flush=True)
+    del rr, aux
+    phase_done("phase 7")
 
-    launches = {k: launches_path[k] + launches_ltc[k] + launches_ratio[k] for k in launches_path}
+    # ---- 8. main path config 5: terrain NORMALS at 1024^2 -------------------
+    def stats_of(m):
+        return {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")}
+
+    syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
+    _require(len(syncs) <= 1, f"terrain NORMALS: {len(syncs)} host syncs in one frame (one trace call): {syncs}")
+    m0 = dict(rt.metrics)
+    reset_counts()
+    secs = 0.0
+    for _ in range(TERRAIN_FRAMES):
+        rt.set_camera(terrain.cameras[0])  # a deterministic mode renders one frame per accumulation
+        s0 = rt.metrics["seconds"]
+        rt.render(1)
+        secs += rt.metrics["seconds"] - s0
+    launches_c5 = launch_counts()
+    m1 = dict(rt.metrics)
+    st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
+    _require(launches_c5["cluster_closest"] >= TERRAIN_FRAMES
+             and launches_c5 == expected(cluster_closest=launches_c5["cluster_closest"], winner_attrs=TERRAIN_FRAMES),
+             f"config 5 launch counts {launches_c5}")
+    img = rt.image()
+    _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all())
+             and float(np.abs(img).mean()) > 0.0,  # normals: signed components
+             f"terrain NORMALS image: shape {img.shape}, mean |value| {np.abs(img).mean()}")
+    print(f"[8 main path] config 5: terrain NORMALS {TERRAIN_RES}^2 ({tb.num_tris} triangles), {TERRAIN_FRAMES} "
+          f"single frames after 1 warm-up: {secs / TERRAIN_FRAMES * 1e3:.3f} ms/frame, "
+          f"{TERRAIN_FRAMES * n_t / secs / 1e6:.3f} Mrays/s (primary rays), image mean {img.mean():.5f}, "
+          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frame: {len(syncs)}, on {smi}",
+          flush=True)
+    phase_done("phase 8")
+
+    # ---- 9. main path config 6: gallery PATH depth 4 at 512^2 ---------------
+    rg = Renderer(gallery, width=GALLERY_RES, height=GALLERY_RES, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
+                  device=dev)
+    syncs = _no_implicit_syncs(torch, lambda: rg.render(WARMUP_FRAMES))
+    _require(not syncs, f"the gallery PATH render loop synchronizes with the card at {syncs}")
+    m0 = dict(rg.metrics)
+    reset_counts()
+    rg.render(TIMED_FRAMES)
+    launches_c6 = launch_counts()
+    m1 = dict(rg.metrics)
+    traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
+    want = expected(cluster_closest=traces, cluster_any=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
+    _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
+    st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
+    _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
+    img = rg.image()
+    _require(img.shape == (GALLERY_RES, GALLERY_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+             f"gallery PATH image: shape {img.shape}, mean {img.mean()}")
+    secs = m1["seconds"] - m0["seconds"]
+    rays = m1["rays_traced"] - m0["rays_traced"]
+    print(f"[9 main path] config 6: gallery PATH depth {MAIN_DEPTH} {GALLERY_RES}^2 ({rg.bvh.num_tris} triangles, "
+          f"{rg.bvh.num_clusters} clusters), {TIMED_FRAMES} frames after {WARMUP_FRAMES} warm-up: "
+          f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
+          f"image mean {img.mean():.5f}, launches {launches_c6}, trace stats {st6}, implicit syncs in "
+          f"{WARMUP_FRAMES} warm-up frames: {len(syncs)}, on {smi}", flush=True)
+    del rg
+    phase_done("phase 9")
+
+    # ---- 10. main path config 5b: terrain PATH depth 4 at 1024^2 ------------
+    rt.set_mode(RendererType.PATH)
+    traces = 1 + 2 * MAIN_DEPTH  # primary, then NEE and bounce per bounce
+    syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
+    _require(len(syncs) <= traces, f"terrain PATH: {len(syncs)} host syncs in one frame of {traces} trace calls")
+    m0 = dict(rt.metrics)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    rt.render(TERRAIN_PATH_FRAMES)
+    launches_c5b = launch_counts()
+    m1 = dict(rt.metrics)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
+    n_fr = TERRAIN_PATH_FRAMES
+    _require(launches_c5b["cluster_closest"] >= n_fr * (1 + MAIN_DEPTH)
+             and launches_c5b["cluster_any"] >= n_fr * MAIN_DEPTH
+             and launches_c5b == expected(cluster_closest=launches_c5b["cluster_closest"],
+                                          cluster_any=launches_c5b["cluster_any"],
+                                          winner_attrs=n_fr * (1 + MAIN_DEPTH)),
+             f"config 5b launch counts {launches_c5b}")
+    img = rt.image()
+    _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+             f"terrain PATH image: shape {img.shape}, mean {img.mean()}")
+    secs = m1["seconds"] - m0["seconds"]
+    rays = m1["rays_traced"] - m0["rays_traced"]
+    print(f"[10 main path] config 5b: terrain PATH depth {MAIN_DEPTH} {TERRAIN_RES}^2, {n_fr} frames after 1 "
+          f"warm-up: {secs / n_fr * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
+          f"image mean {img.mean():.5f}, peak {peak_gib:.3f} GiB, launches {launches_c5b}, trace stats {st5b}, "
+          f"host syncs in the warm-up frame: {len(syncs)} ({traces} trace calls), on {smi}", flush=True)
+    phase_done("phase 10")
+
+    launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,
+                                      launches_c5b)) for k in launches_path}
     src = "optix_renderer_tpu_torch/csrc/brute_trace.cu"
+    csrc = "optix_renderer_tpu_torch/csrc/cluster_trace.cu"
+    pc = "optix_renderer_tpu/accel/pallas_cluster.py"
     record = {"kernels": [
         {"name": "brute_closest", "route": "cuda", "source": src,
          "replaces": "optix_renderer_tpu/accel/pallas_trace.py:88",
-         "launches": launches["brute_closest"], "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c},
+         "launches": launches["brute_closest"], "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
+         "bound_ms": bound_c[0], "bound_by": bound_c[1], "library_ms": None},
         {"name": "brute_any", "route": "cuda", "source": src,
          "replaces": "optix_renderer_tpu/accel/pallas_trace.py:124",
-         "launches": launches["brute_any"], "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a},
+         "launches": launches["brute_any"], "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
+         "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
+        {"name": "cluster_closest", "route": "cuda", "source": csrc, "replaces": f"{pc}:848",
+         "launches": launches["cluster_closest"], "max_abs_err": max(b3["max_abs_err"], b3b["max_abs_err"]),
+         "ms": b3["ms"], "plain_ms": b3["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b3["sample_ms"],
+         "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"], "library_ms": None},
+        {"name": "cluster_any", "route": "cuda", "source": csrc, "replaces": f"{pc}:1020",
+         "launches": launches["cluster_any"], "max_abs_err": b4["max_abs_err"], "ms": b4["ms"],
+         "plain_ms": b4["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b4["sample_ms"],
+         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"], "library_ms": None},
+        {"name": "winner_attrs", "route": "cuda", "source": csrc, "replaces": f"{pc}:1657",
+         "launches": launches["winner_attrs"], "max_abs_err": err_b5, "ms": ms_b5, "plain_ms": plain_b5,
+         "bound_ms": bound_b5[0], "bound_by": bound_b5[1], "library_ms": lib_b5},
         {"name": "ltc", "route": "cuda", "source": "optix_renderer_tpu_torch/csrc/ltc.cu",
          "replaces": "optix_renderer_tpu/shading/ltc_pallas.py:154",
          "launches": launches["ltc"], "max_abs_err": err_l, "ms": ltc_times["L=2"][0],
-         "plain_ms": ltc_times["L=2"][1]},
+         "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None},
     ]}
     _require(all(k["launches"] > 0 for k in record["kernels"]), f"a kernel never ran on a main path: {launches}")
-    _require(all(math.isfinite(k[f]) for k in record["kernels"] for f in ("max_abs_err", "ms", "plain_ms")),
+    _require(all(math.isfinite(k[f]) for k in record["kernels"]
+                 for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
              "non-finite number in the kernels record")
     print(json.dumps(record))
     print(smi)

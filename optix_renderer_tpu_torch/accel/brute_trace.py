@@ -62,17 +62,18 @@ def kernel_library() -> ctypes.CDLL:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _mt_chunk(tri: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_cur: torch.Tensor):
-    """Moller-Trumbore of an (8, 16) chunk against N rays, in the operation
-    order of pallas_trace.py::_mt_chunk.  Returns (hit, t, u, v), each
-    (N, 8); ``hit`` includes ``t < t_cur``."""
-    c = lambda j: tri[:, j][None, :]  # (1, 8)
-    v0x, v0y, v0z = c(0), c(1), c(2)
-    e1x, e1y, e1z = c(3), c(4), c(5)
-    e2x, e2y, e2z = c(6), c(7), c(8)
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]  # (N, 1)
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-
+def moller_trumbore(col, o, d):
+    """No-cull Moller-Trumbore in the operation order of the CUDA kernels
+    (csrc ``mt_row``) and of pallas_trace.py::_mt_chunk.  ``col(j)`` is
+    column j of the triangle rows (v0 0-2, e1 3-5, e2 6-8 of the packed
+    table); ``o`` and ``d`` are the ray origin's and direction's (x, y, z)
+    components; all broadcast together.  Returns (hit without a t bound,
+    t, u, v)."""
+    v0x, v0y, v0z = col(0), col(1), col(2)
+    e1x, e1y, e1z = col(3), col(4), col(5)
+    e2x, e2y, e2z = col(6), col(7), col(8)
+    ox, oy, oz = o
+    dx, dy, dz = d
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -88,6 +89,14 @@ def _mt_chunk(tri: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_cur: torch.
     v = (dx * qx + dy * qy + dz * qz) * inv
     t = (e2x * qx + e2y * qy + e2z * qz) * inv
     hit = (det.abs() >= 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return hit, t, u, v
+
+
+def _mt_chunk(tri: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_cur: torch.Tensor):
+    """Moller-Trumbore of an (8, 16) chunk against N rays.  Returns (hit,
+    t, u, v), each (N, 8); ``hit`` includes ``t < t_cur``."""
+    hit, t, u, v = moller_trumbore(lambda j: tri[:, j][None, :], (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
+                                   (d[:, 0:1], d[:, 1:2], d[:, 2:3]))
     return hit & (t < t_cur[:, None]), t, u, v
 
 

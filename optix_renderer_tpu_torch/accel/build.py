@@ -1,12 +1,19 @@
-"""Host build of the brute-force tier's triangle table (numpy), uploaded as
-tensors.
+"""Host build of the trace tables (numpy), uploaded as tensors.
 
-Counterpart of the small-scene half of ``optix_renderer_tpu/accel/build.py``:
+Counterpart of ``optix_renderer_tpu/accel/build.py`` without its skip-link
+node tree (the port's CPU tier is the plain versions of the kernels):
 triangles are sorted by the Morton code of their centroid (stable sort),
-split into v0/e1/e2, and packed into the (Tpad, 16) table that the trace
-kernels read (``pack_tri_table``; Tpad a multiple of 8, pad rows degenerate
-with prim = -1).  The skip-link node tree and the clusters belong to the
-big-scene tier, which this package does not have yet.
+split into v0/e1/e2, and packed into the flat (Tpad, 16) table that the
+trace kernels read (``pack_tri_table``; pad rows degenerate with prim =
+-1).
+
+Scenes above ``BRUTE_MAX_TRIS`` take the cluster tier
+(``accel.cluster``): the Morton order is cut into fixed runs of
+``CLUSTER_SIZE`` triangles whose AABBs feed the cull, the table is padded
+to a multiple of 64 rows so that cluster ``c`` is rows ``[64c, 64c+64)``
+(4 KB, contiguous; the JAX package's (C*8, 128) grouped layout exists only
+because Mosaic cannot read at a lane offset), and the fused shading rows
+``shade_a``/``shade_b`` are stored in sorted order.
 """
 
 from __future__ import annotations
@@ -16,32 +23,42 @@ import dataclasses
 import numpy as np
 import torch
 
-BRUTE_MAX_TRIS = 4096
-TRI_SUB = 8  # table rows are padded to a multiple of this
+BRUTE_MAX_TRIS = 4096  # the dispatch threshold: above it, the cluster tier
+TRI_SUB = 8  # brute-tier table rows are padded to a multiple of this
+CLUSTER_SIZE = 64  # triangles per cluster (cluster tier)
+ATTR_NRM_COLS = 12  # corner-normal group row width (9 used)
+ATTR_UVM_COLS = 8  # uv/mesh/area group row width (8 used)
+SHADE_A_COLS = 20  # fused decode+shade row: v0 e1 e2 | n1 n2 n3 | mesh prim
+SHADE_B_COLS = 8  # corner uvs (6 used)
 
 
 @dataclasses.dataclass
 class BVH:
-    """Brute-tier acceleration data (tensors on one device)."""
+    """Trace tables (tensors on one device)."""
 
     tri_v0: torch.Tensor  # (T, 3) f32, Morton-sorted order
     tri_e1: torch.Tensor  # (T, 3) f32 (v1 - v0)
     tri_e2: torch.Tensor  # (T, 3) f32 (v2 - v0)
     prim_id: torch.Tensor  # (T,) i32 sorted slot -> original triangle id
-    tri_tab: torch.Tensor  # (Tpad, 16) f32 packed table (pack_tri_table layout)
+    tri_tab: torch.Tensor  # (Tpad, 16) f32 packed table (pack_tri_table layout);
+    # Tpad a multiple of 64 on the cluster tier, so cluster c is rows [64c, 64c+64)
+    cluster_min: torch.Tensor  # (C, 3) f32 AABBs of the 64-triangle Morton runs
+    cluster_max: torch.Tensor  # (C, 3) f32
+    shade_a: torch.Tensor  # (Tp, SHADE_A_COLS) f32 sorted order; (1, cols) on the brute tier
+    shade_b: torch.Tensor  # (Tp, SHADE_B_COLS) f32
 
     @property
     def num_tris(self) -> int:
         return self.tri_v0.shape[0]
 
+    @property
+    def num_clusters(self) -> int:
+        return self.cluster_min.shape[0]
 
-def check_brute_size(T: int) -> None:
-    if T > BRUTE_MAX_TRIS:
-        raise NotImplementedError(
-            f"scene has {T} triangles; the port traces at most {BRUTE_MAX_TRIS} "
-            "(the brute-force tier). Larger scenes need the cluster tier, "
-            "ROADMAP.md queue A slice 3."
-        )
+    @property
+    def clustered(self) -> bool:
+        """Does this scene take the cluster tier?"""
+        return self.num_tris > BRUTE_MAX_TRIS
 
 
 def morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -83,14 +100,36 @@ def pack_tri_table(tri_v0, tri_e1, tri_e2, prim_id, normal=None, mesh_id=None,
     return tab
 
 
+def pack_attr_tab(n_corner, uv_corner, tri_mesh, area):
+    """Per-triangle attribute rows in ORIGINAL triangle order, split into
+    the (normals, uv+mesh+area) groups the shade rows are built from.
+
+    n_corner (T, 3, 3) per-corner normals, uv_corner (T, 3, 2) per-corner
+    uvs, tri_mesh (T,), area (T,).  Mesh ids are exact as f32 below 2^24.
+    """
+    T = len(tri_mesh)
+    nrm = np.zeros((T, ATTR_NRM_COLS), np.float32)
+    nrm[:, 0:9] = np.asarray(n_corner, np.float32).reshape(T, 9)
+    uvm = np.zeros((T, ATTR_UVM_COLS), np.float32)
+    uvm[:, 0:6] = np.asarray(uv_corner, np.float32).reshape(T, 6)
+    uvm[:, 6] = np.asarray(tri_mesh, np.float32)
+    uvm[:, 7] = np.asarray(area, np.float32)
+    return nrm, uvm
+
+
 def build_bvh(tri_verts: np.ndarray, device, tri_normal: np.ndarray | None = None,
-              tri_mesh: np.ndarray | None = None) -> BVH:
-    """Build from (T, 3, 3) float32 triangle vertices into tensors on ``device``."""
+              tri_mesh: np.ndarray | None = None, tri_attr=None) -> BVH:
+    """Build from (T, 3, 3) float32 triangle vertices into tensors on ``device``.
+
+    ``tri_attr`` is the ``pack_attr_tab`` pair in ORIGINAL triangle order;
+    the cluster tier (above ``BRUTE_MAX_TRIS``) needs it for its shade rows.
+    """
     tri_verts = np.asarray(tri_verts, np.float32)
     T = tri_verts.shape[0]
     if T == 0:
         raise ValueError("empty scene")
-    check_brute_size(T)
+    if T > BRUTE_MAX_TRIS and tri_attr is None:
+        raise ValueError(f"a scene above {BRUTE_MAX_TRIS} triangles needs tri_attr (pack_attr_tab) for its shade rows")
 
     tmin = tri_verts.min(axis=1)
     tmax = tri_verts.max(axis=1)
@@ -104,24 +143,65 @@ def build_bvh(tri_verts: np.ndarray, device, tri_normal: np.ndarray | None = Non
     v0 = tri_verts[order, 0]
     e1 = tri_verts[order, 1] - v0
     e2 = tri_verts[order, 2] - v0
+
+    # cluster AABBs over fixed-size Morton runs
+    C = -(-T // CLUSTER_SIZE)
+    cmin = np.full((C, 3), np.inf, np.float32)
+    cmax = np.full((C, 3), -np.inf, np.float32)
+    cid = np.arange(T) // CLUSTER_SIZE
+    np.minimum.at(cmin, cid, tmin[order])
+    np.maximum.at(cmax, cid, tmax[order])
+
     area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
     tri_tab = pack_tri_table(
         v0, e1, e2, order,
         normal=None if tri_normal is None else np.asarray(tri_normal)[order],
         mesh_id=None if tri_mesh is None else np.asarray(tri_mesh)[order],
-        area=area,
+        area=area, pad_to=CLUSTER_SIZE if T > BRUTE_MAX_TRIS else TRI_SUB,
     )
-    return bvh_from_numpy({"tri_tab": tri_tab, "tri_v0": v0, "tri_e1": e1, "tri_e2": e2, "prim_id": order},
+    shade_a = np.zeros((1, SHADE_A_COLS), np.float32)
+    shade_b = np.zeros((1, SHADE_B_COLS), np.float32)
+    if T > BRUTE_MAX_TRIS:
+        nrm_o = np.asarray(tri_attr[0], np.float32)
+        uvm_o = np.asarray(tri_attr[1], np.float32)
+        Tp = -(-T // TRI_SUB) * TRI_SUB
+        shade_a = np.zeros((Tp, SHADE_A_COLS), np.float32)
+        shade_a[:T, 0:3] = v0
+        shade_a[:T, 3:6] = e1
+        shade_a[:T, 6:9] = e2
+        shade_a[:T, 9:18] = nrm_o[order, 0:9]
+        shade_a[:T, 18] = uvm_o[order, 6]  # mesh id (exact f32 < 2^24)
+        shade_a[:T, 19] = order  # original prim id
+        shade_a[T:, 19] = -1.0
+        shade_b = np.zeros((Tp, SHADE_B_COLS), np.float32)
+        shade_b[:T, 0:6] = uvm_o[order, 0:6]
+    return bvh_from_numpy({"tri_tab": tri_tab, "tri_v0": v0, "tri_e1": e1, "tri_e2": e2, "prim_id": order,
+                           "cluster_min": cmin, "cluster_max": cmax, "shade_a": shade_a, "shade_b": shade_b},
                           device)
 
 
+def flat_from_grouped(grouped: np.ndarray) -> np.ndarray:
+    """The JAX package's (C*8, 128) grouped cluster table as the port's flat
+    (C*64, 16) table: triangle ``g*8 + s`` of cluster c sits at [8c + s,
+    g*16 + j] there and at row 64c + g*8 + s here.  Column 15, where the
+    grouped layout carries the cluster bounds, is zeroed."""
+    C = grouped.shape[0] // 8
+    flat = grouped.reshape(C, 8, 8, 16).transpose(0, 2, 1, 3).reshape(C * 64, 16).copy()
+    flat[:, 15] = 0.0
+    return flat
+
+
 def bvh_from_numpy(arrs: dict, device) -> BVH:
-    """Upload brute-tier build products as numpy arrays: the JAX package's
-    ``build_bvh(..., _as_arrays=True)`` (extra keys are ignored)."""
+    """Upload build products as numpy arrays, the port's or the JAX
+    package's ``build_bvh(..., _as_arrays=True)`` (extra keys are
+    ignored; a grouped cluster table is regrouped flat)."""
     tri_tab = np.asarray(arrs["tri_tab"], np.float32)
-    check_brute_size(np.asarray(arrs["tri_v0"]).shape[0])
-    if tri_tab.ndim != 2 or tri_tab.shape[1] != 16 or tri_tab.shape[0] % TRI_SUB:
-        raise ValueError(f"tri_tab must be the flat (Tpad, 16) brute-tier table, got {tri_tab.shape}")
+    if tri_tab.shape[1] == 128:
+        tri_tab = flat_from_grouped(tri_tab)
+    T = np.asarray(arrs["tri_v0"]).shape[0]
+    pad = CLUSTER_SIZE if T > BRUTE_MAX_TRIS else TRI_SUB
+    if tri_tab.ndim != 2 or tri_tab.shape[1] != 16 or tri_tab.shape[0] % pad:
+        raise ValueError(f"tri_tab must be the flat (Tpad, 16) table with Tpad % {pad} == 0, got {tri_tab.shape}")
 
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
@@ -132,4 +212,8 @@ def bvh_from_numpy(arrs: dict, device) -> BVH:
         tri_e2=f32(arrs["tri_e2"]),
         prim_id=torch.tensor(np.asarray(arrs["prim_id"], np.int32), device=device),
         tri_tab=f32(tri_tab),
+        cluster_min=f32(arrs["cluster_min"]),
+        cluster_max=f32(arrs["cluster_max"]),
+        shade_a=f32(arrs["shade_a"]),
+        shade_b=f32(arrs["shade_b"]),
     )

@@ -1,0 +1,342 @@
+"""Cluster-tier kernels B3 (closest hit), B4 (occlusion) and B5 (winner
+attributes).
+
+Counterpart of the Pallas half of ``optix_renderer_tpu/accel/pallas_cluster.py``
+(``_closest_cluster_kernel``, ``_any_cluster_kernel``,
+``_winner_attr_kernel``).  Each kernel has three pieces here:
+
+* the wrapper (``*_cuda``), which checks its inputs, allocates the outputs
+  and launches the hand-written CUDA kernel in ``csrc/cluster_trace.cu`` on
+  the current stream, counting each launch in ``LAUNCHES``;
+* the plain PyTorch version (``*_plain``), which applies the kernel's
+  per-lane rules in the same f32 order;
+* the router (``trace_closest_clusters``, ``trace_any_clusters``,
+  ``fetch_winner_attrs``): a CUDA tensor launches the kernel, a CPU tensor
+  runs the plain version, any other device raises.
+
+B3 and B4 walk, for every ray of a 1024-ray tile, the tile's front-to-back
+cluster list ``lists[tile, :counts[tile]]`` (packed ``[nearq | cid]``
+entries; ``accel.cluster``).  Per lane, a list position k is visited
+unless the decoded near ``(entry >> cid_bits) * scale`` is at or past the
+lane's bound (B3: the upper decode of its running key; B4: its t_max),
+which ends the lane's walk; a visited cluster whose AABB the lane's ray
+misses within that bound is skipped; otherwise all 64 triangles of the
+cluster (flat table rows [64c, 64c+64)) are tested.  B3 keeps the running
+minimum of the packed key ``(f32 bits of t & ~63) | local id`` over the
+hits and takes the cluster id on a strict decrease; B4 ORs the hits with
+0 < t < t_max and ends a lane's walk at its first hit.
+
+Both take an optional ``work`` tensor ((2,) int64 on the rays' device) to
+which they add the (lane, cluster) slab tests and the ray/triangle tests
+they ran (B4 stops inside a cluster at the first hit): the operation count
+behind a bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .brute_trace import moller_trumbore
+from .build import CLUSTER_SIZE, SHADE_A_COLS, SHADE_B_COLS
+
+TILE = 1024  # rays per list: the culls' tile (accel.cluster), checked against the library's kTile
+MISS_KEY = 0x7FFFFFFF
+N_SHADE_ATTR = 26  # B5 output rows: the 20 shade_a columns, then the 6 uv columns of shade_b
+_LOCAL_MASK = CLUSTER_SIZE - 1
+
+# Launches of each kernel since the last reset_launch_counts(); the plain
+# versions are not counted.
+LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "winner_attrs": 0}
+
+SOURCES = ["cluster_trace.cu"]  # under csrc/
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The compiled kernels (built from csrc/ at first use)."""
+    global _lib
+    if _lib is None:
+        from ..utils.cuda_build import load_library
+
+        lib = load_library("cluster_trace", SOURCES)
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.cluster_closest.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
+        lib.cluster_closest.restype = ctypes.c_int
+        lib.cluster_any.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
+        lib.cluster_any.restype = ctypes.c_int
+        lib.winner_attrs.argtypes = [p, p, p, p, i32, p, p]
+        lib.winner_attrs.restype = ctypes.c_int
+        lib.cluster_tile.argtypes = []
+        lib.cluster_tile.restype = ctypes.c_int
+        if lib.cluster_tile() != TILE:
+            raise RuntimeError(f"csrc/cluster_trace.cu walks tiles of {lib.cluster_tile()} rays, the culls {TILE}")
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1 / direction, each component clamped to |d| >= 1e-20 (sign kept)."""
+    return 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+
+
+def _lane_slab(bmin, bmax, o, inv, t_lim):
+    """Per-lane ray vs cluster AABB within (0, t_lim), axes x, y, z in turn
+    (pallas_cluster.py::_lane_slab's order)."""
+    near = far = None
+    for a in range(3):
+        t0 = (bmin[:, a] - o[:, a]) * inv[:, a]
+        t1 = (bmax[:, a] - o[:, a]) * inv[:, a]
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    return (near <= far) & (far > 0.0) & (near < t_lim)
+
+
+def _mt_block(rows, o, d):
+    """Moller-Trumbore of each lane's ray against its cluster's 64 rows
+    (A, 64, 16).  Returns (hit without a t bound, t), each (A, 64)."""
+    hit, t, _, _ = moller_trumbore(lambda j: rows[:, :, j], (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
+                                   (d[:, 0:1], d[:, 1:2], d[:, 2:3]))
+    return hit, t
+
+
+def _walk(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, lane_bound, visit, work):
+    """The list walk shared by the plain B3 and B4.  ``lane_bound(idx)``
+    gives the walking lanes' current bounds; ``visit(idx, c, rows, done)``
+    tests the lanes ``idx`` against the rows of their clusters ``c``,
+    updates the caller's state and returns the ray/triangle tests the
+    kernel runs for them; a lane leaves the walk when its bound is at or
+    below the decoded near, or when ``visit`` marks it ``done``."""
+    n = origin.shape[0]
+    dev = origin.device
+    lane_tile = torch.arange(n, device=dev) // TILE
+    cnt = counts[lane_tile]
+    scale = scales[lane_tile]
+    inv = inv_dir(direction)
+    cmask = (1 << cid_bits) - 1
+    tab = tab.reshape(-1, CLUSTER_SIZE, 16)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    for k in range(lists.shape[1]):
+        idx = (~done & (k < cnt)).nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        e = lists[lane_tile[idx], k]
+        bound = lane_bound(idx)
+        stop = (e >> cid_bits).to(torch.float32) * scale[idx] >= bound
+        done[idx[stop]] = True
+        keep = ~stop
+        idx, e, bound = idx[keep], e[keep], bound[keep]
+        c = (e & cmask).long()
+        lv = _lane_slab(cmin[c], cmax[c], origin[idx], inv[idx], bound)
+        if work is not None:
+            work[0] += idx.numel()
+        idx, c = idx[lv], c[lv]
+        tests = visit(idx, c, tab[c], done)
+        if work is not None:
+            work[1] += tests
+
+
+def trace_closest_clusters_plain(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction,
+                                 key0, cid0, work=None):
+    """B3's rules in PyTorch; returns (key, cid), each (N,) int32."""
+    key, cid = key0.clone(), cid0.clone()
+    local = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
+
+    def visit(idx, c, rows, done):
+        hit, t = _mt_block(rows, origin[idx], direction[idx])
+        kc = torch.where(hit, (t.view(torch.int32) & ~_LOCAL_MASK) | local, MISS_KEY)
+        kmin = kc.amin(dim=1)
+        better = kmin < key[idx]
+        key[idx] = torch.where(better, kmin, key[idx])
+        cid[idx] = torch.where(better, c.to(torch.int32), cid[idx])
+        return idx.numel() * CLUSTER_SIZE
+
+    _walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction,
+          lambda idx: (key[idx] | _LOCAL_MASK).view(torch.float32), visit, work)
+    return key, cid
+
+
+def trace_any_clusters_plain(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, t_max,
+                             work=None):
+    """B4's rules in PyTorch; returns occluded (N,) bool."""
+    occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+
+    def visit(idx, c, rows, done):
+        hit, t = _mt_block(rows, origin[idx], direction[idx])
+        h = hit & (t < t_max[idx][:, None])
+        o = h.any(dim=1)
+        occ[idx] = o
+        done[idx[o]] = True  # the first hit decides the lane
+        # the kernel tests the rows up to and including the first hit
+        return torch.where(o, h.to(torch.int8).argmax(dim=1) + 1, CLUSTER_SIZE).sum()
+
+    _walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, lambda idx: t_max[idx], visit,
+          work)
+    return occ
+
+
+def winner_rows(key, cid):
+    """Sorted triangle id of each lane's winner (0 on a miss) and the hit mask."""
+    valid = cid >= 0
+    return torch.where(valid, cid * CLUSTER_SIZE + (key & _LOCAL_MASK), 0).long(), valid
+
+
+def fetch_winner_attrs_plain(shade_a, shade_b, key, cid):
+    """B5's function as an index gather (pallas_cluster's fallback
+    ``_gather_cols``, with zeros on a miss): (26, N) f32."""
+    rows, valid = winner_rows(key, cid)
+    cols = torch.cat([shade_a[rows], shade_b[rows, :6]], dim=1)
+    return torch.where(valid[:, None], cols, 0.0).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise ValueError(msg)
+
+
+def _check(dev, **tensors) -> None:
+    for name, (a, dtype) in tensors.items():
+        _require(a.device.type == "cuda" and a.device == dev, f"{name} must be on the rays' CUDA device, got {a.device}")
+        _require(a.dtype == dtype, f"{name} must be {dtype}, got {a.dtype}")
+        _require(a.is_contiguous(), f"{name} must be contiguous (got strides {a.stride()})")
+
+
+def _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work) -> int:
+    n = origin.shape[0] if origin.dim() == 2 else -1
+    C = cmin.shape[0]
+    _require(origin.dim() == 2 and origin.shape[1] == 3, f"origin must be (N, 3), got {tuple(origin.shape)}")
+    _require(tuple(direction.shape) == (n, 3), f"direction must be ({n}, 3), got {tuple(direction.shape)}")
+    _require(tab.dim() == 2 and tuple(tab.shape) == (C * CLUSTER_SIZE, 16),
+             f"tab must be the flat (C*64, 16) table for C = {C} clusters, got {tuple(tab.shape)}")
+    _require(tuple(cmax.shape) == (C, 3) and tuple(cmin.shape) == (C, 3), "cluster boxes must be (C, 3)")
+    tiles = -(-n // TILE)
+    _require(lists.dim() == 2 and lists.shape[0] >= tiles,
+             f"lists must be (tiles >= {tiles}, maxv), got {tuple(lists.shape)}")
+    _require(tuple(counts.shape) == (lists.shape[0],) and tuple(scales.shape) == (lists.shape[0],),
+             "counts and scales must be (tiles,)")
+    _require(1 <= cid_bits <= 30 and (1 << cid_bits) >= C, f"cid_bits {cid_bits} cannot hold {C} cluster ids")
+    _require(n < 2**31, "more than 2^31 - 1 rays")
+    _require(tab.data_ptr() % 16 == 0, "tab must be 16-byte aligned (the kernels read its rows as float4)")
+    _check(origin.device, tab=(tab, torch.float32), cmin=(cmin, torch.float32), cmax=(cmax, torch.float32),
+           lists=(lists, torch.int32), counts=(counts, torch.int32), scales=(scales, torch.float32),
+           origin=(origin, torch.float32), direction=(direction, torch.float32))
+    if work is not None:
+        _require(tuple(work.shape) == (2,), "work must be (2,)")
+        _check(origin.device, work=(work, torch.int64))
+    return n
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _ptr(a) -> int | None:
+    return None if a is None else a.data_ptr()
+
+
+def trace_closest_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction,
+                                key0, cid0, work=None):
+    """Kernel B3 on the card; same outputs as trace_closest_clusters_plain."""
+    n = _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work)
+    _require(tuple(key0.shape) == (n,) and tuple(cid0.shape) == (n,), f"key0 and cid0 must be ({n},)")
+    _check(origin.device, key0=(key0, torch.int32), cid0=(cid0, torch.int32))
+    key = torch.empty(n, dtype=torch.int32, device=origin.device)
+    cid = torch.empty_like(key)
+    if n == 0:  # a grid of 0 blocks is an invalid launch
+        return key, cid
+    lib = kernel_library()
+    with torch.cuda.device(origin.device):
+        err = lib.cluster_closest(
+            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), lists.data_ptr(), lists.shape[1],
+            counts.data_ptr(), scales.data_ptr(), cid_bits, origin.data_ptr(), direction.data_ptr(),
+            key0.data_ptr(), cid0.data_ptr(), n, key.data_ptr(), cid.data_ptr(),
+            _ptr(work), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cluster_closest")
+    LAUNCHES["cluster_closest"] += 1
+    return key, cid
+
+
+def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, t_max,
+                            work=None):
+    """Kernel B4 on the card; same output as trace_any_clusters_plain."""
+    n = _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work)
+    _require(tuple(t_max.shape) == (n,), f"t_max must be ({n},), got {tuple(t_max.shape)}")
+    _check(origin.device, t_max=(t_max, torch.float32))
+    occ = torch.empty(n, dtype=torch.bool, device=origin.device)  # one byte per ray
+    if n == 0:
+        return occ
+    lib = kernel_library()
+    with torch.cuda.device(origin.device):
+        err = lib.cluster_any(
+            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), lists.data_ptr(), lists.shape[1],
+            counts.data_ptr(), scales.data_ptr(), cid_bits, origin.data_ptr(), direction.data_ptr(),
+            t_max.data_ptr(), n, occ.data_ptr(), _ptr(work),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cluster_any")
+    LAUNCHES["cluster_any"] += 1
+    return occ
+
+
+def fetch_winner_attrs_cuda(shade_a, shade_b, key, cid):
+    """Kernel B5 on the card; same output as fetch_winner_attrs_plain."""
+    n = key.shape[0] if key.dim() == 1 else -1
+    _require(key.dim() == 1 and tuple(cid.shape) == (n,), f"key and cid must be (N,), got {tuple(key.shape)}, "
+             f"{tuple(cid.shape)}")
+    _require(shade_a.dim() == 2 and shade_a.shape[1] == SHADE_A_COLS, f"shade_a must be (Tp, {SHADE_A_COLS})")
+    _require(tuple(shade_b.shape) == (shade_a.shape[0], SHADE_B_COLS), f"shade_b must be (Tp, {SHADE_B_COLS})")
+    _require(n < 2**31 and N_SHADE_ATTR * n < 2**31, "too many lanes")
+    _check(key.device, shade_a=(shade_a, torch.float32), shade_b=(shade_b, torch.float32),
+           key=(key, torch.int32), cid=(cid, torch.int32))
+    out = torch.empty((N_SHADE_ATTR, n), dtype=torch.float32, device=key.device)
+    if n == 0:
+        return out
+    lib = kernel_library()
+    with torch.cuda.device(key.device):
+        err = lib.winner_attrs(shade_a.data_ptr(), shade_b.data_ptr(), key.data_ptr(), cid.data_ptr(), n,
+                               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "winner_attrs")
+    LAUNCHES["winner_attrs"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# routing by the rays' device
+# ---------------------------------------------------------------------------
+
+def _route(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no cluster-trace implementation for device {t.device}")
+
+
+def trace_closest_clusters(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, key0, cid0):
+    fn = _route(origin, trace_closest_clusters_cuda, trace_closest_clusters_plain)
+    return fn(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, key0, cid0)
+
+
+def trace_any_clusters(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, t_max):
+    fn = _route(origin, trace_any_clusters_cuda, trace_any_clusters_plain)
+    return fn(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, t_max)
+
+
+def fetch_winner_attrs(shade_a, shade_b, key, cid):
+    """(26, N) shade columns of each lane's winning triangle, zeros on a miss."""
+    return _route(key, fetch_winner_attrs_cuda, fetch_winner_attrs_plain)(shade_a, shade_b, key, cid)

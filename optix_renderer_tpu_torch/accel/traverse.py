@@ -1,10 +1,12 @@
 """Trace dispatcher (counterpart of ``optix_renderer_tpu/accel/traverse.py``).
 
-Dispatch is on the device of the rays, never on what the machine has: a
-CUDA tensor goes to the hand-written kernels B1/B2 (``brute_trace``), a CPU
-tensor to their plain PyTorch versions.  Only the brute-force tier exists
-(at most 4096 triangles); it has no cull, so its trace statistics are the
-zero dict.
+Two tiers, by scene size: at most ``BRUTE_MAX_TRIS`` triangles, the
+brute-force kernels B1/B2 (``brute_trace``), which have no cull and so
+return the zero trace statistics; above it, the cluster tier
+(``cluster``: cull, kernels B3/B4, checked overflow fallback).  Inside a
+tier the device of the rays decides, never what the machine has: a CUDA
+tensor goes to the hand-written kernels, a CPU tensor to their plain
+PyTorch versions, any other device raises.
 """
 
 from __future__ import annotations
@@ -12,15 +14,11 @@ from __future__ import annotations
 import torch
 
 from ..core.types import Hit, Ray
-from . import brute_trace
-from .build import BVH, check_brute_size
+from . import brute_trace, cluster
+from .build import BRUTE_MAX_TRIS, BVH
 
 _INF = 3.0e38
-
-
-def zero_trace_stats() -> dict:
-    """The cluster tier's trace statistics; always zero on the brute tier."""
-    return {"overflow": 0, "retraced": 0, "unresolved_tiles": 0}
+zero_trace_stats = cluster.zero_trace_stats
 
 
 def _assert_zero_tmin(t_min) -> None:
@@ -30,9 +28,8 @@ def _assert_zero_tmin(t_min) -> None:
         raise ValueError(f"the trace tiers only support t_min == 0 (got {t_min})")
 
 
-def _prepare(bvh: BVH, rays: Ray, t_min, t_max):
+def _prepare(rays: Ray, t_min, t_max):
     _assert_zero_tmin(t_min)
-    check_brute_size(bvh.num_tris)
     o = rays.origin.contiguous()
     d = rays.direction.contiguous()
     n = o.shape[0]
@@ -53,11 +50,45 @@ def _route(o: torch.Tensor, cuda_fn, plain_fn):
 
 def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF) -> Hit:
     """Closest hit over a ray batch; Hit in ORIGINAL triangle ids.
-    ``t_max`` is a float or a per-ray (N,) tensor."""
-    o, d, tm = _prepare(bvh, rays, t_min, t_max)
+    ``t_max`` is a float or a per-ray (N,) tensor.  On the cluster tier it
+    decodes the winners of ``trace_closest_winners``."""
+    o, d, tm = _prepare(rays, t_min, t_max)
+    if bvh.clustered:
+        r = Ray(origin=o, direction=d)
+        key, cid, t_eff, _stats = trace_closest_winners(bvh, r, tm)
+        return cluster.decode_hits(key, cid, bvh.tri_tab, r, t_eff)
     fn = _route(o, brute_trace.trace_closest_cuda, brute_trace.trace_closest_plain)
     t, tri_id, u, v = fn(bvh.tri_tab, o, d, tm)
     return Hit(t=t, tri_id=tri_id, bary_u=u, bary_v=v)
+
+
+def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor | None = None,
+                          coherent: bool = True):
+    """The cluster tier's closest hit as packed winners: (key (N,) i32,
+    cid (N,) i32, t bound (N,) f32, trace stats); the winning SORTED
+    triangle is ``cid * 64 + (key & 63)``, cid < 0 a miss.
+
+    ``active`` (bool (N,), optional) marks the lanes the caller will use;
+    the others are rewritten to an up-ray above the scene, whose t bound
+    is 0.  ``coherent=True`` (primary rays) traces in the given order with
+    the tile-frustum cull; ``coherent=False`` (bounce rays) sorts the rays
+    by their supercluster corridor, traces them with the per-lane cull and
+    unsorts the outputs.  The winners are the same either way.
+    """
+    if not bvh.clustered:
+        raise ValueError(f"packed winners come from the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
+    if active is not None:
+        rays = cluster.rays_above_scene(bvh, rays, active)
+    if coherent:
+        return cluster.trace_closest_clusters_packed(bvh, rays, t_max)
+    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
+    perm = torch.argsort(keys)
+    od_s = torch.cat([rays.origin, rays.direction, t_eff[:, None]], dim=1)[perm]  # one gather: rays and bounds
+    key_s, cid_s, _t, stats = cluster.trace_closest_clusters_packed(
+        bvh, Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6]), refine=True, t_eff=od_s[:, 6])
+    out = torch.empty((rays.origin.shape[0], 3), dtype=torch.int32, device=key_s.device)
+    out[perm] = torch.stack([key_s, cid_s, od_s[:, 6].view(torch.int32)], dim=1)  # one scatter: the three outputs
+    return out[:, 0].contiguous(), out[:, 1].contiguous(), out[:, 2].contiguous().view(torch.float32), stats
 
 
 def trace_any(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF) -> torch.Tensor:
@@ -66,8 +97,20 @@ def trace_any(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF) -> torch.Tens
     return occ
 
 
-def trace_any_with_stats(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF):
-    """Visibility query returning (occluded (N,) bool, trace stats dict)."""
-    o, d, tm = _prepare(bvh, rays, t_min, t_max)
+def trace_any_with_stats(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, refine: bool = False,
+                         coherent: bool = True):
+    """Visibility query returning (occluded (N,) bool, trace stats dict).
+
+    On the cluster tier ``refine=True`` takes the per-lane cull (scattered
+    shadow origins), and ``coherent=False`` corridor-sorts the rays first
+    and unsorts the bits after (``cluster.trace_any_clusters_sorted``);
+    neither changes the result.
+    """
+    o, d, tm = _prepare(rays, t_min, t_max)
+    if bvh.clustered:
+        r = Ray(origin=o, direction=d)
+        if coherent:
+            return cluster.trace_any_clusters(bvh, r, tm, refine=refine)
+        return cluster.trace_any_clusters_sorted(bvh, r, tm, refine=refine)
     fn = _route(o, brute_trace.trace_any_cuda, brute_trace.trace_any_plain)
     return fn(bvh.tri_tab, o, d, tm), zero_trace_stats()

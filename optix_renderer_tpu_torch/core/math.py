@@ -31,7 +31,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+    return sqrt_rn(torch.clamp(dot(a, a), min=0.0))
 
 
 def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -44,9 +44,9 @@ def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """
     n2 = dot(a, a)
     if eps > 0.0:
-        inv = torch.where(n2 > eps, torch.sqrt(torch.clamp(n2, min=1e-38)), 1.0)
+        inv = torch.where(n2 > eps, sqrt_rn(torch.clamp(n2, min=1e-38)), 1.0)
         return a / inv[..., None]
-    return a * (1.0 / torch.sqrt(n2))[..., None]
+    return a * (1.0 / sqrt_rn(n2))[..., None]
 
 
 def apply_mat(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -59,8 +59,9 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Square root rounded to nearest, as the card's IEEE ``sqrtf`` and XLA
     give it.  torch's float32 sqrt on the CPU comes from a vector library
     and can be 1 ulp off; the float64 root of a float32 rounds back to the
-    nearest float32 exactly.  The LTC pipeline uses it, so that its plain
-    version repeats kernel B6's rounding on either device."""
+    nearest float32 exactly.  Every float32 square root of the port goes
+    through it, so that the CPU path rounds as the card and the JAX
+    package do, and the plain versions repeat the kernels' rounding."""
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
@@ -108,7 +109,7 @@ def orthonormal_basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def sample_point_on_triangle(v1, v2, v3, u1, u2) -> torch.Tensor:
     """sqrt-warp uniform triangle sampling (cuda_include/utils.cuh:193-199)."""
-    su1 = torch.sqrt(u1)[..., None]
+    su1 = sqrt_rn(u1)[..., None]
     u2e = u2[..., None]
     return (1.0 - su1) * v1 + su1 * ((1.0 - u2e) * v2 + u2e * v3)
 

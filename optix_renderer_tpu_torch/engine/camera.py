@@ -49,7 +49,7 @@ def primary_rays(camera: Camera, width: int, height: int, jitter_u, jitter_v, li
     u = (px + jitter_u) / float(width)
     v = (py + jitter_v) / float(height)
     d = camera.dir_00[None, :] + u[:, None] * camera.dir_du[None, :] + v[:, None] * camera.dir_dv[None, :]
-    d = d / torch.sqrt(cm.dot(d, d))[:, None]
+    d = d / cm.sqrt_rn(cm.dot(d, d))[:, None]
     # expand() is a stride-0 view; the trace kernels need real rows
     o = camera.pos[None, :].expand(lin.shape[0], 3).contiguous()
     return Ray(origin=o, direction=d)

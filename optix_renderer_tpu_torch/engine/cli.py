@@ -5,7 +5,7 @@ mode, samples, resolution, path depth, output directory, checkpoints, the
 RATIO denoise-and-combine stage and the device.  ``--device`` defaults to
 ``cuda`` and fails when no CUDA device is present; ``--cpu`` is
 ``--device cpu``.  Outputs are the JAX CLI's files, written through
-``optix_renderer_tpu.postprocess.io``.
+``postprocess.io``.
 
 Examples:
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json \\
@@ -24,10 +24,10 @@ import time
 
 import torch
 
-from optix_renderer_tpu.engine.modes import DETERMINISTIC_MODES, RENDERER_NAMES, RendererType
-from optix_renderer_tpu.postprocess.io import save_npy, save_png
-from optix_renderer_tpu.scene.config import parse_scene
-from optix_renderer_tpu.utils.log import get_logger, log_ok
+from ..postprocess.io import save_npy, save_png
+from ..scene.config import parse_scene
+from ..utils.log import get_logger, log_ok
+from .modes import DETERMINISTIC_MODES, RENDERER_NAMES, RendererType
 
 log = get_logger()
 
@@ -110,6 +110,9 @@ def main(argv=None) -> int:
     m = r.metrics
     log_ok(log, "rendered %d frame(s) in %.2fs (%.1f Mrays/s honest, %.2f spp/s)"
            % (m["frames"], dt, m["mrays_per_sec"], m["frames"] / max(dt, 1e-9)))
+    if r.bvh.clustered:
+        log.info("cluster tier: cull overflow %d, retraced traces %d, unresolved tiles %d",
+                 m["cull_overflow"], m["cull_retraces"], m["cull_unresolved_tiles"])
 
     save_png(os.path.join(args.out, f"{name}.png"), img)
     if args.save_npy:
@@ -140,6 +143,9 @@ def main(argv=None) -> int:
             "rays_traced": m["rays_traced"],
             "mrays_per_sec": round(m["mrays_per_sec"], 2),
             "alive_per_bounce": m["alive_per_bounce"],
+            "cull_overflow": m["cull_overflow"],
+            "cull_retraces": m["cull_retraces"],
+            "cull_unresolved_tiles": m["cull_unresolved_tiles"],
         },
     }
     with open(os.path.join(args.out, "render.json"), "w") as f:

@@ -8,13 +8,16 @@ by the frame count (deviceCode.cu:158-174).  RATIO's extra buffers
 last :meth:`Renderer.render` call, as in the JAX package.  PyTorch runs eagerly, so a
 frame is a plain function call on tensors of the Renderer's ``device``;
 the host issues every frame and so knows ``accum_id`` without asking the
-device.  The only host sync of :meth:`Renderer.render` is the one
-``torch.cuda.synchronize()`` at its end.
+device.  The host syncs of :meth:`Renderer.render` are the one
+``torch.cuda.synchronize()`` at its end and, on the cluster tier, at most
+one per trace call whose cull can cut a list (the count of unresolved
+tiles, ``accel.cluster``).
 
-The JAX package orders primary rays in square pixel blocks; that order
-only serves its cluster tier's per-tile cull.  RNG streams are keyed by
-the absolute pixel id, so the image is identical without it, and the port
-keeps rays in row-major pixel order.
+Primary rays go in square pixel blocks of up to 32 x 32 (JAX
+renderer.py:72-96): the cluster tier culls per 1024-ray tile, and a tile of
+row-major rays is a frustum one pixel tall across the image.  RNG streams
+are keyed by the absolute pixel id, so the image does not depend on the
+order.
 """
 
 from __future__ import annotations
@@ -24,15 +27,31 @@ import time
 import numpy as np
 import torch
 
-from optix_renderer_tpu.engine.modes import DETERMINISTIC_MODES, GBUFFER_MODES, RendererType
-from optix_renderer_tpu.scene.config import Scene, SceneCamera
-
-from ..accel.build import BVH, build_bvh
+from ..accel.build import BRUTE_MAX_TRIS, BVH, build_bvh, pack_attr_tab
+from ..accel.cluster import merge_trace_stats
 from ..core import rng as rnglib
 from ..core.types import Camera, GBuffers, RenderState
+from ..scene.config import Scene, SceneCamera
 from ..scene.device import DeviceScene, build_device_scene
 from . import camera as cameralib
+from .modes import DETERMINISTIC_MODES, GBUFFER_MODES, RendererType
 from .shade import trace_closest_si
+
+
+def _block_dim(x: int) -> int:
+    """Largest pixel-block edge (<= 32) dividing x."""
+    for b in (32, 16, 8, 4, 2):
+        if x % b == 0:
+            return b
+    return 1
+
+
+def pixel_order(width: int, height: int, device) -> torch.Tensor:
+    """Linear pixel ids (int64) in the order primary rays are traced:
+    square blocks of up to 32 x 32, row-major inside a block."""
+    bh, bw = _block_dim(height), _block_dim(width)
+    lin = torch.arange(height * width, dtype=torch.int64, device=device)
+    return lin.reshape(height // bh, bh, width // bw, bw).transpose(1, 2).reshape(-1)
 
 
 def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
@@ -41,20 +60,30 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     package's row tiles serve its multi-device split, not yet ported).
     RNG streams are keyed by the linear pixel id (deviceCode.cu:65-66).
 
-    Returns (color (height*width, 3), gbuffers (height, width, ...), aux dict).
+    Returns (color (height*width, 3), gbuffers (height, width, ...), aux
+    dict, trace stats).
     """
     from ..integrators.gbuffer import gbuffer_color
     from ..integrators.ltc_direct import ltc_baseline_color
     from ..integrators.path import path_color
     from ..integrators.ratio import ratio_color
 
-    lin = torch.arange(height * width, dtype=torch.int64, device=ds.miss_color.device)
+    n = height * width
+    bh, bw = _block_dim(height), _block_dim(width)
+
+    def unblock(a):  # block-major (n, ...) -> pixel-major
+        rest = tuple(a.shape[1:])
+        return a.reshape((height // bh, width // bw, bh, bw) + rest).transpose(1, 2).reshape((n,) + rest)
+
+    # pixel ids in block-major order: a pure permutation, so RNG streams
+    # (keyed by the absolute pixel id) and the image are unchanged
+    lin = pixel_order(width, height, ds.miss_color.device)
     # get_rng(accumId + 10007, pixel, dims) -- deviceCode.cu:65-66
     rstate = rnglib.make_rng(accum_id + 10007, lin)
     rstate, ju = rnglib.lcg_randomf(rstate)
     rstate, jv = rnglib.lcg_randomf(rstate)
     rays = cameralib.primary_rays(camera, width, height, ju, jv, lin=lin)
-    si, _ = trace_closest_si(ds, bvh, rays)  # the brute tier's trace stats are zero
+    si, stats = trace_closest_si(ds, bvh, rays)
 
     aux: dict = {}
     if mode in GBUFFER_MODES:
@@ -62,30 +91,32 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     elif mode == RendererType.LTC_BASELINE:
         color = ltc_baseline_color(ds, rays, si)
     elif mode == RendererType.PATH:
-        color, rstate, alive_counts, _ = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth)
+        color, rstate, alive_counts, pstats = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth)
         aux["path_alive_counts"] = alive_counts
+        stats = merge_trace_stats(stats, pstats)
     else:  # RendererType.RATIO
-        color, rstate, raux = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
-        aux = {k: v.reshape(height, width, -1) for k, v in raux.items()}
+        color, rstate, raux, rstats = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
+        aux = {k: unblock(v).reshape(height, width, -1) for k, v in raux.items()}
+        stats = merge_trace_stats(stats, rstats)
 
     gb = GBuffers(
-        position=si.p.reshape(height, width, 3),
-        normal=si.n_geom.reshape(height, width, 3),
-        albedo=si.diffuse.reshape(height, width, 3),
-        alpha=si.alpha.reshape(height, width),
-        uv=si.uv.reshape(height, width, 2),
-        material_id=si.material_id.to(torch.float32).reshape(height, width),
+        position=unblock(si.p).reshape(height, width, 3),
+        normal=unblock(si.n_geom).reshape(height, width, 3),
+        albedo=unblock(si.diffuse).reshape(height, width, 3),
+        alpha=unblock(si.alpha).reshape(height, width),
+        uv=unblock(si.uv).reshape(height, width, 2),
+        material_id=unblock(si.material_id.to(torch.float32)).reshape(height, width),
     )
-    return color, gb, aux
+    return unblock(color), gb, aux, stats
 
 
 def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
                 width: int, height: int, path_depth: int, ratio_samples: int):
-    """One frame over the whole image: ``(state', gbuffers, aux)``."""
-    color, gb, aux = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
-                                 height=height, path_depth=path_depth, ratio_samples=ratio_samples)
+    """One frame over the whole image: ``(state', gbuffers, aux, trace stats)``."""
+    color, gb, aux, stats = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
+                                        height=height, path_depth=path_depth, ratio_samples=ratio_samples)
     state.accum += color.reshape(height, width, 3)  # in place: no second (H, W, 3) buffer
-    return RenderState(accum=state.accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux
+    return RenderState(accum=state.accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux, stats
 
 
 class Renderer:
@@ -117,19 +148,29 @@ class Renderer:
 
         self.device_scene, host = build_device_scene(scene, self.device)
         tri_idx = host["tri_index"]
-        norms = host["normals"][tri_idx].sum(axis=1)  # (T, 3)
+        tri_verts = host["vertices"][tri_idx]
+        n_corner = host["normals"][tri_idx]  # (T, 3, 3)
+        norms = n_corner.sum(axis=1)
         norms /= np.maximum(np.linalg.norm(norms, axis=-1, keepdims=True), 1e-20)
-        self.bvh = build_bvh(host["vertices"][tri_idx], self.device,
-                             tri_normal=norms, tri_mesh=host["tri_mesh"])
+        tri_attr = None
+        if len(tri_idx) > BRUTE_MAX_TRIS:  # the cluster tier's shade rows (JAX renderer.py:342-367)
+            v0 = tri_verts[:, 0]
+            area = 0.5 * np.linalg.norm(np.cross(tri_verts[:, 1] - v0, tri_verts[:, 2] - v0), axis=-1)
+            tri_attr = pack_attr_tab(n_corner, host["uvs"][tri_idx], host["tri_mesh"], area)
+        self.bvh = build_bvh(tri_verts, self.device, tri_normal=norms, tri_mesh=host["tri_mesh"],
+                             tri_attr=tri_attr)
 
         self.state: RenderState = None  # set by set_camera
         self.gbuffers: GBuffers | None = None
         self.aux: dict = {}
         # honest ray accounting: primary rays + the NEE and bounce rays the
-        # integrator traced.  Per-bounce counts stay on the device until
-        # ``metrics`` is read, so the render loop never syncs for them.
-        self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": []}
+        # integrator traced.  Per-bounce counts and the cluster tier's cull
+        # statistics stay on the device until ``metrics`` is read, so the
+        # render loop never syncs for them.
+        self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": [],
+                               "cull_overflow": 0, "cull_retraces": 0, "cull_unresolved_tiles": 0}
         self._pending_counts: list[torch.Tensor] = []
+        self._pending_stats: list[dict] = []
         self.set_camera(scene.cameras[0])
 
     def _zero_accum(self) -> torch.Tensor:
@@ -157,11 +198,12 @@ class Renderer:
         for _ in range(n_frames):
             if self.mode in DETERMINISTIC_MODES and self.state.accum_id >= 1:
                 break  # analytic modes converge in one frame
-            self.state, self.gbuffers, self.aux = _frame_impl(
+            self.state, self.gbuffers, self.aux, stats = _frame_impl(
                 self.state, self.device_scene, self.bvh, mode=self.mode, width=self.width,
                 height=self.height, path_depth=self.path_depth, ratio_samples=self.ratio_samples,
             )
             frames += 1
+            self._pending_stats.append(stats)
             if "path_alive_counts" in self.aux:
                 self._pending_counts.append(self.aux["path_alive_counts"])
             if self.mode == RendererType.RATIO:
@@ -192,6 +234,11 @@ class Renderer:
             self._pending_counts = []
             self._metrics["alive_per_bounce"] = [int(a) for a in alive[-1][:, 0]]
             self._metrics["rays_traced"] += int(alive[:, :, 1:].sum())
+        for stats in self._pending_stats:
+            self._metrics["cull_overflow"] += int(stats["overflow"])
+            self._metrics["cull_retraces"] += int(stats["retraced"])
+            self._metrics["cull_unresolved_tiles"] += int(stats["unresolved_tiles"])
+        self._pending_stats = []
         secs = self._metrics["seconds"]
         self._metrics["mrays_per_sec"] = self._metrics["rays_traced"] / secs / 1e6 if secs else 0.0
         return self._metrics

@@ -1,17 +1,26 @@
-"""Hit shading stage: Hit -> SurfaceInteraction (counterpart of the
-small-scene half of ``optix_renderer_tpu/engine/shade.py``; reference
-closest-hit and miss programs, cuda_include/hit_miss.cuh:14-63).
+"""Hit shading stage: Hit -> SurfaceInteraction (counterpart of
+``optix_renderer_tpu/engine/shade.py``; reference closest-hit and miss
+programs, cuda_include/hit_miss.cuh:14-63).
 
-After traversal returns (tri_id, bary), one index gather ``tri_pack[tid]``
-fetches every per-triangle attribute; the JAX package does the same fetch
-as a one-hot matmul at Precision.HIGHEST, which returns the same values.
+Small scenes (brute tier): after traversal returns (tri_id, bary), one
+index gather ``tri_pack[tid]`` fetches every per-triangle attribute; the
+JAX package does the same fetch as a one-hot matmul at Precision.HIGHEST,
+which returns the same values.
+
+Big scenes (cluster tier): the trace returns the packed winner (key, cid)
+per lane, kernel B5 fetches the winning triangle's 26 shade columns, and
+``build_surface_interaction_fused`` recomputes exact (t, u, v) from them
+and interpolates the corner normals and uvs; the per-mesh material row is
+an index gather.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..accel.traverse import _INF, trace_closest, zero_trace_stats
+from ..accel import cluster_trace
+from ..accel.brute_trace import moller_trumbore
+from ..accel.traverse import _INF, trace_closest, trace_closest_winners, zero_trace_stats
 from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
 from ..scene.device import ONEHOT_MAX_TRIS, PACK_SLICES, DeviceScene
@@ -58,9 +67,9 @@ def build_surface_interaction(ds: DeviceScene, rays: Ray, hit: Hit) -> SurfaceIn
     """Interpolate attributes at hit points (hit_miss.cuh:14-50); fill miss
     lanes like the miss program (hit_miss.cuh:52-63) with ``ds.miss_color``."""
     if ds.num_tris > ONEHOT_MAX_TRIS:
-        raise NotImplementedError(
+        raise ValueError(
             f"shading reads packed rows for at most {ONEHOT_MAX_TRIS} triangles; "
-            "larger scenes need the cluster tier (ROADMAP.md queue A slice 3)"
+            "larger scenes shade the cluster tier's winners (trace_closest_si)"
         )
     rows = ds.tri_pack[torch.clamp(hit.tri_id, min=0).long()]  # (N, PACK_K)
 
@@ -74,13 +83,82 @@ def build_surface_interaction(ds: DeviceScene, rays: Ray, hit: Hit) -> SurfaceIn
     return _finalize(ds, hit, parts)
 
 
-def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | None = None):
+def _mesh_attr_rows(ds: DeviceScene, mesh_id: torch.Tensor) -> torch.Tensor:
+    """(N, 10) per-lane mesh attributes [diffuse3, emit3, alpha, is_light,
+    material_id, diffuse_tex] (the SBT record fetch of hit_miss.cuh) as an
+    index gather; the JAX package's one-hot matmul returns the same values."""
+    pack = torch.cat([
+        ds.mesh_diffuse, ds.mesh_emit, ds.mesh_alpha[:, None], ds.mesh_is_light.to(torch.float32)[:, None],
+        ds.mesh_material_id.to(torch.float32)[:, None], ds.mesh_diffuse_tex.to(torch.float32)[:, None],
+    ], dim=1)
+    return pack[mesh_id.long()]
+
+
+def build_surface_interaction_fused(ds: DeviceScene, rays: Ray, cid: torch.Tensor,
+                                    cols: torch.Tensor) -> SurfaceInteraction:
+    """SurfaceInteraction from the cluster tier's winners: ``cols`` (26, N)
+    are the winning triangles' shade columns (``cluster_trace.
+    fetch_winner_attrs``: v0 e1 e2 | n1 n2 n3 | mesh prim | uv1 uv2 uv3),
+    ``cid`` < 0 marks a miss.  The kernels' Moller-Trumbore is repeated for
+    exact (t, u, v); the area is 0.5 |e1 x e2|.  Matches hit_miss.cuh:14-50
+    in the operation order of the JAX package's fused build."""
+    valid = cid >= 0
+    c = lambda j: cols[j]  # noqa: E731
+    _, t, u, v = moller_trumbore(c, rays.origin.unbind(1), rays.direction.unbind(1))
+    e1x, e1y, e1z = c(3), c(4), c(5)
+    e2x, e2y, e2z = c(6), c(7), c(8)
+
+    w = 1.0 - u - v
+    n_geom = cm.normalize(torch.stack([w * c(9) + u * c(12) + v * c(15),
+                                       w * c(10) + u * c(13) + v * c(16),
+                                       w * c(11) + u * c(14) + v * c(17)], dim=-1), eps=1e-30)
+    ax = e1y * e2z - e1z * e2y
+    ay = e1z * e2x - e1x * e2z
+    az = e1x * e2y - e1y * e2x
+    area = 0.5 * cm.sqrt_rn(ax * ax + ay * ay + az * az)
+    p = rays.origin + t[:, None] * rays.direction
+
+    rows = _mesh_attr_rows(ds, torch.where(valid, c(18).to(torch.int32), 0))
+    diffuse = rows[:, 0:3]
+    uv = torch.stack([w * c(20) + u * c(22) + v * c(24), w * c(21) + u * c(23) + v * c(25)], dim=-1)
+    uv = torch.abs(torch.fmod(uv, 1.0))  # hit_miss.cuh:34-35
+    if ds.has_textures:
+        tex_id = rows[:, 9].to(torch.int32)
+        tex_rgba = sample_bilinear(ds.textures, tex_id, uv[:, 0], uv[:, 1])
+        diffuse = torch.where((tex_id >= 0)[:, None], tex_rgba[:, :3], diffuse)
+
+    vmask = valid[:, None]
+    return SurfaceInteraction(
+        hit=valid,
+        p=torch.where(vmask, p, 0.0),
+        uv=torch.where(vmask, uv, 0.0),
+        n_geom=torch.where(vmask, n_geom, 0.0),
+        diffuse=torch.where(vmask, diffuse, ds.miss_color[None, :]),
+        alpha=torch.where(valid, torch.clamp(rows[:, 6], 0.01, 1.0), 0.0),
+        emit=torch.where(vmask, rows[:, 3:6], 0.0),
+        is_light=valid & (rows[:, 7] > 0.5),
+        material_id=torch.where(valid, rows[:, 8].to(torch.int32), 0),
+        area=torch.where(valid, area, 0.0),
+    )
+
+
+def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | None = None,
+                     coherent: bool = True):
     """Trace + shade in one step.  Returns (SurfaceInteraction, trace stats).
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
-    the others trace with t_max = 0, which the kernel skips, and return a
-    miss.
+    the others return a miss.  On the brute tier they trace with t_max = 0,
+    which the kernel skips; on the cluster tier
+    ``accel.traverse.trace_closest_winners`` rewrites them to an up-ray
+    above the scene.  ``coherent`` picks that function's cull and ray order
+    (primary rays True, bounce rays False); the closest hit is the same
+    either way.  The tier decides the shading: the brute tier's Hit reads
+    the packed rows, the cluster tier's winners their B5 columns.
     """
-    t_max = _INF if active is None else torch.where(active, _INF, 0.0)
-    hit = trace_closest(bvh, rays, t_max=t_max)
-    return build_surface_interaction(ds, rays, hit), zero_trace_stats()
+    if not bvh.clustered:
+        t_max = _INF if active is None else torch.where(active, _INF, 0.0)
+        hit = trace_closest(bvh, rays, t_max=t_max)
+        return build_surface_interaction(ds, rays, hit), zero_trace_stats()
+    key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent)
+    cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)
+    return build_surface_interaction_fused(ds, rays, cid, cols), stats

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from optix_renderer_tpu.engine.modes import RendererType
+from ..engine.modes import RendererType
 
 from ..core.types import SurfaceInteraction
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..accel.traverse import trace_any, zero_trace_stats
+from ..accel.cluster import merge_trace_stats
+from ..accel.traverse import trace_any_with_stats, zero_trace_stats
 from ..core import math as cm
 from ..core import rng as rnglib
 from ..core.types import Ray, SurfaceInteraction
@@ -50,8 +51,13 @@ def gather_light_attrs(ds: DeviceScene, lidx: torch.Tensor):
 def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_state: torch.Tensor,
                max_depth: int = 10):
     """Radiance for each primary ray; returns (color (N, 3), rng_state,
-    alive_counts (max_depth, 3) int64 on the device, trace_stats); the
-    trace stats are the zero dict, since the brute tier has no cull.
+    alive_counts (max_depth, 3) int64 on the device, trace_stats): the
+    cluster tier's statistics of every NEE and bounce trace, merged (the
+    zero dict on the brute tier).
+
+    On the cluster tier the shadow and bounce rays are incoherent: both
+    traces take the per-lane cull, corridor-sorted (JAX path.py with its
+    default NEE sort).
 
     alive_counts columns per bounce: [0] lanes alive, [1] NEE shadow rays
     actually traced (lanes whose contribution is not provably zero), [2]
@@ -72,6 +78,7 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
     p, nrm, diffuse, alpha = si.p, si.n_geom, si.diffuse, si.alpha
     v = cm.normalize(rays.origin - si.p, eps=1e-30)  # back toward the camera
     rng = rng_state
+    stats = zero_trace_stats()
 
     for d in range(max_depth):
         to_local, to_world = cm.orthonormal_basis(nrm)
@@ -89,7 +96,7 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
         shadow_origin = p + nrm * RAY_EPS
         to_light = lp - shadow_origin
         dist2 = cm.dot(to_light, to_light)
-        dist = torch.sqrt(dist2)
+        dist = cm.sqrt_rn(dist2)
         ldir = to_light / torch.clamp(dist, min=1e-30)[:, None]
 
         light_pdf_w = pdf_area_to_solid_angle(light_pdf_a, dist2, cm.dot(-ldir, lnormal))
@@ -103,9 +110,9 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
         # t_max = 0: the kernel skips them, and ``occluded`` only feeds
         # nee_ok, which is false for them either way.
         shadow_needed = alive & (light_pdf_w > 0.0) & (brdf_nee != 0.0).any(dim=-1)
-        occluded = trace_any(
+        occluded, any_stats = trace_any_with_stats(
             bvh, Ray(origin=shadow_origin, direction=ldir),
-            t_max=torch.where(shadow_needed, dist * (1.0 - 1e-3), 0.0),
+            t_max=torch.where(shadow_needed, dist * (1.0 - 1e-3), 0.0), refine=True, coherent=False,
         )
         nee_ok = shadow_needed & ~occluded
         nee = (
@@ -126,9 +133,10 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
         dir_world = cm.normalize(cm.apply_mat(to_world, wi_local), eps=1e-30)
         # lanes that cannot contribute (dead, or an invalid BSDF sample) are
         # not traced: their hits are masked by sample_ok below
-        bounce_si, _ = trace_closest_si(
-            ds, bvh, Ray(origin=p + nrm * RAY_EPS, direction=dir_world), active=sample_ok
+        bounce_si, closest_stats = trace_closest_si(
+            ds, bvh, Ray(origin=p + nrm * RAY_EPS, direction=dir_world), active=sample_ok, coherent=False
         )
+        stats = merge_trace_stats(stats, merge_trace_stats(any_stats, closest_stats))
 
         hit_light = sample_ok & bounce_si.hit & bounce_si.is_light
         dp = bounce_si.p - p
@@ -160,4 +168,4 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
     estimate = torch.clamp(color, min=EPS)
     out = torch.where(si.is_light[:, None], si.emit, estimate)
     out = torch.where(si.hit[:, None], out, ds.miss_color[None, :])
-    return out, rng, alive_counts, zero_trace_stats()
+    return out, rng, alive_counts, stats

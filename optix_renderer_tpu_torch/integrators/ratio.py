@@ -26,14 +26,16 @@ Deviations from the reference's quirks, kept from the JAX package:
   reference's estimator mixes pdfs and emissions of different lights.
 
 Every lane traces its ``n_samples`` visibility rays, in one batched
-(n_samples * N,) any-hit trace: one launch of kernel B2 per frame.
+(n_samples * N,) any-hit trace: one launch of kernel B2 per frame, or on
+the cluster tier one per-lane cull and one launch of B4 (more where its
+checked fallback re-traces).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..accel.traverse import trace_any
+from ..accel.traverse import trace_any_with_stats
 from ..core import math as cm
 from ..core import rng as rnglib
 from ..core.types import Ray, SurfaceInteraction
@@ -57,7 +59,7 @@ def _stochastic_direct_sample(ds: DeviceScene, si: SurfaceInteraction, shadow_or
     lp = cm.sample_point_on_triangle(lv1, lv2, lv3, u1, u2)
     to_light = lp - shadow_origin
     dist2 = cm.dot(to_light, to_light)
-    dist = torch.sqrt(dist2)
+    dist = cm.sqrt_rn(dist2)
     ldir = to_light / torch.clamp(dist, min=1e-30)[:, None]
 
     # solid-angle pdf from the sampled light's own normal (module docstring)
@@ -77,7 +79,7 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
     """RATIO-mode frame (deviceCode.cu:117-144).
 
     Returns (accumulated color = the LTC buffer (N, 3), rng, aux buffers
-    {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}).
+    {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}, trace stats).
     """
     to_local, wo_local = shading_frame(rays, si)
     ltc_color = ltc_direct(ds, si, to_local, wo_local)
@@ -94,7 +96,8 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
 
     # one batched (n_samples * N,) visibility trace
     all_rays = Ray(origin=shadow_origin.repeat(n_samples, 1), direction=torch.cat(dirs, dim=0))
-    occ = trace_any(bvh, all_rays, t_max=torch.cat(dists, dim=0) * (1.0 - 1e-3)).reshape(n_samples, n)
+    occ, stats = trace_any_with_stats(bvh, all_rays, t_max=torch.cat(dists, dim=0) * (1.0 - 1e-3), refine=True)
+    occ = occ.reshape(n_samples, n)
 
     no_vis = sum(contribs) / n_samples
     direct = sum(torch.where(occ[k][:, None], 0.0, contribs[k]) for k in range(n_samples)) / n_samples
@@ -113,4 +116,4 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
     sto_n = torch.where(hit, torch.where(is_l, emit_gray, g_no_vis), 0.0)
 
     aux = {"ltc": ltc_buf, "sto_direct": sto_d, "sto_no_vis": sto_n}
-    return ltc_buf, rng, aux
+    return ltc_buf, rng, aux, stats

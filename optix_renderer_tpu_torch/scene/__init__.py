@@ -1,10 +1,10 @@
 """Scene: device tensors and texture sampling.
 
-Host parsing is the JAX package's numpy-only code, re-exported here so
-callers of the port need no name from ``optix_renderer_tpu``.
+Host parsing (``config``, ``obj_loader``) and the procedural scenes are
+numpy-only; their names are re-exported here.
 """
 
-from optix_renderer_tpu.scene.config import Scene, SceneCamera, parse_scene
-from optix_renderer_tpu.scene.procedural import write_cornell_scene
+from .config import Scene, SceneCamera, parse_scene
+from .procedural import write_cornell_scene, write_terrain_scene
 
-__all__ = ["Scene", "SceneCamera", "parse_scene", "write_cornell_scene"]
+__all__ = ["Scene", "SceneCamera", "parse_scene", "write_cornell_scene", "write_terrain_scene"]

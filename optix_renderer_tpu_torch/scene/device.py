@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from optix_renderer_tpu.scene.config import Scene
+from .config import Scene
 
 # largest scene (tris) whose shading reads the packed per-triangle rows
 ONEHOT_MAX_TRIS = 4096

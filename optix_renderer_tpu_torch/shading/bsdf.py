@@ -52,7 +52,7 @@ def d_ggx(wh, alpha):
 
 
 def _lambda_smith(w, alpha):
-    return (-1.0 + torch.sqrt(alpha * alpha * tan_theta2(w) + 1.0)) / 2.0
+    return (-1.0 + cm.sqrt_rn(alpha * alpha * tan_theta2(w) + 1.0)) / 2.0
 
 
 def g1_smith_ggx(w, alpha):
@@ -88,7 +88,7 @@ def microfacet_reflection_ggx(wi, wo, f0, alpha):
         & (cos_theta(wo) != 0.0)
         & (wh_len2 > 0.0)
     )
-    wh = wh / torch.sqrt(torch.where(wh_len2 > 0.0, wh_len2, 1.0))[..., None]
+    wh = wh / cm.sqrt_rn(torch.where(wh_len2 > 0.0, wh_len2, 1.0))[..., None]
 
     cos_t = cm.dot(wi, wh)  # eta < 1 branch (frostbite.cuh:101-105)
     f = torch.where((cos_t * cos_t > 0.0)[..., None], fr_schlick(torch.abs(cos_t), f0), 1.0)
@@ -101,8 +101,8 @@ def microfacet_reflection_ggx(wi, wo, f0, alpha):
 
 def sample_cosine_hemisphere(u1, u2):
     """frostbite.cuh:160-165 (not the concentric variant in utils.cuh)."""
-    ct = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
-    st = torch.sqrt(u1)
+    ct = cm.sqrt_rn(torch.clamp(1.0 - u1, min=0.0))
+    st = cm.sqrt_rn(u1)
     phi = 2.0 * cm.PI * u2
     return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
 
@@ -118,22 +118,22 @@ def sample_ggx_vndf(wo, alpha, u1, u2):
     a = alpha[..., None]
     wo_hemi = cm.normalize(torch.cat([a * wo[..., :2], wo[..., 2:3]], dim=-1), eps=1e-30)
     length2 = wo_hemi[..., 0] ** 2 + wo_hemi[..., 1] ** 2
-    inv_len = 1.0 / torch.sqrt(torch.where(length2 > 0.0, length2, 1.0))
+    inv_len = 1.0 / cm.sqrt_rn(torch.where(length2 > 0.0, length2, 1.0))
     b1_reg = torch.stack([-wo_hemi[..., 1] * inv_len, wo_hemi[..., 0] * inv_len, torch.zeros_like(inv_len)], dim=-1)
     b1 = torch.where((length2 > 0.0)[..., None], b1_reg, cm.axis_vector(0, 1.0, wo))
     b2 = cm.cross(wo_hemi, b1)
 
-    r = torch.sqrt(u1)
+    r = cm.sqrt_rn(u1)
     phi = 2.0 * cm.PI * u2
     t1 = r * torch.cos(phi)
     t2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + wo_hemi[..., 2])
-    t2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - t1 * t1, min=0.0)) + s * t2
+    t2 = (1.0 - s) * cm.sqrt_rn(torch.clamp(1.0 - t1 * t1, min=0.0)) + s * t2
 
     wh_hemi = (
         t1[..., None] * b1
         + t2[..., None] * b2
-        + torch.sqrt(torch.clamp(1.0 - t1 * t1 - t2 * t2, min=0.0))[..., None] * wo_hemi
+        + cm.sqrt_rn(torch.clamp(1.0 - t1 * t1 - t2 * t2, min=0.0))[..., None] * wo_hemi
     )
     wh = torch.cat([a * wh_hemi[..., :2], torch.clamp(wh_hemi[..., 2:3], min=0.0)], dim=-1)
     return cm.normalize(wh, eps=1e-30)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from optix_renderer_tpu.shading.ltc_tables import LTC_ISO_1, LTC_ISO_2, LTC_ISO_3
+from .ltc_tables import LTC_ISO_1, LTC_ISO_2, LTC_ISO_3
 
 from ..core import math as cm
 
@@ -160,7 +160,7 @@ def iso_frame_from_wo_local(wo_local: torch.Tensor) -> torch.Tensor:
     n2 = (xy * xy).sum(dim=-1, keepdim=True)
     safe = n2 > 1e-24
     x_axis = cm.axis_vector(0, 1.0, wo_local)[:2]
-    r0xy = torch.where(safe, xy / torch.sqrt(torch.where(safe, n2, 1.0)), x_axis)
+    r0xy = torch.where(safe, xy / cm.sqrt_rn(torch.where(safe, n2, 1.0)), x_axis)
     row0 = torch.cat([r0xy, torch.zeros_like(r0xy[..., :1])], dim=-1)
     row2 = cm.axis_vector(2, 1.0, wo_local).expand(row0.shape)
     row1 = cm.normalize(cm.cross(row2, row0), eps=1e-30)

@@ -1,0 +1,203 @@
+"""Where a frame's device time goes, on one CUDA card.
+
+    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio [--frames 2]
+        [--out prof.jsonl]
+
+Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
+(999,710 triangles, grid 708), ``5b`` the same terrain in PATH depth 4,
+``6`` the gallery in PATH depth 4 at 512^2; and the brute tier's main
+paths at 1024^2: ``path`` (PATH depth 4 on Cornell), ``ltc``
+(LTC_BASELINE on Cornell), ``ratio`` (RATIO with 4 shadow samples on the
+three-light Cornell).  For each config, after one warm-up
+frame the script times ``--frames`` frames on the host clock (each ends
+in ``torch.cuda.synchronize()``), then renders as many again under
+``torch.profiler``, timing those on the host clock too.  The stages:
+
+* ``B3``, ``B4``, ``B5``: the hand-written kernels, found by their names
+  in the device trace;
+* ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
+* ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
+* ``cull``: the first pass's tile-frustum and per-lane culls;
+* ``fallback_cull``: the checked fallback's single-level re-culls;
+* ``shade``: the fused surface interaction from B5's columns;
+* ``glue``: all other device time (integrator, camera, accumulation).
+
+The PyTorch stages are wrapped in a ``record_function`` range once, at
+the start, for every run (the library itself carries no profiling code);
+such a range shows up on the device as a span over the kernels its ops
+launched, and a kernel belongs to the span that holds it.  (The
+profiler's link from a kernel to its launching op is not used: it can
+attach one kernel to two host events.)
+
+Prints one JSON line per config: the card (``nvidia-smi`` name and
+power limit), wall ms/frame unprofiled and profiled, device kernel
+ms/frame of the profiled frames, their idle share ``1 - device /
+profiled wall`` (the profiler's own host cost per launch makes it an
+upper bound for an unprofiled frame), kernels per frame, per stage the
+device ms and calls per frame, and the ten kernels that take the most
+device time.
+A deterministic mode (NORMALS, LTC_BASELINE) renders one frame per
+accumulation, so ``set_camera`` comes before each of its frames.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+CONFIGS = {  # name: (scene, mode, resolution, path depth)
+    "5": ("terrain", "NORMALS", 1024, 4),
+    "5b": ("terrain", "PATH", 1024, 4),
+    "6": ("gallery", "PATH", 512, 4),
+    "path": ("cornell", "PATH", 1024, 4),
+    "ltc": ("cornell", "LTC_BASELINE", 1024, 4),
+    "ratio": ("cornell3", "RATIO", 1024, 4),
+}
+TERRAIN_GRID = 708  # 2 * 707^2 heightfield triangles + the Cornell walls = 999,710
+STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade")  # record_function ranges
+# the hand-written kernels' names in csrc/cluster_trace.cu
+KERNEL_STAGES = {"B3": "closest_cluster_kernel", "B4": "any_cluster_kernel", "B5": "winner_attr_kernel"}
+TOP_KERNELS = 10
+
+
+def _labeled(fn, label):
+    def wrapper(*args, **kwargs):
+        name = label(kwargs) if callable(label) else label
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def _instrument() -> None:
+    """Wrap each PyTorch stage's entry point in a named profiler range."""
+    from ..accel import cluster
+    from ..engine import shade
+
+    for name in ("ray_t_bounds", "corridor_keys_and_t_bounds"):
+        setattr(cluster, name, _labeled(getattr(cluster, name), "sweep"))
+    for name in ("cull_clusters", "cull_clusters_per_lane"):
+        setattr(cluster, name, _labeled(getattr(cluster, name),
+                                        lambda kw: "fallback_cull" if kw.get("single_level") else "cull"))
+    torch.argsort = _labeled(torch.argsort, "sort")
+    shade.build_surface_interaction_fused = _labeled(shade.build_surface_interaction_fused, "shade")
+
+
+def _render_frames(r, n: int, deterministic: bool) -> None:
+    for _ in range(n):
+        if deterministic:
+            r.set_camera(r.scene.cameras[0])
+        r.render(1)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), nargs="+", required=True)
+    ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_frames: torch.cuda.is_available() is false; it needs a CUDA GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    _instrument()
+    lines = [json.dumps(profile_config(config, args.frames, smi)) for config in args.config]
+    for line in lines:
+        print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+def profile_config(config: str, frames: int, smi: str) -> dict:
+    from ..engine.modes import DETERMINISTIC_MODES, RendererType
+    from ..engine.renderer import Renderer
+    from ..scene import parse_scene, write_terrain_scene
+
+    scene_name, mode, res, depth = CONFIGS[config]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with tempfile.TemporaryDirectory() as tmp:
+        if scene_name == "terrain":
+            scene = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRID, width=res, height=res))
+        else:
+            scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
+        r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
+    deterministic = r.mode in DETERMINISTIC_MODES
+    _render_frames(r, 1, deterministic)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _render_frames(r, frames, deterministic)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _render_frames(r, frames, deterministic)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    breakdown = device_breakdown(prof.events(), frames)
+    m = r.metrics
+    return {
+        "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
+        "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "wall_ms_per_frame": wall_ms, "profiled_wall_ms_per_frame": prof_wall_ms,
+        "idle_share": 1.0 - breakdown["device_ms_per_frame"] / prof_wall_ms, **breakdown,
+        # summed over the warm-up, timed and profiled frames
+        "cull_stats": {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")},
+    }
+
+
+def device_breakdown(events, frames: int) -> dict:
+    """Device time per frame of a profiled run (``prof.events()``): in
+    total, per stage, the rest as glue, and the largest kernels by name.
+    The hand-written kernels count by name (``KERNEL_STAGES``); every other
+    kernel belongs to the ``STAGES`` range whose device-side span holds it
+    (one stream runs its kernels one after another, and no stage range
+    holds another).  Every kernel counts once."""
+    host = torch.autograd.DeviceType.CPU
+    on_device = sorted((e for e in events if e.device_type != host), key=lambda e: e.time_range.start)
+    spans = [e for e in on_device if e.name in STAGES]  # a stage range's span on the device
+    kernels = [e for e in on_device if e.name not in STAGES]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
+    stages = {name: {"device_ms_per_frame": 0.0, "calls_per_frame": 0.0} for name in (*KERNEL_STAGES, *STAGES)}
+    for e in events:
+        if e.device_type == host and e.name in STAGES:
+            stages[e.name]["calls_per_frame"] += 1 / frames
+    owner: list = [None] * len(kernels)
+    for i, e in enumerate(kernels):
+        for label, kname in KERNEL_STAGES.items():
+            if kname in e.name:
+                owner[i] = label
+                stages[label]["calls_per_frame"] += 1 / frames
+    starts = [e.time_range.start for e in kernels]
+    for span in spans:
+        i = bisect.bisect_left(starts, span.time_range.start)
+        while i < len(kernels) and kernels[i].time_range.end <= span.time_range.end:
+            owner[i] = owner[i] or span.name
+            i += 1
+    by_name: dict = {}
+    for e, label in zip(kernels, owner):
+        ms = e.time_range.elapsed_us() / 1e3 / frames
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+        if label is not None:
+            stages[label]["device_ms_per_frame"] += ms
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS])
+    glue = device_ms - sum(s["device_ms_per_frame"] for s in stages.values())
+    return {"device_ms_per_frame": device_ms, "kernels_per_frame": len(kernels) / frames,
+            "stages": stages, "glue_ms_per_frame": glue, "top_kernels_ms_per_frame": top}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,10 @@
 """The port imports no JAX, and its CUDA entry points never fall back.
 
 A fresh interpreter imports every module of ``optix_renderer_tpu_torch``,
-renders one 16^2 PATH frame and one 16^2 RATIO frame on the CPU and must
-not have loaded ``jax``.
+renders one 16^2 PATH frame and one 16^2 RATIO frame on the CPU, and one
+MASK frame of a grid-60 terrain (above 4096 triangles: the cluster tier),
+and must have loaded neither ``jax`` nor any module of the JAX package
+``optix_renderer_tpu``.
 Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
 ``--device cuda`` must fail with a clear message rather than render on
 the CPU.
@@ -26,7 +28,7 @@ for name in mods:
     importlib.import_module(name)
 from optix_renderer_tpu_torch.engine import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer
-from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene
+from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene, write_terrain_scene
 scene = parse_scene(write_cornell_scene(tempfile.mkdtemp(), width=16, height=16))
 r = Renderer(scene, width=16, height=16, mode=RendererType.PATH, path_depth=4, device="cpu")
 r.render(1)
@@ -35,9 +37,16 @@ assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0, i
 r = Renderer(scene, width=16, height=16, mode=RendererType.RATIO, device="cpu")
 r.render(1)
 assert np.isfinite(r.image()).all() and float(r.aux["sto_no_vis"].max()) > 0
+terrain = parse_scene(write_terrain_scene(tempfile.mkdtemp(), grid=60, width=16, height=16))
+r = Renderer(terrain, width=16, height=16, mode=RendererType.MASK, device="cpu")
+assert r.bvh.num_tris > 4096
+r.render(1)
+assert 0 < r.image().mean() <= 1
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+ref = sorted(m for m in sys.modules if m == "optix_renderer_tpu" or m.startswith("optix_renderer_tpu."))
 print("MODULES", len(mods))
 print("JAX", loaded)
+print("REF", ref)
 """
 
 
@@ -52,9 +61,10 @@ def test_port_imports_and_renders_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=tmp_path, env=_child_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines() if ln.startswith(("MODULES", "JAX")))
+    lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines() if ln.startswith(("MODULES", "JAX", "REF")))
     assert int(lines["MODULES"]) >= 15, out.stdout
     assert lines["JAX"] == "[]", f"the port loaded JAX: {lines['JAX']}"
+    assert lines["REF"] == "[]", f"the port loaded modules of the JAX package: {lines['REF']}"
 
 
 def test_cuda_renderer_refuses_without_a_card(tmp_path):

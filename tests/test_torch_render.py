@@ -65,10 +65,14 @@ def test_set_mode_and_camera_restart_accumulation(golden_scene):
     r.render(1)
     r.set_camera(golden_scene.cameras[0])
     assert r.state.accum_id == 0
-    # what is still unported: scenes above the brute tier's 4096 triangles
+    # scenes above the brute tier's 4096 triangles take the cluster tier,
+    # whose mode and camera changes restart accumulation the same way
     gallery = parse_scene(os.path.join(REPO, "scenes", "gallery", "scene.json"))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Renderer(gallery, width=8, height=8, mode=RendererType.PATH, device="cpu")
+    g = Renderer(gallery, width=8, height=8, mode=RendererType.PATH, path_depth=2, device="cpu")
+    assert g.bvh.clustered
+    g.render(1)
+    g.set_mode(RendererType.MASK)
+    assert g.state.accum_id == 0 and float(g.state.accum.abs().sum()) == 0.0
 
 
 @pytest.fixture(scope="module")

@@ -156,7 +156,10 @@ def test_guards_raise(case):
     rays = Ray(*_torch(o, d))
     with pytest.raises(ValueError, match="t_min"):
         ttraverse.trace_closest(bvh, rays, t_min=1e-3)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="empty scene"):
+        tbuild.build_bvh(np.zeros((0, 3, 3), np.float32), "cpu")
+    # above the brute tier the cluster tier's shade rows need the attributes
+    with pytest.raises(ValueError, match="tri_attr"):
         tbuild.build_bvh(np.zeros((4097, 3, 3), np.float32), "cpu")
     # a CUDA wrapper never runs the plain version: a CPU tensor is refused
     with pytest.raises(ValueError, match="CUDA"):
