@@ -21,12 +21,21 @@ raises and exits non-zero):
    (6), and on 1M seeded random operands with 7 lights, so that every clip
    case occurs (tolerance of tests/unit/test_ltc_pallas.py, and at least
    99.99 % of rays bit-equal); then, on the 1M-triangle terrain (BASELINE
-   config 5), B3 on 1024^2 primaries with tile lists and on 1M cosine
-   bounce rays from their hits with corridor-sorted per-lane lists, B4 on
-   1M NEE shadow rays, B5 on the primaries' winners (B3 and B4 against the
-   plain versions on a seeded sample of 64 tiles with the lists the cull
-   made for them: every lane bit-equal for B3, B4 and B5), and the checked
-   overflow fallback on the card;
+   config 5), the list form of B3 on 1024^2 primaries with tile lists and
+   on 1M cosine bounce rays from their hits with corridor-sorted per-lane
+   lists, the list form of B4 on 1M NEE shadow rays, B5 on the primaries'
+   winners (B3 and B4 against the plain versions on a seeded sample of 64
+   tiles with the lists the cull made for them: every lane bit-equal for
+   B3, B4 and B5), and the checked overflow fallback on the card (the list
+   path forced on per-lane rays, and a list cap that overflows); then the
+   walk form of B3 on the same 1M bounce rays and of B4 on the same 1M NEE
+   rays, with no lists, against their plain versions on the sample's lanes
+   and against the list path's result on every ray (B4 equal on every
+   lane; B3's key on every lane and its cluster id on 99.99 %), and the
+   walk form of B3 on the primaries in the same way, its time beside
+   tile cull + list form; and both walk forms against their plain versions
+   on a 1.28M-triangle terrain with 312 superclusters, which takes two
+   rounds of supercluster boxes per ray;
 4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
    on the gallery at 64^2 against ``tests/goldens`` (g-buffers, LTC and
    the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE), RATIO at 64^2
@@ -43,21 +52,27 @@ raises and exits non-zero):
    samples per pixel, 2 warm-up frames under sync debugging, 16 timed
    frames, then denoise x2 and ratio-combine, checked for the invariants
    of tests/integration/test_ratio_render.py;
-8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame (host
-   syncs counted: at most one per trace call), then 16 single frames,
-   each after ``set_camera``;
+8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame under
+   sync debugging (no sync allowed), then 16 single frames, each after
+   ``set_camera``;
 9. main path config 6: the gallery, PATH depth 4 at 512^2, 2 warm-up
    frames under sync debugging (no sync allowed), then 16 timed frames;
 10. main path config 5b: terrain PATH depth 4 at 1024^2, 1 warm-up frame
-   (syncs counted), then 2 timed frames.
+   under sync debugging (no sync allowed), then 8 timed frames.
 
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
 those six reads.  Each kernel's ``bound_ms`` is the larger of the bytes it
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
-published H100 SXM peaks), counted from this run's inputs; B3 and B4 count
-the slab and ray/triangle tests their walk ran, read back from the kernel.
-The last three lines are the kernels' JSON record, the nvidia-smi line and
+published H100 SXM peaks), counted from this run's inputs; the list forms
+of B3 and B4 count the slab and ray/triangle tests their rules need on
+these lists, read back from the kernel (beside the lane slots the warps
+spent on them: the lane utilisation); the walk forms count, whatever the
+kernel did, the tests any walk needs that ends at the lanes' final bounds
+(over every ray; B3's kernel may not have run fewer).
+B3's and B4's ``launches`` add both forms; every main path on the card
+launches the walk forms, and the list forms go on being built, launched
+and checked in phase 3.  The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,7 +107,7 @@ RTOL, ATOL = 1e-5, 1e-6
 LTC_BIT_EQUAL_MIN = 0.9999
 # the cluster tier: BASELINE config 5's terrain (2 * 707^2 = 999,698
 # heightfield triangles + the Cornell walls) and config 6's gallery
-TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 2
+TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 8
 GALLERY_RES = 512
 GALLERY_GOLDENS = {"gallery_diffuse": ("DIFFUSE", 1), "gallery_ltc": ("LTC_BASELINE", 1),
                    "gallery_path": ("PATH", 2)}  # tests/goldens/generate.py GALLERY_MODES
@@ -102,6 +117,9 @@ SAMPLE_TILES = 64  # the plain B3/B4 walk a seeded sample of the 1024 tiles
 # keep the other cluster's id (B3 takes a cid on a strict decrease only)
 FALLBACK_EQUAL_MIN = 0.9999
 FORCED_MAX_VISITS = 128  # a list cap that overflows on the terrain: the checked fallback must run
+# a terrain with more than 256 superclusters (2 * 799^2 triangles, 312 superclusters): the walk kernels
+# test supercluster boxes 256 a round, so this one takes two rounds per ray
+ROUNDS_GRID, ROUNDS_RAYS = 800, 1 << 16
 # bounds: published peaks of one H100 SXM (NVIDIA data sheet, dense, without sparsity)
 PEAK_F32_OPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 MT_OPS = 53  # f32 operations of one Moller-Trumbore test, counted in csrc mt_row
@@ -308,7 +326,7 @@ def _check_walk(torch, ct, kind: str, bvh, walk, o, d, extra, label: str) -> dic
     closest = kind == "closest"
     cuda_fn = ct.trace_closest_clusters_cuda if closest else ct.trace_any_clusters_cuda
     plain_fn = ct.trace_closest_clusters_plain if closest else ct.trace_any_clusters_plain
-    work = torch.zeros(2, dtype=torch.int64, device=o.device)
+    work = torch.zeros(4, dtype=torch.int64, device=o.device)
     full = cuda_fn(tab, cmin, cmax, lists, counts, scales, cb, o, d, *extra, work=work)
     sel, lanes = _tile_sample(torch, lists.shape[0], ct.TILE, o.device)
     sub = (tab, cmin, cmax, lists[sel].contiguous(), counts[sel].contiguous(), scales[sel].contiguous(), cb,
@@ -337,17 +355,90 @@ def _check_walk(torch, ct, kind: str, bvh, walk, o, d, extra, label: str) -> dic
     listed = int(counts.sum().item())
     ray_bytes = n * (24 + 16) if closest else n * (24 + 4 + 1)  # rays, key0/cid0 or t_max, outputs
     n_bytes = ray_bytes + 4 * listed + 8 * lists.shape[0] + n_clusters * (64 * 16 * 4 + 24)
-    slabs, tests = (int(w) for w in work.tolist())
+    slabs, tests, slab_slots, test_slots = (int(w) for w in work.tolist())
     bound_ms, bound_by = _bound(n_bytes, slabs * SLAB_OPS + tests * MT_OPS)
+    util_list, util_test = slabs / max(slab_slots, 1), tests / max(test_slots, 1)
     name = "B3" if closest else "B4"
     print(f"  {name} {label}: {n} rays, {lists.shape[0]} tiles, lists {tuple(lists.shape)}, {listed} entries "
-          f"({n_clusters} distinct clusters), {slabs} slab tests, {tests} ray/triangle tests; "
+          f"({n_clusters} distinct clusters), {slabs} slab tests in {slab_slots} lane slots of the warps' list steps "
+          f"(utilisation {util_list:.4f}), {tests} ray/triangle tests in {test_slots} lane slots of the warps' "
+          f"triangle steps (utilisation {util_test:.4f}); "
           f"{SAMPLE_TILES}-tile sample: {hits} {'hits' if closest else 'occluded'}, "
           f"{'key+cid bit-equal' if closest else 'equal'} {agree:.7f}, max |err| {err:.3g}; "
           f"kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}); sample: kernel {ms_sample:.4f} ms "
           f"vs plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "sample_ms": ms_sample, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "list_utilisation": util_list, "test_utilisation": util_test}
+
+
+def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str, list_path) -> dict:
+    """The walk form of B3 (``kind`` "closest", ``extra`` = (key0, cid0)) or
+    B4 ("any", ``extra`` = (t_max,)) on every ray, with no lists: held
+    against its plain version on the lanes of SAMPLE_TILES seeded tiles and
+    against ``list_path``, the list path's result (per-lane cull, list form,
+    checked fallback) on every ray.  B4: equal on every lane.  B3: the key
+    equal on every lane, the cluster id on FALLBACK_EQUAL_MIN of them (a
+    packed key tied between two clusters keeps the one visited first).
+    The bound does not depend on the implementation: from every lane's
+    final bound, ``walk_bound_counts`` counts every supercluster box, the
+    cluster boxes of the superclusters and the triangles of the clusters
+    that pass within it, which B3's kernel cannot have undercut; the bytes
+    are the rays, the outputs, the boxes and the table once."""
+    tab, boxes = bvh.tri_tab, (bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max)
+    closest = kind == "closest"
+    name = "B3" if closest else "B4"
+    cuda_fn = ct.trace_closest_walk_cuda if closest else ct.trace_any_walk_cuda
+    plain_fn = ct.trace_closest_walk_plain if closest else ct.trace_any_walk_plain
+    n = o.shape[0]
+    work = torch.zeros(4, dtype=torch.int64, device=o.device)
+    full = cuda_fn(tab, *boxes, o, d, *extra, work=work)
+    sel, lanes = _tile_sample(torch, n // ct.TILE, ct.TILE, o.device)
+    o_s, d_s = o[lanes].contiguous(), d[lanes].contiguous()
+    sub = (tab, *boxes, o_s, d_s, *(e[lanes].contiguous() for e in extra))
+    plain = plain_fn(*sub)
+    torch.cuda.synchronize()
+    if closest:
+        t_up = lambda k: (k | 63).view(torch.float32)  # noqa: E731
+        key_k, cid_k = full[0][lanes], full[1][lanes]
+        err = (t_up(key_k) - t_up(plain[0])).abs().max().item()
+        key_same, cid_same = (key_k == plain[0]).float().mean().item(), (cid_k == plain[1]).float().mean().item()
+        key_list, cid_list = ((a == b).float().mean().item() for a, b in zip(full, list_path))
+        _require(key_same == 1.0, f"B3 walk {label}: key differs from the plain version on {1 - key_same:.7f} of lanes")
+        _require(key_list == 1.0, f"B3 walk {label}: key differs from the list path on {1 - key_list:.7f} of lanes")
+        _require(min(cid_same, cid_list) >= FALLBACK_EQUAL_MIN,
+                 f"B3 walk {label}: cluster id equal to the plain version's on {cid_same:.7f} and to the list "
+                 f"path's on {cid_list:.7f} of lanes (< {FALLBACK_EQUAL_MIN})")
+        hits = int((plain[1] >= 0).sum().item())
+        agree = (f"key equal on {key_same:.7f} and cid on {cid_same:.7f} of the sampled lanes; against the list "
+                 f"path on all rays: key {key_list:.7f}, cid {cid_list:.7f}")
+        slabs_b, tests_b = ct.walk_bound_counts(*boxes, o, d, t_up(full[0]))
+    else:
+        err = (full[lanes].float() - plain.float()).abs().max().item()
+        same, same_list = (full[lanes] == plain).float().mean().item(), (full == list_path).float().mean().item()
+        _require(same == 1.0, f"B4 walk {label}: occlusion differs from the plain version on {1 - same:.7f} of lanes")
+        _require(same_list == 1.0, f"B4 walk {label}: occlusion differs from the list path on {1 - same_list:.7f} "
+                 "of lanes")
+        hits = int(plain.sum().item())
+        agree = f"equal on {same:.7f} of the sampled lanes and to the list path on {same_list:.7f} of all rays"
+        slabs_b, tests_b = ct.walk_bound_counts(*boxes, o, d, extra[0], occluded=full)
+    ms = _time_ms(torch, lambda: cuda_fn(tab, *boxes, o, d, *extra), 10)
+    ms_sample, plain_ms = _in_turns(torch, lambda: plain_fn(*sub), lambda: cuda_fn(*sub), 1, 10)
+    n_bytes = n * ((24 + 16) if closest else (24 + 4 + 1)) + tab.numel() * 4 + sum(b.numel() * 4 for b in boxes)
+    bound_ms, bound_by = _bound(n_bytes, slabs_b * SLAB_OPS + tests_b * MT_OPS)
+    slabs, tests, slab_slots, test_slots = (int(w) for w in work.tolist())
+    # a walk that keeps the front-to-back rule visits at least what the final bounds need
+    _require(not closest or (slabs_b <= slabs and tests_b <= tests),
+             f"B3 walk {label}: the kernel ran {slabs} slab and {tests} ray/triangle tests, fewer than the "
+             f"{slabs_b} and {tests_b} that its final bounds need")
+    util_slab, util_test = slabs / max(slab_slots, 1), tests / max(test_slots, 1)
+    print(f"  {name} walk form, {label}: {n} rays, no lists; {SAMPLE_TILES}-tile sample: {hits} "
+          f"{'hits' if closest else 'occluded'}, {agree}, max |err| {err:.3g}; the kernel ran {slabs} slab tests in "
+          f"{slab_slots} lane slots (utilisation {util_slab:.4f}) and {tests} ray/triangle tests in {test_slots} "
+          f"(utilisation {util_test:.4f}); any walk to these bounds needs {slabs_b} slab tests and {tests_b} "
+          f"ray/triangle tests (counted over every ray); kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+          f"{bound_by}); sample: kernel {ms_sample:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "sample_ms": ms_sample, "bound_ms": bound_ms,
+            "bound_by": bound_by, "slab_utilisation": util_slab, "test_utilisation": util_test}
 
 
 def _sorted_lane_walk(torch, cluster, Ray, bvh, rays, active, t_max):
@@ -581,8 +672,7 @@ def main() -> int:
     bounce = Ray(origin=org_b, direction=d_b)
     ob, db, teb, walk_b, overflow_b, cull_b_ms = _sorted_lane_walk(torch, cluster, Ray, tb, bounce, si_p.hit,
                                                                    3.0e38)
-    b3b = _check_walk(torch, ct, "closest", tb, walk_b, ob, db,
-                      ((teb.view(torch.int32) & ~63) | 63, torch.full_like(key0, -1)),
+    b3b = _check_walk(torch, ct, "closest", tb, walk_b, ob, db, cluster.cold_start_keys(teb),
                       "terrain 1M cosine bounce, corridor-sorted per-lane lists")
     ds_t = rt.device_scene
     lidx = torch.randint(0, ds_t.num_lights, (n_t,), generator=g, device=dev)
@@ -604,15 +694,15 @@ def main() -> int:
     # the checked overflow fallback on the card: the port's trace entry
     # points on the same rays, then a list cap that overflows
     ct.reset_launch_counts()
-    _, _, _, st_b = cluster.trace_closest_clusters_packed(tb, Ray(origin=ob, direction=db), refine=True, t_eff=teb)
-    _, st_s = cluster.trace_any_clusters(tb, Ray(origin=os_, direction=ds_), refine=True, t_eff=tes)
+    key_lb, cid_lb, st_b = cluster.trace_closest_lists(tb, Ray(origin=ob, direction=db), teb, True)
+    occ_ls, st_s = cluster.trace_any_lists(tb, Ray(origin=os_, direction=ds_), tes, True)
     default_max_visits = cluster.DEFAULT_MAX_VISITS
     cluster.DEFAULT_MAX_VISITS = FORCED_MAX_VISITS
     try:
-        key_f, cid_f, _, st_f = cluster.trace_closest_clusters_packed(tb, prim_t)
+        key_f, cid_f, st_f = cluster.trace_closest_lists(tb, prim_t, t_eff, False)
     finally:
         cluster.DEFAULT_MAX_VISITS = default_max_visits
-    key_e, cid_e, _, st_e = cluster.trace_closest_clusters_packed(tb, prim_t)
+    key_e, cid_e, st_e = cluster.trace_closest_lists(tb, prim_t, t_eff, False)
     torch.cuda.synchronize()
     fb_launches = dict(ct.LAUNCHES)
     _require(int(st_f["retraced"]) > 0 and int(st_f["unresolved_tiles"]) > 0,
@@ -621,10 +711,46 @@ def main() -> int:
     _require(same >= FALLBACK_EQUAL_MIN,
              f"the checked fallback changed key and cid on {1 - same:.7f} of lanes "
              f"(DEFAULT_MAX_VISITS={FORCED_MAX_VISITS})")
-    print(f"  checked fallback on the card: bounce trace {_stats_str(st_b)}; shadow trace {_stats_str(st_s)}; "
+    print(f"  the list path and its checked fallback on the card: bounce trace {_stats_str(st_b)}; shadow trace {_stats_str(st_s)}; "
           f"primaries at DEFAULT_MAX_VISITS={FORCED_MAX_VISITS}: {_stats_str(st_f)}, key+cid equal to the default "
           f"cap's ({_stats_str(st_e)}) on {same:.7f} of lanes; launches {fb_launches}", flush=True)
+
+    # the walk forms: the same rays with no lists, against their plain versions
+    # and against the list path's results above
+    b3w = _check_ray_walk(torch, ct, "closest", tb, ob, db, cluster.cold_start_keys(teb),
+                          "terrain 1M cosine bounce, corridor-sorted", (key_lb, cid_lb))
+    b4w = _check_ray_walk(torch, ct, "any", tb, os_, ds_, (tes,), "terrain 1M NEE shadow, corridor-sorted", occ_ls)
+    # and on the coherent primaries, against the list path's result at the default cap
+    b3p = _check_ray_walk(torch, ct, "closest", tb, prim_t.origin, prim_t.direction, (key0, cid0),
+                          "terrain primary 1024^2", (key_e, cid_e))
+    print(f"  B3 on the 1024^2 primaries: walk form {b3p['ms']:.4f} ms against tile cull {cull_p_ms:.4f} ms (CUDA "
+          f"events around its eager PyTorch ops) + list form {b3['ms']:.4f} ms", flush=True)
     del bounce, shadow, ob, db, teb, walk_b, os_, ds_, tes, walk_s, si_p, cols_k, cols_p, tab26, u
+    del key_lb, cid_lb, occ_ls
+
+    # the walk forms on a scene that needs two rounds of supercluster boxes per ray
+    with tempfile.TemporaryDirectory() as tmp:
+        big = Renderer(parse_scene(write_terrain_scene(tmp, grid=ROUNDS_GRID, width=64, height=64)), width=64,
+                       height=64, mode=RendererType.NORMALS, device=dev).bvh
+    _require(big.sc_min.shape[0] > 256, f"the grid-{ROUNDS_GRID} terrain has only {big.sc_min.shape[0]} superclusters")
+    o2, d2, tm2_c, tm2_a = _bounce_like_rays(torch, big, ROUNDS_RAYS, dev)
+    rays2 = Ray(origin=o2, direction=d2)
+    args2 = (big.tri_tab, big.cluster_min, big.cluster_max, big.sc_min, big.sc_max, o2, d2)
+    keys2 = cluster.cold_start_keys(cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_c))
+    t_any2 = cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_a)
+    key_k, cid_k = ct.trace_closest_walk_cuda(*args2, *keys2)
+    key_q, cid_q = ct.trace_closest_walk_plain(*args2, *keys2)
+    occ_k, occ_q = ct.trace_any_walk_cuda(*args2, t_any2), ct.trace_any_walk_plain(*args2, t_any2)
+    torch.cuda.synchronize()
+    cid_same = (cid_k == cid_q).float().mean().item()
+    _require(bool((key_k == key_q).all()) and cid_same >= FALLBACK_EQUAL_MIN and bool((occ_k == occ_q).all()),
+             f"walk forms on {big.sc_min.shape[0]} superclusters: key equal {(key_k == key_q).float().mean().item():.7f}, "
+             f"cid {cid_same:.7f}, occlusion {(occ_k == occ_q).float().mean().item():.7f}")
+    print(f"  walk forms on a {big.num_tris}-triangle terrain ({big.num_clusters} clusters, {big.sc_min.shape[0]} "
+          f"superclusters: two rounds of level 1), {ROUNDS_RAYS} bounce-like rays: B3 key equal to the plain version's "
+          f"on every lane, cid on {cid_same:.7f} ({int((cid_q >= 0).sum().item())} hits); B4 equal on every lane "
+          f"({int(occ_q.sum().item())} occluded)", flush=True)
+    del big, args2, rays2, o2, d2, key_k, cid_k, key_q, cid_q, occ_k, occ_q
     del lists, counts, scales, key_f, cid_f, key_e, cid_e, lp, to_light, ldir, org_b, d_b
     phase_done("phase 3")
 
@@ -779,7 +905,7 @@ def main() -> int:
         return {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")}
 
     syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
-    _require(len(syncs) <= 1, f"terrain NORMALS: {len(syncs)} host syncs in one frame (one trace call): {syncs}")
+    _require(not syncs, f"the terrain NORMALS frame synchronizes with the card at {syncs}")
     m0 = dict(rt.metrics)
     reset_counts()
     secs = 0.0
@@ -791,9 +917,8 @@ def main() -> int:
     launches_c5 = launch_counts()
     m1 = dict(rt.metrics)
     st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
-    _require(launches_c5["cluster_closest"] >= TERRAIN_FRAMES
-             and launches_c5 == expected(cluster_closest=launches_c5["cluster_closest"], winner_attrs=TERRAIN_FRAMES),
-             f"config 5 launch counts {launches_c5}")
+    want = expected(cluster_closest_walk=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
+    _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all())
              and float(np.abs(img).mean()) > 0.0,  # normals: signed components
@@ -801,8 +926,8 @@ def main() -> int:
     print(f"[8 main path] config 5: terrain NORMALS {TERRAIN_RES}^2 ({tb.num_tris} triangles), {TERRAIN_FRAMES} "
           f"single frames after 1 warm-up: {secs / TERRAIN_FRAMES * 1e3:.3f} ms/frame, "
           f"{TERRAIN_FRAMES * n_t / secs / 1e6:.3f} Mrays/s (primary rays), image mean {img.mean():.5f}, "
-          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frame: {len(syncs)}, on {smi}",
-          flush=True)
+          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frame: {len(syncs)}, "
+          f"on {smi}", flush=True)
     phase_done("phase 8")
 
     # ---- 9. main path config 6: gallery PATH depth 4 at 512^2 ---------------
@@ -816,7 +941,7 @@ def main() -> int:
     launches_c6 = launch_counts()
     m1 = dict(rg.metrics)
     traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
-    want = expected(cluster_closest=traces, cluster_any=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
+    want = expected(cluster_closest_walk=traces, cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
     st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
     _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
@@ -837,7 +962,8 @@ def main() -> int:
     rt.set_mode(RendererType.PATH)
     traces = 1 + 2 * MAIN_DEPTH  # primary, then NEE and bounce per bounce
     syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
-    _require(len(syncs) <= traces, f"terrain PATH: {len(syncs)} host syncs in one frame of {traces} trace calls")
+    # the walk forms cut nothing and ask the host nothing
+    _require(not syncs, f"the terrain PATH frame synchronizes with the card at {syncs}")
     m0 = dict(rt.metrics)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -847,12 +973,10 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
     n_fr = TERRAIN_PATH_FRAMES
-    _require(launches_c5b["cluster_closest"] >= n_fr * (1 + MAIN_DEPTH)
-             and launches_c5b["cluster_any"] >= n_fr * MAIN_DEPTH
-             and launches_c5b == expected(cluster_closest=launches_c5b["cluster_closest"],
-                                          cluster_any=launches_c5b["cluster_any"],
-                                          winner_attrs=n_fr * (1 + MAIN_DEPTH)),
-             f"config 5b launch counts {launches_c5b}")
+    want = expected(cluster_closest_walk=n_fr * (1 + MAIN_DEPTH), cluster_any_walk=n_fr * MAIN_DEPTH,
+                    winner_attrs=n_fr * (1 + MAIN_DEPTH))
+    _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
+    _require(not any(st5b.values()), f"config 5b: trace statistics {st5b} from traces that list nothing")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"terrain PATH image: shape {img.shape}, mean {img.mean()}")
@@ -866,6 +990,8 @@ def main() -> int:
 
     launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,
                                       launches_c5b)) for k in launches_path}
+    _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0,
+             f"the walk form of B3 or B4 never ran on a main path: {launches}")
     src = "optix_renderer_tpu_torch/csrc/brute_trace.cu"
     csrc = "optix_renderer_tpu_torch/csrc/cluster_trace.cu"
     pc = "optix_renderer_tpu/accel/pallas_cluster.py"
@@ -878,14 +1004,24 @@ def main() -> int:
          "replaces": "optix_renderer_tpu/accel/pallas_trace.py:124",
          "launches": launches["brute_any"], "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
+        # B3 and B4: `launches` counts both forms (`form_launches` each); ms, plain_ms and bound_ms are the
+        # walk form's on the 1M incoherent rays (the form that every main path on the card launches), and
+        # `forms` holds each form's own numbers at each input
         {"name": "cluster_closest", "route": "cuda", "source": csrc, "replaces": f"{pc}:848",
-         "launches": launches["cluster_closest"], "max_abs_err": max(b3["max_abs_err"], b3b["max_abs_err"]),
-         "ms": b3["ms"], "plain_ms": b3["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b3["sample_ms"],
-         "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"], "library_ms": None},
+         "launches": launches["cluster_closest"] + launches["cluster_closest_walk"],
+         "max_abs_err": max(b3["max_abs_err"], b3b["max_abs_err"], b3w["max_abs_err"], b3p["max_abs_err"]),
+         "ms": b3w["ms"], "plain_ms": b3w["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b3w["sample_ms"],
+         "bound_ms": b3w["bound_ms"], "bound_by": b3w["bound_by"], "library_ms": None,
+         "form_launches": {"walk": launches["cluster_closest_walk"], "list": launches["cluster_closest"]},
+         "forms": {"walk, 1M bounce rays": b3w, "walk, 1024^2 primaries": b3p,
+                   "list, 1024^2 primaries, tile lists": b3, "list, 1M bounce rays, per-lane lists": b3b}},
         {"name": "cluster_any", "route": "cuda", "source": csrc, "replaces": f"{pc}:1020",
-         "launches": launches["cluster_any"], "max_abs_err": b4["max_abs_err"], "ms": b4["ms"],
-         "plain_ms": b4["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b4["sample_ms"],
-         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"], "library_ms": None},
+         "launches": launches["cluster_any"] + launches["cluster_any_walk"],
+         "max_abs_err": max(b4["max_abs_err"], b4w["max_abs_err"]), "ms": b4w["ms"],
+         "plain_ms": b4w["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b4w["sample_ms"],
+         "bound_ms": b4w["bound_ms"], "bound_by": b4w["bound_by"], "library_ms": None,
+         "form_launches": {"walk": launches["cluster_any_walk"], "list": launches["cluster_any"]},
+         "forms": {"walk, 1M NEE rays": b4w, "list, 1M NEE rays, per-lane lists": b4}},
         {"name": "winner_attrs", "route": "cuda", "source": csrc, "replaces": f"{pc}:1657",
          "launches": launches["winner_attrs"], "max_abs_err": err_b5, "ms": ms_b5, "plain_ms": plain_b5,
          "bound_ms": bound_b5[0], "bound_by": bound_b5[1], "library_ms": lib_b5},

@@ -26,6 +26,7 @@ import torch
 BRUTE_MAX_TRIS = 4096  # the dispatch threshold: above it, the cluster tier
 TRI_SUB = 8  # brute-tier table rows are padded to a multiple of this
 CLUSTER_SIZE = 64  # triangles per cluster (cluster tier)
+SC_GROUP = 64  # clusters per supercluster: Morton-contiguous runs of cluster boxes
 ATTR_NRM_COLS = 12  # corner-normal group row width (9 used)
 ATTR_UVM_COLS = 8  # uv/mesh/area group row width (8 used)
 SHADE_A_COLS = 20  # fused decode+shade row: v0 e1 e2 | n1 n2 n3 | mesh prim
@@ -46,6 +47,8 @@ class BVH:
     cluster_max: torch.Tensor  # (C, 3) f32
     shade_a: torch.Tensor  # (Tp, SHADE_A_COLS) f32 sorted order; (1, cols) on the brute tier
     shade_b: torch.Tensor  # (Tp, SHADE_B_COLS) f32
+    sc_min: torch.Tensor  # (S, 3) f32 AABBs of the runs of SC_GROUP clusters (the walk kernels' first level)
+    sc_max: torch.Tensor  # (S, 3) f32
 
     @property
     def num_tris(self) -> int:
@@ -180,6 +183,16 @@ def build_bvh(tri_verts: np.ndarray, device, tri_normal: np.ndarray | None = Non
                           device)
 
 
+def supercluster_boxes(cluster_min: torch.Tensor, cluster_max: torch.Tensor):
+    """(sc_min, sc_max), each (ceil(C / SC_GROUP), 3): the box of clusters
+    [SC_GROUP * s, SC_GROUP * s + SC_GROUP), the last run as long as it is."""
+    C = cluster_min.shape[0]
+    pad = -C % SC_GROUP
+    lo = torch.cat([cluster_min, cluster_min.new_full((pad, 3), float("inf"))])
+    hi = torch.cat([cluster_max, cluster_max.new_full((pad, 3), float("-inf"))])
+    return lo.reshape(-1, SC_GROUP, 3).amin(dim=1), hi.reshape(-1, SC_GROUP, 3).amax(dim=1)
+
+
 def flat_from_grouped(grouped: np.ndarray) -> np.ndarray:
     """The JAX package's (C*8, 128) grouped cluster table as the port's flat
     (C*64, 16) table: triangle ``g*8 + s`` of cluster c sits at [8c + s,
@@ -206,14 +219,18 @@ def bvh_from_numpy(arrs: dict, device) -> BVH:
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    cluster_min, cluster_max = f32(arrs["cluster_min"]), f32(arrs["cluster_max"])
+    sc_min, sc_max = supercluster_boxes(cluster_min, cluster_max)
     return BVH(
         tri_v0=f32(arrs["tri_v0"]),
         tri_e1=f32(arrs["tri_e1"]),
         tri_e2=f32(arrs["tri_e2"]),
         prim_id=torch.tensor(np.asarray(arrs["prim_id"], np.int32), device=device),
         tri_tab=f32(tri_tab),
-        cluster_min=f32(arrs["cluster_min"]),
-        cluster_max=f32(arrs["cluster_max"]),
+        cluster_min=cluster_min,
+        cluster_max=cluster_max,
         shade_a=f32(arrs["shade_a"]),
         shade_b=f32(arrs["shade_b"]),
+        sc_min=sc_min,
+        sc_max=sc_max,
     )

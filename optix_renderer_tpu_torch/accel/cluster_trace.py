@@ -10,11 +10,14 @@ Counterpart of the Pallas half of ``optix_renderer_tpu/accel/pallas_cluster.py``
   the current stream, counting each launch in ``LAUNCHES``;
 * the plain PyTorch version (``*_plain``), which applies the kernel's
   per-lane rules in the same f32 order;
-* the router (``trace_closest_clusters``, ``trace_any_clusters``,
-  ``fetch_winner_attrs``): a CUDA tensor launches the kernel, a CPU tensor
-  runs the plain version, any other device raises.
+* for the list form and B5, the router (``trace_closest_clusters``,
+  ``trace_any_clusters``, ``fetch_winner_attrs``): a CUDA tensor launches
+  the kernel, a CPU tensor runs the plain version, any other device raises.
 
-B3 and B4 walk, for every ray of a 1024-ray tile, the tile's front-to-back
+B3 and B4 come in two forms.
+
+**List form** (``trace_*_clusters_*``; every trace of rays on the CPU, and
+on the card the list path that the walk form is held against).  For every ray of a 1024-ray tile, walk the tile's front-to-back
 cluster list ``lists[tile, :counts[tile]]`` (packed ``[nearq | cid]``
 entries; ``accel.cluster``).  Per lane, a list position k is visited
 unless the decoded near ``(entry >> cid_bits) * scale`` is at or past the
@@ -24,12 +27,31 @@ misses within that bound is skipped; otherwise all 64 triangles of the
 cluster (flat table rows [64c, 64c+64)) are tested.  B3 keeps the running
 minimum of the packed key ``(f32 bits of t & ~63) | local id`` over the
 hits and takes the cluster id on a strict decrease; B4 ORs the hits with
-0 < t < t_max and ends a lane's walk at its first hit.
+0 < t < t_max and ends a lane's walk at its first hit.  Kernel and plain
+version agree bit for bit.
 
-Both take an optional ``work`` tensor ((2,) int64 on the rays' device) to
-which they add the (lane, cluster) slab tests and the ray/triangle tests
-they ran (B4 stops inside a cluster at the first hit): the operation count
-behind a bound.
+**Walk form** (``trace_*_walk_*``; every trace of rays on the card).  No
+lists: per ray, the kernel slab-tests the supercluster boxes
+(``BVH.sc_min/sc_max``, runs of ``SC_GROUP`` = 64 clusters), then the
+cluster boxes of the superclusters it passes, nearest first, and tests the
+64 triangles of every cluster whose box the ray passes within its running
+bound.  The function is: per lane, the minimum packed key (and its cluster
+id) over the triangles of all clusters whose box the ray passes within its
+bound, starting from ``key0``/``cid0`` (B3); the OR of 0 < t < t_max over
+them (B4).  The plain version computes it densely with the starting bound
+(every supercluster box, then the clusters of those that pass), which
+prunes less and finds the same minimum; where two clusters hold the same
+packed key it keeps the lower cluster id and the kernel the one it
+visited first.
+
+The kernels take an optional ``work`` tensor ((4,) int64 on the rays'
+device) to which they add: the (ray, box) slab tests and the ray/triangle
+tests the rules need (B4 stops inside a cluster at the first hit), and the
+lane slots (32 per warp step) the warps spent on each.  The first two are
+the operation count behind the list form's bound, the ratios the lane
+utilisation.  The plain list versions add the first two.
+``walk_bound_counts`` gives the walk form's operation count from the
+lanes' final bounds alone, whatever order an implementation visits in.
 """
 
 from __future__ import annotations
@@ -39,7 +61,7 @@ import ctypes
 import torch
 
 from .brute_trace import moller_trumbore
-from .build import CLUSTER_SIZE, SHADE_A_COLS, SHADE_B_COLS
+from .build import CLUSTER_SIZE, SC_GROUP, SHADE_A_COLS, SHADE_B_COLS
 
 TILE = 1024  # rays per list: the culls' tile (accel.cluster), checked against the library's kTile
 MISS_KEY = 0x7FFFFFFF
@@ -48,7 +70,11 @@ _LOCAL_MASK = CLUSTER_SIZE - 1
 
 # Launches of each kernel since the last reset_launch_counts(); the plain
 # versions are not counted.
-LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "winner_attrs": 0}
+LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "cluster_closest_walk": 0, "cluster_any_walk": 0,
+            "winner_attrs": 0}
+# plain walk form: lanes per dense chunk, and (lane, cluster) pairs per block of 64 Moller-Trumbore tests
+_WALK_LANES = 4096
+_WALK_PAIRS = 1 << 14
 
 SOURCES = ["cluster_trace.cu"]  # under csrc/
 _lib = None
@@ -68,15 +94,19 @@ def kernel_library() -> ctypes.CDLL:
         lib = load_library("cluster_trace", SOURCES)
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.cluster_closest.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
-        lib.cluster_closest.restype = ctypes.c_int
         lib.cluster_any.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
-        lib.cluster_any.restype = ctypes.c_int
+        lib.cluster_closest_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
+        lib.cluster_any_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
         lib.winner_attrs.argtypes = [p, p, p, p, i32, p, p]
-        lib.winner_attrs.restype = ctypes.c_int
-        lib.cluster_tile.argtypes = []
-        lib.cluster_tile.restype = ctypes.c_int
+        lib.cluster_tile.argtypes = lib.cluster_group.argtypes = []
+        for fn in (lib.cluster_closest, lib.cluster_any, lib.cluster_closest_walk, lib.cluster_any_walk,
+                   lib.winner_attrs, lib.cluster_tile, lib.cluster_group):
+            fn.restype = ctypes.c_int
         if lib.cluster_tile() != TILE:
             raise RuntimeError(f"csrc/cluster_trace.cu walks tiles of {lib.cluster_tile()} rays, the culls {TILE}")
+        if lib.cluster_group() != SC_GROUP:
+            raise RuntimeError(f"csrc/cluster_trace.cu walks superclusters of {lib.cluster_group()} clusters, "
+                               f"the build makes them of {SC_GROUP}")
         _lib = lib
     return _lib
 
@@ -91,12 +121,13 @@ def inv_dir(d: torch.Tensor) -> torch.Tensor:
 
 
 def _lane_slab(bmin, bmax, o, inv, t_lim):
-    """Per-lane ray vs cluster AABB within (0, t_lim), axes x, y, z in turn
-    (pallas_cluster.py::_lane_slab's order)."""
+    """Ray vs AABB within (0, t_lim), axes x, y, z in turn
+    (pallas_cluster.py::_lane_slab's order).  ``bmin``/``bmax`` (..., 3)
+    broadcast against ``o``/``inv`` (..., 3) and ``t_lim`` (...)."""
     near = far = None
     for a in range(3):
-        t0 = (bmin[:, a] - o[:, a]) * inv[:, a]
-        t1 = (bmax[:, a] - o[:, a]) * inv[:, a]
+        t0 = (bmin[..., a] - o[..., a]) * inv[..., a]
+        t1 = (bmax[..., a] - o[..., a]) * inv[..., a]
         lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
         near = lo if near is None else torch.maximum(near, lo)
         far = hi if far is None else torch.minimum(far, hi)
@@ -186,6 +217,83 @@ def trace_any_clusters_plain(tab, cmin, cmax, lists, counts, scales, cid_bits: i
     return occ
 
 
+def _walk_candidates(cmin, cmax, sc_min, sc_max, o, inv, bound):
+    """Dense two-level slab tests of a chunk of lanes within ``bound`` (L,):
+    returns (lane (P,), cluster (P,)) of every (lane, cluster) pair whose
+    box the lane's ray passes, in lane order, and the number of cluster
+    boxes in the superclusters each lane passes (L,)."""
+    C = cmin.shape[0]
+    sc_pass = _lane_slab(sc_min[None], sc_max[None], o[:, None], inv[:, None], bound[:, None])  # (L, S)
+    li, si = sc_pass.nonzero(as_tuple=True)
+    c = si[:, None] * SC_GROUP + torch.arange(SC_GROUP, device=o.device)[None, :]  # (P1, G)
+    cc = c.clamp(max=C - 1)
+    ok = _lane_slab(cmin[cc], cmax[cc], o[li][:, None], inv[li][:, None], bound[li][:, None]) & (c < C)
+    pi, gi = ok.nonzero(as_tuple=True)
+    n_box = torch.zeros(o.shape[0], dtype=torch.long, device=o.device).index_add_(0, li, (c < C).sum(dim=1))
+    return li[pi], c[pi, gi], n_box
+
+
+def _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound):
+    """Yield (lane (B,), cluster (B,), hit (B, 64), t (B, 64)) over every
+    (lane, cluster) pair whose box the lane's ray passes within ``bound``."""
+    inv = inv_dir(direction)
+    tab = tab.reshape(-1, CLUSTER_SIZE, 16)
+    for l0 in range(0, origin.shape[0], _WALK_LANES):
+        sl = slice(l0, l0 + _WALK_LANES)
+        lane, c, _ = _walk_candidates(cmin, cmax, sc_min, sc_max, origin[sl], inv[sl], bound[sl])
+        lane = lane + l0
+        for p0 in range(0, lane.shape[0], _WALK_PAIRS):
+            ln, cl = lane[p0:p0 + _WALK_PAIRS], c[p0:p0 + _WALK_PAIRS]
+            hit, t = _mt_block(tab[cl], origin[ln], direction[ln])
+            yield ln, cl, hit, t
+
+
+def trace_closest_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0):
+    """B3's walk form in PyTorch, dense; returns (key, cid), each (N,) int32."""
+    local = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
+    # (key, cid) as one int64 so that one scatter-min keeps the lower cluster id of a tied key
+    best = (key0.long() << 32) | (cid0.long() & 0xFFFFFFFF)
+    bound = (key0 | _LOCAL_MASK).view(torch.float32)
+    for lane, c, hit, t in _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound):
+        kmin = torch.where(hit, (t.view(torch.int32) & ~_LOCAL_MASK) | local, MISS_KEY).amin(dim=1)
+        better = kmin < key0[lane]  # a cluster id is taken on a strict decrease only
+        best.scatter_reduce_(0, lane[better], (kmin[better].long() << 32) | c[better], "amin")
+    low = best & 0xFFFFFFFF
+    return (best >> 32).to(torch.int32), torch.where(low >= 2**31, low - 2**32, low).to(torch.int32)
+
+
+def trace_any_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
+    """B4's walk form in PyTorch, dense; returns occluded (N,) bool."""
+    occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    for lane, _c, hit, t in _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
+        occ[lane[(hit & (t < t_max[lane][:, None])).any(dim=1)]] = True
+    return occ
+
+
+def walk_bound_counts(cmin, cmax, sc_min, sc_max, origin, direction, t_final, occluded=None):
+    """The least (slab tests, ray/triangle tests) any walk needs that ends
+    with the per-lane bounds ``t_final`` (B3: the upper decode of the final
+    key; B4: t_max): every supercluster box, the cluster boxes (64, fewer in
+    the last) of each supercluster that passes within the bound, and the 64
+    triangles of each cluster that passes within it.  An ``occluded`` lane
+    (B4) counts the supercluster boxes, one supercluster's 64 cluster boxes
+    and one cluster; a lane whose bound is not above 0 counts nothing."""
+    inv = inv_dir(direction)
+    S = sc_min.shape[0]
+    slabs = tests = 0
+    for l0 in range(0, origin.shape[0], _WALK_LANES):
+        sl = slice(l0, l0 + _WALK_LANES)
+        lane, _c, n_box = _walk_candidates(cmin, cmax, sc_min, sc_max, origin[sl], inv[sl], t_final[sl])
+        n_cl = torch.bincount(lane, minlength=n_box.shape[0])
+        if occluded is not None:
+            n_box = torch.where(occluded[sl], SC_GROUP, n_box)
+            n_cl = torch.where(occluded[sl], 1, n_cl)
+        live = t_final[sl] > 0.0
+        slabs += int((live * (S + n_box)).sum())
+        tests += CLUSTER_SIZE * int((live * n_cl).sum())
+    return slabs, tests
+
+
 def winner_rows(key, cid):
     """Sorted triangle id of each lane's winner (0 on a miss) and the hit mask."""
     valid = cid >= 0
@@ -216,7 +324,9 @@ def _check(dev, **tensors) -> None:
         _require(a.is_contiguous(), f"{name} must be contiguous (got strides {a.stride()})")
 
 
-def _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work) -> int:
+def _check_scene_and_rays(tab, cmin, cmax, origin, direction, work) -> int:
+    """What both forms of B3/B4 take: the flat table, the cluster boxes, the
+    rays and the optional counters.  Returns the number of rays."""
     n = origin.shape[0] if origin.dim() == 2 else -1
     C = cmin.shape[0]
     _require(origin.dim() == 2 and origin.shape[1] == 3, f"origin must be (N, 3), got {tuple(origin.shape)}")
@@ -224,20 +334,35 @@ def _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direct
     _require(tab.dim() == 2 and tuple(tab.shape) == (C * CLUSTER_SIZE, 16),
              f"tab must be the flat (C*64, 16) table for C = {C} clusters, got {tuple(tab.shape)}")
     _require(tuple(cmax.shape) == (C, 3) and tuple(cmin.shape) == (C, 3), "cluster boxes must be (C, 3)")
+    _require(n < 2**31 and tab.numel() < 2**31, "more than 2^31 - 1 rays or table elements")
+    _require(tab.data_ptr() % 16 == 0, "tab must be 16-byte aligned (the kernels copy its rows 16 bytes at a time)")
+    _check(origin.device, tab=(tab, torch.float32), cmin=(cmin, torch.float32), cmax=(cmax, torch.float32),
+           origin=(origin, torch.float32), direction=(direction, torch.float32))
+    if work is not None:
+        _require(tuple(work.shape) == (4,), "work must be (4,)")
+        _check(origin.device, work=(work, torch.int64))
+    return n
+
+
+def _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work) -> int:
+    n = _check_scene_and_rays(tab, cmin, cmax, origin, direction, work)
     tiles = -(-n // TILE)
     _require(lists.dim() == 2 and lists.shape[0] >= tiles,
              f"lists must be (tiles >= {tiles}, maxv), got {tuple(lists.shape)}")
     _require(tuple(counts.shape) == (lists.shape[0],) and tuple(scales.shape) == (lists.shape[0],),
              "counts and scales must be (tiles,)")
-    _require(1 <= cid_bits <= 30 and (1 << cid_bits) >= C, f"cid_bits {cid_bits} cannot hold {C} cluster ids")
-    _require(n < 2**31, "more than 2^31 - 1 rays")
-    _require(tab.data_ptr() % 16 == 0, "tab must be 16-byte aligned (the kernels read its rows as float4)")
-    _check(origin.device, tab=(tab, torch.float32), cmin=(cmin, torch.float32), cmax=(cmax, torch.float32),
-           lists=(lists, torch.int32), counts=(counts, torch.int32), scales=(scales, torch.float32),
-           origin=(origin, torch.float32), direction=(direction, torch.float32))
-    if work is not None:
-        _require(tuple(work.shape) == (2,), "work must be (2,)")
-        _check(origin.device, work=(work, torch.int64))
+    _require(1 <= cid_bits <= 30 and (1 << cid_bits) >= cmin.shape[0],
+             f"cid_bits {cid_bits} cannot hold {cmin.shape[0]} cluster ids")
+    _check(origin.device, lists=(lists, torch.int32), counts=(counts, torch.int32), scales=(scales, torch.float32))
+    return n
+
+
+def _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work) -> int:
+    S = -(-cmin.shape[0] // SC_GROUP)
+    _require(tuple(sc_min.shape) == (S, 3) and tuple(sc_max.shape) == (S, 3),
+             f"supercluster boxes must be ({S}, 3): one per run of {SC_GROUP} clusters")
+    n = _check_scene_and_rays(tab, cmin, cmax, origin, direction, work)
+    _check(origin.device, sc_min=(sc_min, torch.float32), sc_max=(sc_max, torch.float32))
     return n
 
 
@@ -290,6 +415,45 @@ def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: in
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any")
     LAUNCHES["cluster_any"] += 1
+    return occ
+
+
+def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, work=None):
+    """Kernel B3's walk form on the card: (key, cid) as trace_closest_walk_plain."""
+    n = _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
+    _require(tuple(key0.shape) == (n,) and tuple(cid0.shape) == (n,), f"key0 and cid0 must be ({n},)")
+    _check(origin.device, key0=(key0, torch.int32), cid0=(cid0, torch.int32))
+    key = torch.empty(n, dtype=torch.int32, device=origin.device)
+    cid = torch.empty_like(key)
+    if n == 0:  # a grid of 0 blocks is an invalid launch
+        return key, cid
+    lib = kernel_library()
+    with torch.cuda.device(origin.device):
+        err = lib.cluster_closest_walk(
+            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0], sc_min.data_ptr(), sc_max.data_ptr(),
+            sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), key0.data_ptr(), cid0.data_ptr(), n,
+            key.data_ptr(), cid.data_ptr(), _ptr(work), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cluster_closest_walk")
+    LAUNCHES["cluster_closest_walk"] += 1
+    return key, cid
+
+
+def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max, work=None):
+    """Kernel B4's walk form on the card: occluded as trace_any_walk_plain."""
+    n = _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
+    _require(tuple(t_max.shape) == (n,), f"t_max must be ({n},), got {tuple(t_max.shape)}")
+    _check(origin.device, t_max=(t_max, torch.float32))
+    occ = torch.empty(n, dtype=torch.bool, device=origin.device)  # one byte per ray
+    if n == 0:
+        return occ
+    lib = kernel_library()
+    with torch.cuda.device(origin.device):
+        err = lib.cluster_any_walk(
+            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0], sc_min.data_ptr(), sc_max.data_ptr(),
+            sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(),
+            _ptr(work), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cluster_any_walk")
+    LAUNCHES["cluster_any_walk"] += 1
     return occ
 
 

@@ -3,10 +3,13 @@
 Two tiers, by scene size: at most ``BRUTE_MAX_TRIS`` triangles, the
 brute-force kernels B1/B2 (``brute_trace``), which have no cull and so
 return the zero trace statistics; above it, the cluster tier
-(``cluster``: cull, kernels B3/B4, checked overflow fallback).  Inside a
-tier the device of the rays decides, never what the machine has: a CUDA
-tensor goes to the hand-written kernels, a CPU tensor to their plain
-PyTorch versions, any other device raises.
+(``cluster``: kernels B3/B4, as a list walk after a cull with a checked
+overflow fallback, or as the kernels' own two-level walk).  Inside a tier
+the device of the rays decides, never what the machine has: a CUDA tensor
+goes to the hand-written kernels, a CPU tensor to their plain PyTorch
+versions, any other device raises.  On the cluster tier that also picks
+the form: rays on a CUDA device take the walk form (no cull, no lists, no
+host sync), rays on the CPU the list form.
 """
 
 from __future__ import annotations
@@ -70,10 +73,14 @@ def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor 
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
     the others are rewritten to an up-ray above the scene, whose t bound
-    is 0.  ``coherent=True`` (primary rays) traces in the given order with
-    the tile-frustum cull; ``coherent=False`` (bounce rays) sorts the rays
-    by their supercluster corridor, traces them with the per-lane cull and
-    unsorts the outputs.  The winners are the same either way.
+    is 0.  ``coherent=True`` (primary rays) traces in the given order (on
+    a CUDA device the walk form of B3; on the CPU the tile-frustum cull
+    and the list form); ``coherent=False`` (bounce rays) sorts the rays by
+    their supercluster corridor, so that the 32 rays of a warp (and the
+    1024 of a tile) are neighbours, traces them (on a CUDA device the walk
+    form again, straight after the sweep; on the CPU the per-lane cull and
+    the list form) and unsorts the outputs.  The winners are the same
+    either way.
     """
     if not bvh.clustered:
         raise ValueError(f"packed winners come from the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
@@ -101,10 +108,11 @@ def trace_any_with_stats(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, re
                          coherent: bool = True):
     """Visibility query returning (occluded (N,) bool, trace stats dict).
 
-    On the cluster tier ``refine=True`` takes the per-lane cull (scattered
-    shadow origins), and ``coherent=False`` corridor-sorts the rays first
-    and unsorts the bits after (``cluster.trace_any_clusters_sorted``);
-    neither changes the result.
+    On the cluster tier rays on a CUDA device take the walk form of B4,
+    with no cull before it; on the CPU ``refine=True`` takes the per-lane
+    cull (scattered shadow origins) and the list form.  ``coherent=False``
+    corridor-sorts the rays first and unsorts the bits after
+    (``cluster.trace_any_clusters_sorted``).  Neither changes the result.
     """
     o, d, tm = _prepare(rays, t_min, t_max)
     if bvh.clustered:

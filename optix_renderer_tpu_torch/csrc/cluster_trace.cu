@@ -1,38 +1,65 @@
 // Cluster-tier ray/triangle kernels for scenes above 4096 triangles.
 //
-// cluster_closest (B3) replaces optix_renderer_tpu/accel/pallas_cluster.py::
-// _closest_cluster_kernel, cluster_any (B4) replaces pallas_cluster.py::
+// B3 (closest hit) replaces optix_renderer_tpu/accel/pallas_cluster.py::
+// _closest_cluster_kernel, B4 (occlusion) replaces pallas_cluster.py::
 // _any_cluster_kernel and winner_attrs (B5) replaces pallas_cluster.py::
 // _winner_attr_kernel.  They compute what the TPU kernels compute, without their
-// DMA rings, visit groups, SMEM lists and (8, 128) planes:
+// DMA rings, visit groups, SMEM lists and (8, 128) planes.  B3 and B4 come in two
+// forms that share one intersection routine:
 //
-// * B3: for each ray of a 1024-ray tile, start from key0/cid0 and walk the tile's
+// * List form (cluster_closest, cluster_any): the TPU kernels' own contract, kept
+//   as the card's check of the walk form against the list path, whose plain
+//   PyTorch version is what rays on the CPU take.  For each ray of a 1024-ray tile, start from key0/cid0 (B3) or t_max (B4) and walk the tile's
 //   front-to-back cluster list lists[tile, :counts[tile]] (packed [nearq | cid]
-//   entries).  A lane stops at the first entry whose decoded near
-//   ((entry >> cid_bits) * scale) is at or past its own t_up = key | 63 read as a
-//   float (the upper decode of its running key; the TPU kernel stops at the
-//   tile's largest t_up, so this is at least as tight and safe for the same
-//   reason: any hit in a later cluster has t >= its entry distance >= t_up).  A
-//   cluster whose AABB the lane's ray misses within (0, t_up) is skipped; else all
-//   64 triangles are tested with no-cull Moller-Trumbore (|det| >= 1e-12, u, v >=
-//   0, u + v <= 1, t > 0) and the lane keeps the minimum of the packed key
-//   (f32 bits of t & ~63) | local id, taking the cluster id on a strict decrease.
-// * B4: the same walk with t_max as the bound; hits count with 0 < t < t_max and
-//   the first one ends the lane.
-// * B5: for each lane, the 20 shade_a columns and the 6 uv columns of shade_b of
-//   its winning sorted triangle cid * 64 + (key & 63), attribute-major (26, N),
-//   zeros on a miss.  The TPU walked list positions with a one-hot matmul because
-//   per-lane gathers are slow there; here one thread per lane reads its two rows.
+//   entries made by the culls of accel/cluster.py).  A lane stops at the first
+//   entry whose decoded near ((entry >> cid_bits) * scale) is at or past its own
+//   bound: t_up = key | 63 read as a float (the upper decode of its running key)
+//   for B3, t_max for B4.  A cluster whose AABB the lane's ray misses within
+//   (0, bound) is skipped; else all 64 triangles are tested with no-cull
+//   Moller-Trumbore (|det| >= 1e-12, u, v >= 0, u + v <= 1, t > 0).  B3 keeps the
+//   minimum of the packed key (f32 bits of t & ~63) | local id and takes the
+//   cluster id on a strict decrease; B4 ORs the hits with t < t_max and a hit
+//   ends the lane.  The result is bit-equal to the plain PyTorch walk of the same
+//   lists (accel/cluster_trace.py).
+// * Walk form (cluster_closest_walk, cluster_any_walk): what every trace of rays on
+//   the card takes (accel/cluster.py).  It takes no lists: a warp serves its 32 rays one at a time.  For one ray the 32
+//   threads slab-test the supercluster boxes (64 Morton-contiguous clusters each,
+//   up to 8 boxes a thread a round), pick the overlapped superclusters front to
+//   back by a warp minimum over packed [near | slot] words, slab-test a picked
+//   supercluster's 64 cluster boxes two a thread, pick those front to back too
+//   and intersect each picked cluster.  Picking stops at the first box whose near
+//   is at or past the ray's running bound, so nothing is capped and nothing can
+//   overflow: the result is the minimum packed key over every cluster whose box
+//   the ray passes within its bound (B3), or the OR of 0 < t < t_max (B4, where a
+//   hit ends the ray), with no cull before the kernel and no fallback after it.
 //
-// What bounds them on an H100.  B3/B4: per visited (lane, cluster) pair a 24-op
-// slab test, and per cluster that passes it 64 Moller-Trumbore tests of ~53 f32
-// operations (one IEEE division) against 36 bytes of table each: arithmetic, not
-// bytes.  The design gives every ray its own thread with its ray, inverse
-// direction and running key in registers; one block is a quarter of a tile (256
-// threads) whose threads read the same list entries and, while they agree, the
-// same cluster rows, so those loads are broadcasts through L1 (a cluster is 4 KB,
-// contiguous: rows [64c, 64c + 64) of the flat table).  B5 moves 112 bytes a lane
-// (8 in, 104 out) and reads 104 bytes of its winner's rows: bytes.
+// What bounds them on an H100: arithmetic, not bytes.  Per (ray, box) pair a 24-op
+// slab test, per (ray, cluster) pair 64 Moller-Trumbore tests of ~53 f32
+// operations (one IEEE division) against 36 bytes of table each.  With one thread
+// per ray and 64 serial tests, a warp pays 64 tests for every list entry that ANY
+// of its lanes passes: on the 1M-triangle terrain the lanes of that loop were
+// used to 0.43 (primaries, tile lists), 0.40 (shadow rays) and 0.12 (bounce
+// rays, per-lane lists).  So the intersection is warp-cooperative: for one (ray, cluster)
+// pair the ray's six values are broadcast by __shfl_sync from the owning lane,
+// every thread tests 2 of the 64 triangles, and the warp reduces
+// (__reduce_min_sync over the packed key; a ballot for B4).  The minimum does not
+// depend on the order of the tests, so the key equals the serial loop's.  The list
+// form serves the set bits of a slab-test ballot one pair at a time this way (a
+// branch that kept one thread per ray for entries that most lanes pass was no
+// faster at any threshold on the terrain's primaries, so there is none).  A
+// cluster's rows reach the tests through shared memory: each warp stages the 48
+// used bytes of the 64 rows
+// (3 KB) with cp.async into one of two buffers, and the copy of the next
+// candidate cluster is started before the tests of this one (decided with the
+// bound as it stands, which can only shrink, so a needed cluster is never
+// missing).  The slab test of list entry k + 1 is computed during entry k and
+// only its t comparison is repeated with the fresh bound.  Warps never wait for
+// each other: no __syncthreads.
+//
+// B5: for each lane, the 20 shade_a columns and the 6 uv columns of shade_b of
+// its winning sorted triangle cid * 64 + (key & 63), attribute-major (26, N),
+// zeros on a miss.  One thread per lane reads its two rows: 112 bytes a lane
+// (8 in, 104 out) and 104 bytes of its winner's rows, bound by bytes.
 //
 // Build with --fmad=false: the float operations are those of the plain PyTorch
 // versions (optix_renderer_tpu_torch/accel/cluster_trace.py) operation for
@@ -43,21 +70,40 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // B5
+constexpr int kTraceThreads = 128;  // B3/B4: four independent warps
+constexpr int kWarps = kTraceThreads / 32;
 constexpr int kTile = 1024;     // rays per list (cluster_trace.TILE, checked through cluster_tile())
 constexpr int kCluster = 64;    // triangles per cluster
+constexpr int kGroup = 64;      // clusters per supercluster (accel.cluster._SC_GROUP, cluster_group())
 constexpr int kTabCols = 16;    // flat table row: v0(3) e1(3) e2(3) prim(1) n(3) mesh area pad
 constexpr int kLocalMask = kCluster - 1;
 constexpr int32_t kMissKey = 0x7FFFFFFF;
 constexpr int kShadeA = 20, kShadeB = 8, kUv = 6;
+constexpr int kStageCols = 12;  // staged floats per row: the 9 used and 3 more (three 16-byte pieces)
+constexpr int kStageFloats = kCluster * kStageCols;  // 3 KB per buffer
+constexpr int kStagePieces = kStageFloats / 4;       // 16-byte pieces per buffer
+constexpr int kScRound = 8;     // walk form: supercluster boxes per thread and round (256 a round)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNone = 0xffffffffu;  // no candidate (above every packed [near | slot] word)
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
   float ix, iy, iz;  // 1 / direction, |direction| clamped to >= 1e-20
 };
 
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
 __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d);
+}
+
+__device__ __forceinline__ void set_inverse(Ray& r) {
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
 }
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ org, const float* __restrict__ dir, int i) {
@@ -68,20 +114,35 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org, const flo
   r.dx = dir[3 * (size_t)i + 0];
   r.dy = dir[3 * (size_t)i + 1];
   r.dz = dir[3 * (size_t)i + 2];
-  r.ix = inv_dir(r.dx);
-  r.iy = inv_dir(r.dy);
-  r.iz = inv_dir(r.dz);
+  set_inverse(r);
   return r;
 }
 
-// Per-lane ray vs cluster AABB within (0, t_lim): axes x, y, z in turn, as
-// pallas_cluster.py::_lane_slab.  The operands are finite, so fminf/fmaxf give
-// torch.minimum/maximum's values.
-__device__ __forceinline__ bool lane_slab(const float* __restrict__ bmin, const float* __restrict__ bmax,
-                                          const Ray& r, float t_lim) {
+// Lane `src`'s ray in every lane of the warp (the inverse recomputed from the
+// same direction, so it is the same value).
+__device__ __forceinline__ Ray warp_ray(const Ray& r, int src, bool with_inverse) {
+  Ray o;
+  o.ox = __shfl_sync(kFull, r.ox, src);
+  o.oy = __shfl_sync(kFull, r.oy, src);
+  o.oz = __shfl_sync(kFull, r.oz, src);
+  o.dx = __shfl_sync(kFull, r.dx, src);
+  o.dy = __shfl_sync(kFull, r.dy, src);
+  o.dz = __shfl_sync(kFull, r.dz, src);
+  o.ix = o.iy = o.iz = 0.0f;
+  if (with_inverse) set_inverse(o);
+  return o;
+}
+
+// Ray vs AABB: axes x, y, z in turn, as pallas_cluster.py::_lane_slab.  Returns
+// near <= far && far > 0 and the entry distance; the slab test within (0, t_lim)
+// is `box_span(...) && near < t_lim`.  The operands are finite, so fminf/fmaxf
+// give torch.minimum/maximum's values.
+__device__ __forceinline__ bool box_span(const float* __restrict__ bmin, const float* __restrict__ bmax,
+                                         const Ray& r, float& near) {
   float t0 = (__ldg(bmin + 0) - r.ox) * r.ix;
   float t1 = (__ldg(bmax + 0) - r.ox) * r.ix;
-  float near = fminf(t0, t1), far = fmaxf(t0, t1);
+  float far = fmaxf(t0, t1);
+  near = fminf(t0, t1);
   t0 = (__ldg(bmin + 1) - r.oy) * r.iy;
   t1 = (__ldg(bmax + 1) - r.oy) * r.iy;
   near = fmaxf(near, fminf(t0, t1));
@@ -90,132 +151,433 @@ __device__ __forceinline__ bool lane_slab(const float* __restrict__ bmin, const 
   t1 = (__ldg(bmax + 2) - r.oz) * r.iz;
   near = fmaxf(near, fminf(t0, t1));
   far = fminf(far, fmaxf(t0, t1));
-  return near <= far && far > 0.0f && near < t_lim;
+  return near <= far && far > 0.0f;
 }
 
-// Moller-Trumbore against one table row (brute_trace.cu::mt_row's operation
+// ---- staging a cluster's rows in shared memory -------------------------------
+
+// Starts the copy of the used 48 bytes of each of the 64 rows of one cluster
+// (`rows`: global, 64 rows of 16 floats) into `buf` (shared, kStageFloats): six
+// 16-byte cp.async a lane.  Row l lands at buf + 12 l.
+__device__ __forceinline__ void stage_cluster(float* buf, const float* __restrict__ rows, int lane) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(buf);
+#pragma unroll
+  for (int i = 0; i < kStagePieces / 32; ++i) {
+    const int q = lane + 32 * i;
+    const int row = q / 3, part = q - 3 * row;
+    const unsigned long long src = (unsigned long long)__cvta_generic_to_global(rows + row * kTabCols + 4 * part);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst + 16u * q), "l"(src) : "memory");
+  }
+}
+
+// Closes the group of copies started since the last commit (an empty group is
+// legal and complete at once, so every step can commit exactly one).
+__device__ __forceinline__ void stage_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most kPending of this thread's committed groups are in flight,
+// then makes the warp's copies visible to all its lanes.
+template <int kPending>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+  __syncwarp();
+}
+
+__device__ __forceinline__ Tri staged_tri(const float* row) {
+  const float4 a = *reinterpret_cast<const float4*>(row);      // v0x v0y v0z e1x
+  const float4 b = *reinterpret_cast<const float4*>(row + 4);  // e1y e1z e2x e2y
+  Tri q;
+  q.v0x = a.x, q.v0y = a.y, q.v0z = a.z;
+  q.e1x = a.w, q.e1y = b.x, q.e1z = b.y;
+  q.e2x = b.z, q.e2y = b.w, q.e2z = row[8];
+  return q;
+}
+
+// Moller-Trumbore against one triangle (brute_trace.cu::mt_row's operation
 // order).  Returns the hit flag without a t bound.
-__device__ __forceinline__ bool mt_row(const float* __restrict__ row, const Ray& r, float& t) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(row));      // v0x v0y v0z e1x
-  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);  // e1y e1z e2x e2y
-  const float e2z = __ldg(row + 8);
-  const float v0x = a.x, v0y = a.y, v0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w;
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
+__device__ __forceinline__ bool mt_tri(const Tri& q, const Ray& r, float& t) {
+  const float px = r.dy * q.e2z - r.dz * q.e2y;
+  const float py = r.dz * q.e2x - r.dx * q.e2z;
+  const float pz = r.dx * q.e2y - r.dy * q.e2x;
+  const float det = q.e1x * px + q.e1y * py + q.e1z * pz;
   const bool ok = fabsf(det) >= 1e-12f;
   const float inv = 1.0f / (ok ? det : 1.0f);
-  const float tx = r.ox - v0x;
-  const float ty = r.oy - v0y;
-  const float tz = r.oz - v0z;
+  const float tx = r.ox - q.v0x;
+  const float ty = r.oy - q.v0y;
+  const float tz = r.oz - q.v0z;
   const float u = (tx * px + ty * py + tz * pz) * inv;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
+  const float qx = ty * q.e1z - tz * q.e1y;
+  const float qy = tz * q.e1x - tx * q.e1z;
+  const float qz = tx * q.e1y - ty * q.e1x;
   const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  t = (q.e2x * qx + q.e2y * qy + q.e2z * qz) * inv;
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
-// Adds this warp's (slab tests, ray/triangle tests) to work[0], work[1].  Every
-// lane of the warp calls it (no lane has returned early).
-__device__ __forceinline__ void add_work(unsigned long long* work, unsigned slabs, unsigned tests) {
-  slabs = __reduce_add_sync(0xffffffffu, slabs);
-  tests = __reduce_add_sync(0xffffffffu, tests);
+// ---- the warp-cooperative intersection ---------------------------------------
+
+// One ray (the same in every lane) against one staged cluster: lane l holds
+// triangles l (q0) and l + 32 (q1).  Returns the minimum packed key over the hits.
+__device__ __forceinline__ int32_t warp_closest(const Tri& q0, const Tri& q1, const Ray& r, int lane) {
+  float t;
+  int32_t k = kMissKey;
+  if (mt_tri(q0, r, t)) k = (__float_as_int(t) & ~kLocalMask) | lane;
+  if (mt_tri(q1, r, t)) k = min(k, (__float_as_int(t) & ~kLocalMask) | (lane + 32));
+  return __reduce_min_sync(kFull, k);
+}
+
+// The same for occlusion: is there a hit with t < t_lim; `first` is the local id
+// of the first such triangle (64 if none).
+__device__ __forceinline__ bool warp_any(const Tri& q0, const Tri& q1, const Ray& r, float t_lim, int& first) {
+  float t;
+  const bool h0 = mt_tri(q0, r, t) && t < t_lim;
+  const unsigned b0 = __ballot_sync(kFull, h0);
+  const bool h1 = mt_tri(q1, r, t) && t < t_lim;
+  const unsigned b1 = __ballot_sync(kFull, h1);
+  first = b0 ? __ffs(b0) - 1 : (b1 ? 31 + __ffs(b1) : kCluster);
+  return (b0 | b1) != 0;
+}
+
+// Adds this warp's counts to work[0..3]: (ray, box) slab tests and ray/triangle
+// tests that the rules need (summed over the lanes), and the lane slots the warp
+// spent on them, 32 for every step it took (counted by lane 0).  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void add_work(unsigned long long* work, unsigned slabs, unsigned tests,
+                                         unsigned slab_steps, unsigned test_steps) {
+  slabs = __reduce_add_sync(kFull, slabs);
+  tests = __reduce_add_sync(kFull, tests);
   if ((threadIdx.x & 31) == 0) {
     atomicAdd(work + 0, (unsigned long long)slabs);
     atomicAdd(work + 1, (unsigned long long)tests);
+    atomicAdd(work + 2, 32ull * slab_steps);
+    atomicAdd(work + 3, 32ull * test_steps);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-closest_cluster_kernel(const float* __restrict__ tab, const float* __restrict__ cmin,
-                       const float* __restrict__ cmax, const int32_t* __restrict__ lists, int maxv,
-                       const int32_t* __restrict__ counts, const float* __restrict__ scales, int cid_bits,
-                       const float* __restrict__ org, const float* __restrict__ dir,
-                       const int32_t* __restrict__ key0, const int32_t* __restrict__ cid0, int n,
-                       int32_t* __restrict__ key_out, int32_t* __restrict__ cid_out,
-                       unsigned long long* __restrict__ work) {
+// ---- list form -----------------------------------------------------------------
+
+struct ListArgs {
+  const float* tab;
+  const float* cmin;
+  const float* cmax;
+  const int32_t* lists;
+  int maxv;
+  const int32_t* counts;
+  const float* scales;
+  int cid_bits;
+  const float* org;
+  const float* dir;
+  const int32_t* key0;  // B3
+  const int32_t* cid0;  // B3
+  const float* tmax;    // B4
+  int n;
+  int32_t* key_out;  // B3
+  int32_t* cid_out;  // B3
+  uint8_t* occ_out;  // B4
+  unsigned long long* work;
+};
+
+template <bool kAny, bool kCount>
+__device__ __forceinline__ void list_walk(const ListArgs& a) {
+  __shared__ __align__(16) float stage[kWarps][2][kStageFloats];
+  const int lane = threadIdx.x & 31;
+  float* const buf = &stage[threadIdx.x >> 5][0][0];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
+  const bool live = i < a.n;
+  const int ii = live ? i : a.n - 1;
   const int tile = (blockIdx.x * blockDim.x) / kTile;  // one tile for the whole block
-  const int cmask = (1 << cid_bits) - 1;
-  unsigned slabs = 0, tests = 0;
-  if (live) {
-    const Ray r = load_ray(org, dir, i);
-    int32_t key = key0[i];
-    int32_t cid = cid0[i];
-    const int cnt = counts[tile];
-    const float scale = scales[tile];
-    const int32_t* __restrict__ lst = lists + (size_t)tile * maxv;
-    for (int k = 0; k < cnt; ++k) {
-      const int32_t e = __ldg(lst + k);
-      const float t_up = __int_as_float(key | kLocalMask);
-      if ((float)(e >> cid_bits) * scale >= t_up) break;  // front to back: no later cluster can improve
-      const int c = e & cmask;
-      ++slabs;
-      if (!lane_slab(cmin + 3 * c, cmax + 3 * c, r, t_up)) continue;
-      tests += kCluster;
-      const float* __restrict__ rows = tab + (size_t)c * kCluster * kTabCols;
-      int32_t kmin = kMissKey;
-#pragma unroll 4
-      for (int l = 0; l < kCluster; ++l) {
-        float t;
-        if (mt_row(rows + l * kTabCols, r, t)) kmin = min(kmin, (__float_as_int(t) & ~kLocalMask) | l);
-      }
-      if (kmin < key) {
-        key = kmin;
-        cid = c;
-      }
-    }
-    key_out[i] = key;
-    cid_out[i] = cid;
+  const int cmask = (1 << a.cid_bits) - 1;
+  const Ray r = load_ray(a.org, a.dir, ii);
+  int32_t key = kAny ? 0 : a.key0[ii];
+  int32_t cid = kAny ? -1 : a.cid0[ii];
+  const float t_lim = kAny ? a.tmax[ii] : 0.0f;
+  bool occluded = false;
+  bool alive = live;  // still walking the list
+  const int cnt = a.counts[tile];
+  const float scale = a.scales[tile];
+  const int32_t* __restrict__ lst = a.lists + (size_t)tile * a.maxv;
+  unsigned slabs = 0, tests = 0, slab_steps = 0, test_steps = 0;
+
+  // entry k, looked at one step ahead: cluster id, decoded list near, box span
+  int c_cur = 0;
+  float nq_cur = 0.0f, bn_cur = 0.0f;
+  bool ok_cur = false;
+  if (cnt > 0) {
+    const int32_t e = __ldg(lst);
+    c_cur = e & cmask;
+    nq_cur = (float)(e >> a.cid_bits) * scale;
+    ok_cur = box_span(a.cmin + 3 * c_cur, a.cmax + 3 * c_cur, r, bn_cur);
+    const float b = kAny ? t_lim : __int_as_float(key | kLocalMask);
+    if (__any_sync(kFull, alive && nq_cur < b && ok_cur && bn_cur < b))
+      stage_cluster(buf, a.tab + (size_t)c_cur * kCluster * kTabCols, lane);
   }
-  if (work != nullptr) add_work(work, slabs, tests);
+  stage_commit();
+  for (int k = 0; k < cnt; ++k) {
+    // entry k + 1: its slab test, and the copy of its rows if some lane may need
+    // them (a lane's bound only shrinks, so this never misses a needed cluster)
+    int c_nxt = 0;
+    float nq_nxt = 0.0f, bn_nxt = 0.0f;
+    bool ok_nxt = false;
+    if (k + 1 < cnt) {
+      const int32_t e = __ldg(lst + k + 1);
+      c_nxt = e & cmask;
+      nq_nxt = (float)(e >> a.cid_bits) * scale;
+      ok_nxt = box_span(a.cmin + 3 * c_nxt, a.cmax + 3 * c_nxt, r, bn_nxt);
+      const float b = kAny ? t_lim : __int_as_float(key | kLocalMask);
+      if (__any_sync(kFull, alive && nq_nxt < b && ok_nxt && bn_nxt < b))
+        stage_cluster(buf + ((k + 1) & 1) * kStageFloats, a.tab + (size_t)c_nxt * kCluster * kTabCols, lane);
+    }
+    stage_commit();
+
+    const float bound = kAny ? t_lim : __int_as_float(key | kLocalMask);
+    if (alive && nq_cur >= bound) alive = false;  // front to back: no later cluster can improve
+    if (!__any_sync(kFull, alive)) break;
+    if (kCount) {
+      ++slab_steps;
+      if (alive) ++slabs;
+    }
+    const bool pass = alive && ok_cur && bn_cur < bound;
+    const unsigned ballot = __ballot_sync(kFull, pass);
+    if (ballot != 0) {
+      stage_wait<1>();  // entry k's rows have landed; entry k + 1's may be in flight
+      const float* rows = buf + (k & 1) * kStageFloats;
+      // the whole warp serves the lanes that pass one (ray, cluster) pair at a time
+      const Tri q0 = staged_tri(rows + lane * kStageCols);
+      const Tri q1 = staged_tri(rows + (lane + 32) * kStageCols);
+      for (unsigned m = ballot; m != 0; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const Ray rs = warp_ray(r, src, false);
+        if (kAny) {
+          int first;
+          const bool hit = warp_any(q0, q1, rs, __shfl_sync(kFull, t_lim, src), first);
+          if (lane == src) {
+            if (hit) {
+              occluded = true;
+              alive = false;
+            }
+            if (kCount) tests += hit ? first + 1 : kCluster;
+          }
+        } else {
+          const int32_t kmin = warp_closest(q0, q1, rs, lane);
+          if (lane == src) {
+            if (kmin < key) {
+              key = kmin;
+              cid = c_cur;
+            }
+            if (kCount) tests += kCluster;
+          }
+        }
+        if (kCount) test_steps += 2;
+      }
+      __syncwarp();  // every lane is done with this buffer before the copy after next lands in it
+    }
+    c_cur = c_nxt, nq_cur = nq_nxt, bn_cur = bn_nxt, ok_cur = ok_nxt;
+  }
+  stage_wait<0>();
+  if (live) {
+    if (kAny) {
+      a.occ_out[i] = occluded ? 1 : 0;
+    } else {
+      a.key_out[i] = key;
+      a.cid_out[i] = cid;
+    }
+  }
+  if (kCount) add_work(a.work, slabs, tests, slab_steps, test_steps);
 }
 
-__global__ void __launch_bounds__(kThreads)
-any_cluster_kernel(const float* __restrict__ tab, const float* __restrict__ cmin,
-                   const float* __restrict__ cmax, const int32_t* __restrict__ lists, int maxv,
-                   const int32_t* __restrict__ counts, const float* __restrict__ scales, int cid_bits,
-                   const float* __restrict__ org, const float* __restrict__ dir,
-                   const float* __restrict__ tmax, int n, uint8_t* __restrict__ occ_out,
-                   unsigned long long* __restrict__ work) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const int tile = (blockIdx.x * blockDim.x) / kTile;
-  const int cmask = (1 << cid_bits) - 1;
-  unsigned slabs = 0, tests = 0;
-  if (live) {
-    const Ray r = load_ray(org, dir, i);
-    const float t_lim = tmax[i];
-    const int cnt = counts[tile];
-    const float scale = scales[tile];
-    const int32_t* __restrict__ lst = lists + (size_t)tile * maxv;
+template <bool kCount>
+__global__ void __launch_bounds__(kTraceThreads) closest_cluster_kernel(const ListArgs a) {
+  list_walk<false, kCount>(a);
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kTraceThreads) any_cluster_kernel(const ListArgs a) {
+  list_walk<true, kCount>(a);
+}
+
+// ---- walk form -----------------------------------------------------------------
+
+struct WalkArgs {
+  const float* tab;
+  const float* cmin;  // (C, 3)
+  const float* cmax;
+  int n_clusters;
+  const float* scmin;  // (S, 3): box of clusters [64 s, 64 s + 64)
+  const float* scmax;
+  int n_super;
+  const float* org;
+  const float* dir;
+  const int32_t* key0;  // B3
+  const int32_t* cid0;  // B3
+  const float* tmax;    // B4
+  int n;
+  int32_t* key_out;  // B3
+  int32_t* cid_out;  // B3
+  uint8_t* occ_out;  // B4
+  unsigned long long* work;
+};
+
+// A box that the ray passes within (0, bound) as a packed candidate: the f32 bits
+// of its entry distance (clamped at 0, so they order as unsigned) with the low
+// bits replaced by `slot`; kNone if the ray misses it.  The dropped bits make the
+// packed near an underestimate, which keeps the front-to-back stop conservative.
+__device__ __forceinline__ uint32_t candidate(const float* __restrict__ bmin, const float* __restrict__ bmax,
+                                              const Ray& r, float bound, uint32_t slot, uint32_t slot_mask) {
+  float near;
+  if (!(box_span(bmin, bmax, r, near) && near < bound)) return kNone;
+  return (__float_as_uint(fmaxf(near, 0.0f)) & ~slot_mask) | slot;
+}
+
+// The nearest of the warp's cluster candidates (w0: slot lane, w1: slot lane + 32),
+// removed from its owner; kNone when none is left.
+__device__ __forceinline__ uint32_t pick_cluster(uint32_t& w0, uint32_t& w1, int lane) {
+  const uint32_t p = __reduce_min_sync(kFull, min(w0, w1));
+  if (p != kNone && (int)(p & 31u) == lane) {
+    if (p & 32u) w1 = kNone; else w0 = kNone;
+  }
+  return p;
+}
+
+template <bool kAny, bool kCount>
+__device__ __forceinline__ void ray_walk(const WalkArgs& a) {
+  __shared__ __align__(16) float stage[kWarps][2][kStageFloats];
+  const int lane = threadIdx.x & 31;
+  float* const buf = &stage[threadIdx.x >> 5][0][0];
+  const int base = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;  // this warp's first ray
+  if (base >= a.n) return;  // the whole warp leaves; warps never wait for each other
+  const bool live = base + lane < a.n;
+  const int ii = live ? base + lane : a.n - 1;
+  const Ray mine = load_ray(a.org, a.dir, ii);
+  int32_t my_key = kAny ? 0 : a.key0[ii];
+  int32_t my_cid = kAny ? -1 : a.cid0[ii];
+  const float my_tlim = kAny ? a.tmax[ii] : 0.0f;
+  bool my_occ = false;
+  unsigned slabs = 0, tests = 0, slab_steps = 0, test_steps = 0;
+  const int n_rays = min(32, a.n - base);
+
+  for (int s = 0; s < n_rays; ++s) {
+    // ray s of the warp, its running key and bound, the same in every lane
+    const Ray r = warp_ray(mine, s, true);
+    int32_t key = __shfl_sync(kFull, my_key, s);
+    int32_t cid = __shfl_sync(kFull, my_cid, s);
+    const float t_lim = __shfl_sync(kFull, my_tlim, s);
     bool occluded = false;
-    for (int k = 0; k < cnt && !occluded; ++k) {
-      const int32_t e = __ldg(lst + k);
-      if ((float)(e >> cid_bits) * scale >= t_lim) break;  // no later cluster holds a hit below t_max
-      const int c = e & cmask;
-      ++slabs;
-      if (!lane_slab(cmin + 3 * c, cmax + 3 * c, r, t_lim)) continue;
-      const float* __restrict__ rows = tab + (size_t)c * kCluster * kTabCols;
-      for (int l = 0; l < kCluster; ++l) {
-        float t;
-        ++tests;
-        if (mt_row(rows + l * kTabCols, r, t) && t < t_lim) {
-          occluded = true;  // the first hit decides the lane
-          break;
+    if (kAny && !(t_lim > 0.0f)) continue;  // no t lies in (0, t_max)
+
+    for (int s0 = 0; s0 < a.n_super && !occluded; s0 += 32 * kScRound) {
+      // level 1: up to 8 supercluster boxes a thread
+      uint32_t v[kScRound];
+      {
+        const float bound = kAny ? t_lim : __int_as_float(key | kLocalMask);
+#pragma unroll
+        for (int j = 0; j < kScRound; ++j) {
+          const int sc = s0 + 32 * j + lane;
+          v[j] = kNone;
+          if (sc < a.n_super) {
+            v[j] = candidate(a.scmin + 3 * sc, a.scmax + 3 * sc, r, bound, 32 * j + lane, 0xffu);
+            if (kCount) ++slabs;
+          }
         }
+        if (kCount) slab_steps += kScRound;
+      }
+      while (!occluded) {
+        uint32_t m = v[0];
+#pragma unroll
+        for (int j = 1; j < kScRound; ++j) m = min(m, v[j]);
+        const uint32_t p = __reduce_min_sync(kFull, m);
+        if (p == kNone) break;
+        // front to back: every supercluster left is at least this far
+        if (__uint_as_float(p & ~0xffu) >= (kAny ? t_lim : __int_as_float(key | kLocalMask))) break;
+        const int slot = p & 0xffu;
+        if ((slot & 31) == lane) {
+#pragma unroll
+          for (int j = 0; j < kScRound; ++j)
+            if ((slot >> 5) == j) v[j] = kNone;
+        }
+        const int sc = s0 + slot;
+
+        // level 2: the supercluster's 64 cluster boxes, two a thread
+        const int c0 = sc * kGroup + lane, c1 = c0 + 32;
+        uint32_t w0 = kNone, w1 = kNone;
+        {
+          const float bound = kAny ? t_lim : __int_as_float(key | kLocalMask);
+          if (c0 < a.n_clusters) {
+            w0 = candidate(a.cmin + 3 * c0, a.cmax + 3 * c0, r, bound, lane, (uint32_t)kLocalMask);
+            if (kCount) ++slabs;
+          }
+          if (c1 < a.n_clusters) {
+            w1 = candidate(a.cmin + 3 * c1, a.cmax + 3 * c1, r, bound, lane + 32, (uint32_t)kLocalMask);
+            if (kCount) ++slabs;
+          }
+          if (kCount) slab_steps += 2;
+        }
+        // clusters front to back; the rows of the next candidate are copied while
+        // this one is tested
+        uint32_t cur = pick_cluster(w0, w1, lane);
+        if (cur != kNone)
+          stage_cluster(buf, a.tab + (size_t)(sc * kGroup + (int)(cur & kLocalMask)) * kCluster * kTabCols, lane);
+        stage_commit();
+        int par = 0;
+        while (cur != kNone) {
+          const float bound = kAny ? t_lim : __int_as_float(key | kLocalMask);
+          if (__uint_as_float(cur & ~(uint32_t)kLocalMask) >= bound) break;  // and so is every cluster left
+          const uint32_t nxt = pick_cluster(w0, w1, lane);
+          if (nxt != kNone && __uint_as_float(nxt & ~(uint32_t)kLocalMask) < bound)
+            stage_cluster(buf + (par ^ 1) * kStageFloats,
+                          a.tab + (size_t)(sc * kGroup + (int)(nxt & kLocalMask)) * kCluster * kTabCols, lane);
+          stage_commit();
+          stage_wait<1>();
+          const float* rows = buf + par * kStageFloats;
+          const Tri q0 = staged_tri(rows + lane * kStageCols);
+          const Tri q1 = staged_tri(rows + (lane + 32) * kStageCols);
+          if (kAny) {
+            int first;
+            occluded = warp_any(q0, q1, r, t_lim, first);
+            if (kCount && lane == 0) tests += occluded ? first + 1 : kCluster;
+          } else {
+            const int32_t kmin = warp_closest(q0, q1, r, lane);
+            if (kmin < key) {
+              key = kmin;
+              cid = sc * kGroup + (int)(cur & kLocalMask);
+            }
+            if (kCount && lane == 0) tests += kCluster;
+          }
+          if (kCount) test_steps += 2;
+          __syncwarp();  // every lane is done with this buffer before the copy after next lands in it
+          if (occluded) break;  // a hit decides the ray
+          cur = nxt;
+          par ^= 1;
+        }
+        stage_wait<0>();  // no copy in flight when the buffers are used again
       }
     }
-    occ_out[i] = occluded ? 1 : 0;
+    if (lane == s) {
+      my_key = key;
+      my_cid = cid;
+      my_occ = occluded;
+    }
   }
-  if (work != nullptr) add_work(work, slabs, tests);
+  if (live) {
+    if (kAny) {
+      a.occ_out[base + lane] = my_occ ? 1 : 0;
+    } else {
+      a.key_out[base + lane] = my_key;
+      a.cid_out[base + lane] = my_cid;
+    }
+  }
+  if (kCount) add_work(a.work, slabs, tests, slab_steps, test_steps);
 }
+
+template <bool kCount>
+__global__ void __launch_bounds__(kTraceThreads) closest_walk_kernel(const WalkArgs a) {
+  ray_walk<false, kCount>(a);
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kTraceThreads) any_walk_kernel(const WalkArgs a) {
+  ray_walk<true, kCount>(a);
+}
+
+// ---- B5 ------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 winner_attr_kernel(const float* __restrict__ shade_a, const float* __restrict__ shade_b,
@@ -238,20 +600,26 @@ winner_attr_kernel(const float* __restrict__ shade_a, const float* __restrict__ 
   for (int j = 0; j < kUv; ++j) out[(size_t)(kShadeA + j) * n + i] = __ldg(b + j);
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes.  Every pointer is a device pointer
-// (`work` may be null); `stream` is a cudaStream_t.  Returns cudaGetLastError()
-// after the launch.  `lists` has a row of `maxv` entries for each tile of 1024 rays.
+// Plain C interface, loaded with ctypes.  Every pointer is a device pointer;
+// `work` may be null, else it points at four counters to add to (see add_work);
+// `stream` is a cudaStream_t.  Returns cudaGetLastError() after the launch.
+// `lists` has a row of `maxv` entries for each tile of 1024 rays.
 extern "C" int cluster_closest(const float* tab, const float* cmin, const float* cmax, const int32_t* lists,
                                int maxv, const int32_t* counts, const float* scales, int cid_bits, const float* org,
                                const float* dir, const int32_t* key0, const int32_t* cid0,
                                int n, int32_t* key_out, int32_t* cid_out, unsigned long long* work,
                                void* stream) {
-  closest_cluster_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, key0, cid0, n, key_out, cid_out, work);
+  const ListArgs a{tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, key0, cid0, nullptr,
+                   n, key_out, cid_out, nullptr, work};
+  const int blocks = blocks_for(n, kTraceThreads);
+  if (work != nullptr)
+    closest_cluster_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    closest_cluster_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -259,15 +627,53 @@ extern "C" int cluster_any(const float* tab, const float* cmin, const float* cma
                            int maxv, const int32_t* counts, const float* scales, int cid_bits, const float* org,
                            const float* dir, const float* tmax, int n, uint8_t* occ_out,
                            unsigned long long* work, void* stream) {
-  any_cluster_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, tmax, n, occ_out, work);
+  const ListArgs a{tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, nullptr, nullptr, tmax,
+                   n, nullptr, nullptr, occ_out, work};
+  const int blocks = blocks_for(n, kTraceThreads);
+  if (work != nullptr)
+    any_cluster_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    any_cluster_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Walk form: no lists.  `cmin`/`cmax` are the (n_clusters, 3) cluster boxes and
+// `scmin`/`scmax` the (n_super, 3) boxes of each run of 64 clusters.
+extern "C" int cluster_closest_walk(const float* tab, const float* cmin, const float* cmax, int n_clusters,
+                                    const float* scmin, const float* scmax, int n_super, const float* org,
+                                    const float* dir, const int32_t* key0, const int32_t* cid0, int n,
+                                    int32_t* key_out, int32_t* cid_out, unsigned long long* work, void* stream) {
+  const WalkArgs a{tab, cmin, cmax, n_clusters, scmin, scmax, n_super, org, dir, key0, cid0, nullptr,
+                   n, key_out, cid_out, nullptr, work};
+  const int blocks = blocks_for(n, kTraceThreads);
+  if (work != nullptr)
+    closest_walk_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    closest_walk_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cluster_any_walk(const float* tab, const float* cmin, const float* cmax, int n_clusters,
+                                const float* scmin, const float* scmax, int n_super, const float* org,
+                                const float* dir, const float* tmax, int n, uint8_t* occ_out,
+                                unsigned long long* work, void* stream) {
+  const WalkArgs a{tab, cmin, cmax, n_clusters, scmin, scmax, n_super, org, dir, nullptr, nullptr, tmax,
+                   n, nullptr, nullptr, occ_out, work};
+  const int blocks = blocks_for(n, kTraceThreads);
+  if (work != nullptr)
+    any_walk_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    any_walk_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int cluster_tile() { return kTile; }
 
+extern "C" int cluster_group() { return kGroup; }
+
 extern "C" int winner_attrs(const float* shade_a, const float* shade_b, const int32_t* key, const int32_t* cid,
                             int n, float* out, void* stream) {
-  winner_attr_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(shade_a, shade_b, key, cid, n, out);
+  winner_attr_kernel<<<blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(shade_a, shade_b, key, cid, n,
+                                                                                     out);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,13 @@ frame the script times ``--frames`` frames on the host clock (each ends
 in ``torch.cuda.synchronize()``), then renders as many again under
 ``torch.profiler``, timing those on the host clock too.  The stages:
 
-* ``B3``, ``B4``, ``B5``: the hand-written kernels, found by their names
-  in the device trace;
+* ``B3``, ``B4`` (list form), ``B3_walk``, ``B4_walk`` (walk form),
+  ``B5``: the hand-written kernels, found by their names in the device
+  trace;
 * ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
 * ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
-* ``cull``: the first pass's tile-frustum and per-lane culls;
+* ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
+  a list-form per-lane trace, which rays on the card no longer take);
 * ``fallback_cull``: the checked fallback's single-level re-culls;
 * ``shade``: the fused surface interaction from B5's columns;
 * ``glue``: all other device time (integrator, camera, accumulation).
@@ -64,7 +66,8 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 TERRAIN_GRID = 708  # 2 * 707^2 heightfield triangles + the Cornell walls = 999,710
 STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade")  # record_function ranges
 # the hand-written kernels' names in csrc/cluster_trace.cu
-KERNEL_STAGES = {"B3": "closest_cluster_kernel", "B4": "any_cluster_kernel", "B5": "winner_attr_kernel"}
+KERNEL_STAGES = {"B3": "closest_cluster_kernel", "B4": "any_cluster_kernel", "B3_walk": "closest_walk_kernel",
+                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel"}
 TOP_KERNELS = 10
 
 

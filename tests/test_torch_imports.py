@@ -3,7 +3,8 @@
 A fresh interpreter imports every module of ``optix_renderer_tpu_torch``,
 renders one 16^2 PATH frame and one 16^2 RATIO frame on the CPU, and one
 MASK frame of a grid-60 terrain (above 4096 triangles: the cluster tier),
-and must have loaded neither ``jax`` nor any module of the JAX package
+traces 64 incoherent rays per lane there (on CPU tensors that is the list
+path with the plain kernels: no kernel is launched), and must have loaded neither ``jax`` nor any module of the JAX package
 ``optix_renderer_tpu``.
 Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
 ``--device cuda`` must fail with a clear message rather than render on
@@ -42,6 +43,18 @@ r = Renderer(terrain, width=16, height=16, mode=RendererType.MASK, device="cpu")
 assert r.bvh.num_tris > 4096
 r.render(1)
 assert 0 < r.image().mean() <= 1
+import torch
+from optix_renderer_tpu_torch.accel import cluster_trace, traverse
+from optix_renderer_tpu_torch.core.types import Ray
+g = torch.Generator().manual_seed(1)
+top = r.bvh.cluster_max.amax(dim=0)
+o = torch.rand((64, 3), generator=g) * top
+o[:, 1] = top[1] * 1.1
+d = torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=-1)
+key, cid, t_b, stats = traverse.trace_closest_winners(r.bvh, Ray(origin=o, direction=d), coherent=False)
+occ, _ = traverse.trace_any_with_stats(r.bvh, Ray(origin=o, direction=d), t_max=1e4, refine=True, coherent=False)
+assert (occ == (cid >= 0)).all() and 0 < int(occ.sum()) < 64, int(occ.sum())
+assert not any(cluster_trace.LAUNCHES.values()), cluster_trace.LAUNCHES
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 ref = sorted(m for m in sys.modules if m == "optix_renderer_tpu" or m.startswith("optix_renderer_tpu."))
 print("MODULES", len(mods))
