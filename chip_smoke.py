@@ -12,11 +12,26 @@ raises and exits non-zero):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
    one nvcc per library (brute_trace, ltc, cluster_trace), all started
-   together, with ptxas' register and spill report;
+   together, with ptxas' register and spill report (B1/B2 may not spill)
+   and B1/B2's rays a thread, chunk rows and shared memory a block;
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
    turns (plain, kernel, kernel, plain): B1 (closest hit) and B2
-   (occlusion) on the Cornell table (1024^2 primary rays, 1M bounce-like
-   rays with ~30 % zero t_max); B6 (LTC) on the operands of an LTC frame
+   (occlusion) on the Cornell table (1024^2 primary rays, which B1 traces
+   as a coherent batch, its warps voting to leave a test none of their
+   rays can pass, as the renderer launches it; 1M bounce-like rays with
+   ~30 % zero t_max, traced without the vote) and at the brute tier's
+   cap, the terrain
+   at grid 46 (4,062 triangles, 4,064 table rows: 16 shared-memory chunks;
+   every ray against the plain version, which is timed once a turn), then
+   on the edges of their blocking, B1 with and without the vote (one
+   ray, a ragged batch, every ray
+   dead, every ray live, NaN and negative t_max, a table of 8 rows, every
+   ray occluded in the first chunk), each equal to the plain version; the
+   crossover between the tiers: NORMALS and PATH depth 4 at 1024^2 on the
+   terrain at grid 46 (brute tier) and at grid 47 (4,244 triangles,
+   cluster tier), same camera, ms/frame on the host clock and the
+   hand-written trace kernels' device time per frame from a profiled run
+   of the same frames; B6 (LTC) on the operands of an LTC frame
    at 1024^2 on Cornell (2 triangle lights) and on the three-light Cornell
    (6), and on 1M seeded random operands with 7 lights, so that every clip
    case occurs (tolerance of tests/unit/test_ltc_pallas.py, and at least
@@ -44,7 +59,8 @@ raises and exits non-zero):
    64^2 card against CPU (NORMALS 1e-4, PATH depth 4 5e-3);
 5. main path PATH: depth 4, ``scenes/cornell/scene.json`` at 1024^2,
    2 warm-up frames (under CUDA sync debugging: no frame may make the
-   host wait for the card) then 16 timed frames;
+   host wait for the card) then 16 timed frames, with the share of live
+   lanes (t_max > 0) in each B1 and B2 launch of the last frame;
 6. main path LTC_BASELINE: Cornell at 1024^2, 1 warm-up frame, then 16
    single frames, each after ``set_camera`` (a deterministic mode renders
    one frame per accumulation);
@@ -64,7 +80,9 @@ Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
 those six reads.  Each kernel's ``bound_ms`` is the larger of the bytes it
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
-published H100 SXM peaks), counted from this run's inputs; the list forms
+published H100 SXM peaks), counted from this run's inputs (B2: every table
+row for a live ray that is not occluded, one test for an occluded one);
+the list forms
 of B3 and B4 count the slab and ray/triangle tests their rules need on
 these lists, read back from the kernel (beside the lane slots the warps
 spent on them: the lane utilisation); the walk forms count, whatever the
@@ -120,6 +138,10 @@ FORCED_MAX_VISITS = 128  # a list cap that overflows on the terrain: the checked
 # a terrain with more than 256 superclusters (2 * 799^2 triangles, 312 superclusters): the walk kernels
 # test supercluster boxes 256 a round, so this one takes two rounds per ray
 ROUNDS_GRID, ROUNDS_RAYS = 800, 1 << 16
+# the brute tier's cap: the largest terrain that stays at or under BRUTE_MAX_TRIS = 4096 triangles
+# (2 * 45^2 + 12 = 4,062), and the next grid, which takes the cluster tier (2 * 46^2 + 12 = 4,244)
+CAP_GRID = 46
+CROSS_NORMALS_FRAMES, CROSS_PATH_FRAMES = 4, 8
 # bounds: published peaks of one H100 SXM (NVIDIA data sheet, dense, without sparsity)
 PEAK_F32_OPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 MT_OPS = 53  # f32 operations of one Moller-Trumbore test, counted in csrc mt_row
@@ -131,6 +153,14 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """(least time in ms the card could take, what bounds it)."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _any_tests(bt, tab, o, d, tm) -> int:
+    """Ray/triangle tests that B2's answer needs on these rays, whatever the
+    kernel does: every table row for a ray with t_max > 0 that is not
+    occluded, one (the test that hits) for an occluded ray, none otherwise."""
+    occluded = int(bt.trace_any_cuda(tab, o, d, tm).sum().item())
+    return (int((tm > 0).sum().item()) - occluded) * tab.shape[0] + occluded
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -173,9 +203,10 @@ def _close(a, b):
     return (a - b).abs() <= ATOL + RTOL * b.abs()
 
 
-def _check_closest(torch, bt, tab, o, d, tm, label: str) -> float:
-    """B1 against its plain version; returns the max abs error of t, u, v."""
-    t_k, id_k, u_k, v_k = bt.trace_closest_cuda(tab, o, d, tm)
+def _check_closest(torch, bt, tab, o, d, tm, label: str, coherent: bool) -> float:
+    """B1 (for a coherent batch its voting form) against its plain version;
+    returns the max abs error of t, u, v."""
+    t_k, id_k, u_k, v_k = bt.trace_closest_cuda(tab, o, d, tm, coherent)
     t_p, id_p, u_p, v_p = bt.trace_closest_plain(tab, o, d, tm)
     torch.cuda.synchronize()
     same = id_k == id_p
@@ -203,23 +234,98 @@ def _check_any(torch, bt, tab, o, d, tm, label: str) -> float:
     return (occ_k.float() - occ_p.float()).abs().max().item()
 
 
-def _bounce_like_rays(torch, bvh, n: int, device):
-    """Rays leaving random points of the scene's triangles into the normal's
-    hemisphere, offset like the path tracer's (1e-3 along the normal)."""
-    g = torch.Generator(device=device).manual_seed(SEED)
-    tri = torch.randint(0, bvh.num_tris, (n,), generator=g, device=device)
-    su = torch.sqrt(torch.rand(n, generator=g, device=device))[:, None]
-    b = torch.rand(n, generator=g, device=device)[:, None]
-    p = bvh.tri_v0[tri] + su * (1.0 - b) * bvh.tri_e1[tri] + su * b * bvh.tri_e2[tri]
-    nrm = bvh.tri_tab[tri, 10:13]  # the table's unit normal (sorted row = sorted triangle)
-    d = torch.randn((n, 3), generator=g, device=device)
-    d = d / d.norm(dim=-1, keepdim=True)
-    d = torch.where(((d * nrm).sum(-1) < 0)[:, None], -d, d)
-    o = (p + nrm * 1e-3).contiguous()
-    zero = torch.rand(n, generator=g, device=device) < 0.3
-    tm_closest = torch.where(zero, 0.0, 3.0e38)
-    tm_any = torch.where(zero, 0.0, torch.rand(n, generator=g, device=device) * 1200.0)
-    return o, d.contiguous(), tm_closest, tm_any
+def _same(a, b):
+    """Equal, both NaN, or within RTOL/ATOL."""
+    return (a == b) | (a.isnan() & b.isnan()) | _close(a, b)
+
+
+def _check_edges(torch, bt, bounce_like_rays, small, cap, dev) -> int:
+    """B1 (both its forms) and B2 against their plain versions where the
+    kernels' blocking has an edge: ``small`` and ``cap`` are the BVHs of Cornell and of the
+    cap-shape terrain.  Every id and occlusion bit must be equal and every
+    t, u, v within RTOL/ATOL (NaN equal to NaN).  Returns the case count."""
+    res = bt.kernel_resources()
+    block, chunk = 256 * res["rays_per_thread"], res["chunk_rows"]
+    _require(cap.tri_tab.shape[0] > 2 * chunk, f"the cap table's {cap.tri_tab.shape[0]} rows fit two chunks of {chunk}")
+    ragged = 3 * block + 77
+    o_s, d_s, tc_s, ta_s = bounce_like_rays(small, ragged, dev, SEED + 1)
+    o_c, d_c, tc_c, ta_c = bounce_like_rays(cap, ragged, dev, SEED + 2)
+    lane = torch.arange(ragged, device=dev)
+    odd = torch.where(lane % 4 == 0, float("nan"), torch.where(lane % 4 == 1, -1.0, 1.0))
+    # rays that start one unit above triangles of the table's first rows and head straight back at them
+    first = cap.tri_tab[lane % min(chunk, 64)]
+    centre = first[:, 0:3] + (first[:, 3:6] + first[:, 6:9]) / 3.0
+    nrm = first[:, 10:13]
+    aimed = ((centre + nrm).contiguous(), (-nrm).contiguous())
+    cases = [
+        ("n = 1", small.tri_tab, o_s[:1], d_s[:1], torch.full((1,), 3.0e38, device=dev), torch.full((1,), 1200.0, device=dev)),
+        (f"n = {ragged}, not a multiple of {block}, {cap.tri_tab.shape[0]} rows (more than two chunks)",
+         cap.tri_tab, o_c, d_c, tc_c, ta_c),
+        ("every ray dead", cap.tri_tab, o_c, d_c, torch.zeros_like(tc_c), torch.zeros_like(ta_c)),
+        ("every ray live", cap.tri_tab, o_c, d_c, torch.full_like(tc_c, 3.0e38), torch.full_like(ta_c, 1200.0)),
+        ("NaN and negative t_max", small.tri_tab, o_s, d_s, tc_s * odd, ta_s * odd),
+        ("a table of 8 rows", small.tri_tab[:8].contiguous(), o_s, d_s, tc_s, ta_s),
+        ("every ray occluded in the first chunk", cap.tri_tab, *aimed, torch.full_like(tc_c, 3.0e38),
+         torch.full_like(ta_c, 10.0)),
+    ]
+    for label, tab, o, d, tm_c, tm_a in cases:
+        o, d = o.contiguous(), d.contiguous()
+        want = bt.trace_closest_plain(tab, o, d, tm_c)
+        occ_k, occ_p = bt.trace_any_cuda(tab, o, d, tm_a), bt.trace_any_plain(tab, o, d, tm_a)
+        for coherent in (False, True):  # B1 without and with the warps' vote
+            got = bt.trace_closest_cuda(tab, o, d, tm_c, coherent)
+            _require(bool((got[1] == want[1]).all()),
+                     f"B1 edge case '{label}' (coherent={coherent}): tri_id differs from the plain version")
+            for name, a, b in zip("tuv", (got[0], got[2], got[3]), (want[0], want[2], want[3])):
+                _require(bool(_same(a, b).all()),
+                         f"B1 edge case '{label}' (coherent={coherent}): {name} differs from the plain version")
+        _require(bool((occ_k == occ_p).all()), f"B2 edge case '{label}': occlusion differs from the plain version")
+        if label.startswith("every ray occluded"):
+            _require(bool(occ_p.all()), "the aimed rays are not all occluded")
+        print(f"  edge case '{label}': B1 {int((want[1] >= 0).sum().item())} hits of {o.shape[0]}, "
+              f"B2 {int(occ_p.sum().item())} occluded; equal to the plain versions", flush=True)
+    return len(cases)
+
+
+def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str) -> dict:
+    """One scene's NORMALS and PATH frames at 1024^2: host-clock ms/frame
+    (unprofiled), then the device time and the trace kernels' time per
+    frame from a profiled run of the same frames."""
+    from optix_renderer_tpu_torch.utils.profile_frames import KERNEL_STAGES, device_breakdown
+
+    out: dict = {}
+    for mode, frames in ((RendererType.NORMALS, CROSS_NORMALS_FRAMES), (RendererType.PATH, CROSS_PATH_FRAMES)):
+        r = Renderer(scene, width=MAIN_RES, height=MAIN_RES, mode=mode, path_depth=MAIN_DEPTH, device=dev)
+
+        def render():
+            if mode == RendererType.NORMALS:  # a deterministic mode renders one frame per accumulation
+                for _ in range(frames):
+                    r.set_camera(scene.cameras[0])
+                    r.render(1)
+            else:
+                r.render(frames)
+
+        r.render(1)  # warm-up
+        t0 = time.perf_counter()
+        render()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            render()
+            torch.cuda.synchronize()
+        b = device_breakdown(prof.events(), frames)
+        img = r.image()
+        _require(bool(np.isfinite(img).all()) and float(np.abs(img).mean()) > 0.0, f"crossover {mode.name}: bad image")
+        kernels = {k: v["device_ms_per_frame"] for k, v in b["stages"].items() if k in KERNEL_STAGES and v["calls_per_frame"]}
+        out.update(triangles=r.bvh.num_tris, tier="cluster" if r.bvh.clustered else "brute")
+        out[mode.name] = {"ms_per_frame": wall_ms, "device_ms_per_frame": b["device_ms_per_frame"],
+                          "trace_kernels_ms_per_frame": sum(kernels.values()), "kernels_ms_per_frame": kernels}
+        print(f"  crossover: {out['triangles']} triangles ({out['tier']} tier), "
+              f"{mode.name} {MAIN_RES}^2, {frames} frames after 1 warm-up: {wall_ms:.3f} ms/frame on the host clock; "
+              f"profiled: device {b['device_ms_per_frame']:.3f} ms/frame, hand-written trace kernels "
+              f"{sum(kernels.values()):.3f} ms/frame ({', '.join(f'{k} {v:.3f}' for k, v in kernels.items())}), on {smi}",
+              flush=True)
+    return out
 
 
 def _check_ltc(torch, lk, ops, label: str) -> float:
@@ -250,15 +356,10 @@ def _check_ltc(torch, lk, ops, label: str) -> float:
     return err
 
 
-def _frame_ltc_operands(torch, r, rnglib, primary_rays, trace_closest_si, ltd, ltc):
+def _frame_ltc_operands(torch, r, first_frame_primaries, trace_closest_si, ltd, ltc):
     """B6's operands in the first LTC frame of renderer ``r`` (the path of
     render_tile: jittered primary rays, B1, shading, ltc_inputs)."""
-    n = r.width * r.height
-    lin = torch.arange(n, dtype=torch.int64, device=r.device)
-    st = rnglib.make_rng(10007, lin)
-    st, ju = rnglib.lcg_randomf(st)
-    st, jv = rnglib.lcg_randomf(st)
-    rays = primary_rays(r.state.camera, r.width, r.height, ju, jv, lin=lin)
+    rays = first_frame_primaries(r, torch.arange(r.width * r.height, dtype=torch.int64, device=r.device))
     si, _ = trace_closest_si(r.device_scene, r.bvh, rays)
     _, args = ltd.ltc_inputs(r.device_scene, si, *ltd.shading_frame(rays, si))
     return ltc.kernel_operands(*args)
@@ -495,10 +596,8 @@ def main() -> int:
     from optix_renderer_tpu_torch.accel import cluster
     from optix_renderer_tpu_torch.accel import cluster_trace as ct
     from optix_renderer_tpu_torch.core import math as cm
-    from optix_renderer_tpu_torch.core import rng as rnglib
     from optix_renderer_tpu_torch.engine import RendererType
     from optix_renderer_tpu_torch.core.types import Ray
-    from optix_renderer_tpu_torch.engine.camera import primary_rays
     from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
     from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused, trace_closest_si
     from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
@@ -508,6 +607,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.shading import bsdf, ltc
     from optix_renderer_tpu_torch.shading import ltc_kernel as lk
     from optix_renderer_tpu_torch.utils import cuda_build
+    from optix_renderer_tpu_torch.utils.bench_rays import bounce_like_rays, first_frame_primaries
 
     def reset_counts():
         bt.reset_launch_counts()
@@ -550,6 +650,14 @@ def main() -> int:
         with open(lib_path + ".log") as f:
             usage = [ln.split("info    :")[-1].strip() for ln in f if "Used" in ln or "spill" in ln]
         print(f"  {os.path.relpath(lib_path, ROOT)} in {build_s:.2f} s; ptxas: {usage}", flush=True)
+        if name == "brute_trace":
+            spills = [ln for ln in usage if "spill" in ln]
+            _require(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+                     f"B1/B2 spill registers: {spills}")
+    brute_res = bt.kernel_resources()
+    print(f"  B1/B2: 256 threads a block, {brute_res['rays_per_thread']} rays a thread, chunks of "
+          f"{brute_res['chunk_rows']} table rows, {brute_res['shared_bytes_per_block']} bytes of static shared "
+          "memory a block; registers a thread in the ptxas lines above", flush=True)
     phase_done("phase 2")
 
     # ---- 3. kernels vs plain at the main paths' shapes --------------------
@@ -562,20 +670,16 @@ def main() -> int:
                   ratio_samples=RATIO_SAMPLES, device=dev)
     tab = r.bvh.tri_tab
     n_px = MAIN_RES * MAIN_RES
-    lin = torch.arange(n_px, dtype=torch.int64, device=dev)
-    st = rnglib.make_rng(10007, lin)
-    st, ju = rnglib.lcg_randomf(st)
-    st, jv = rnglib.lcg_randomf(st)
-    prim = primary_rays(r.state.camera, MAIN_RES, MAIN_RES, ju, jv, lin=lin)
+    prim = first_frame_primaries(r, torch.arange(n_px, dtype=torch.int64, device=dev))
     prim_tm = torch.full((n_px,), 3.0e38, device=dev)
-    bo, bd, btm_c, btm_a = _bounce_like_rays(torch, r.bvh, BOUNCE_RAYS, dev)
+    bo, bd, btm_c, btm_a = bounce_like_rays(r.bvh, BOUNCE_RAYS, dev, SEED)
     print(f"[3 kernels] Cornell table {tuple(tab.shape)} ({r.bvh.num_tris} triangles)", flush=True)
-    err_c = max(_check_closest(torch, bt, tab, prim.origin, prim.direction, prim_tm, "primary 1024^2"),
-                _check_closest(torch, bt, tab, bo, bd, btm_c, "bounce 1M"))
+    err_c = max(_check_closest(torch, bt, tab, prim.origin, prim.direction, prim_tm, "primary 1024^2", True),
+                _check_closest(torch, bt, tab, bo, bd, btm_c, "bounce 1M", False))
     err_a = _check_any(torch, bt, tab, bo, bd, btm_a, "shadow 1M")
     ms_c, plain_c = _in_turns(
         torch, lambda: bt.trace_closest_plain(tab, prim.origin, prim.direction, prim_tm),
-        lambda: bt.trace_closest_cuda(tab, prim.origin, prim.direction, prim_tm), 5, 50)
+        lambda: bt.trace_closest_cuda(tab, prim.origin, prim.direction, prim_tm, True), 5, 50)
     ms_cb, plain_cb = _in_turns(
         torch, lambda: bt.trace_closest_plain(tab, bo, bd, btm_c),
         lambda: bt.trace_closest_cuda(tab, bo, bd, btm_c), 5, 50)
@@ -587,7 +691,7 @@ def main() -> int:
           f"B1 bounce 1M {ms_cb:.4f} ms vs plain {plain_cb:.4f} ms; "
           f"B2 shadow 1M {ms_a:.4f} ms vs plain {plain_a:.4f} ms", flush=True)
     frame_ops = lambda rend: _frame_ltc_operands(  # noqa: E731
-        torch, rend, rnglib, primary_rays, trace_closest_si, ltd, ltc)
+        torch, rend, first_frame_primaries, trace_closest_si, ltd, ltc)
     ops_l2, ops_l6 = frame_ops(rl), frame_ops(rr)
     ops_rand = _random_ltc_operands(torch, cm, ltc, LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, dev)
     err_l = max(_check_ltc(torch, lk, ops_l2, "Cornell LTC frame 1024^2"),
@@ -604,11 +708,48 @@ def main() -> int:
     # bounds: each input byte read once, each output byte written once
     rows = tab.shape[0]
     bound_c = _bound(n_px * (28 + 16) + rows * 40, n_px * rows * MT_OPS)
-    bound_a = _bound(BOUNCE_RAYS * (24 + 4 + 1) + rows * 40, int((btm_a > 0).sum().item()) * rows * MT_OPS)
+    bound_a = _bound(BOUNCE_RAYS * (24 + 4 + 1) + rows * 40, _any_tests(bt, tab, bo, bd, btm_a) * MT_OPS)
     n_l2, lights_l2 = ops_l2[0].shape[0], ops_l2[5].shape[0]
     bound_l = _bound(n_l2 * 112 + lights_l2 * 64, n_l2 * lights_l2 * B6_OPS)
     print(f"  bounds: B1 primary {bound_c[0]:.4f} ms ({bound_c[1]}), B2 shadow {bound_a[0]:.4f} ms ({bound_a[1]}), "
           f"B6 L=2 {bound_l[0]:.4f} ms ({bound_l[1]})", flush=True)
+
+    # B1 and B2 at the brute tier's cap, their blocking's edge cases, and the crossover to the cluster tier
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_scene = parse_scene(write_terrain_scene(tmp, grid=CAP_GRID, width=MAIN_RES, height=MAIN_RES))
+        over_scene = parse_scene(write_terrain_scene(tmp, grid=CAP_GRID + 1, width=MAIN_RES, height=MAIN_RES))
+    rc = Renderer(cap_scene, width=MAIN_RES, height=MAIN_RES, mode=RendererType.NORMALS, device=dev)
+    capb = rc.bvh
+    _require(not capb.clustered, f"the grid-{CAP_GRID} terrain ({capb.num_tris} triangles) left the brute tier")
+    tab_c = capb.tri_tab
+    prim_c = first_frame_primaries(rc, pixel_order(MAIN_RES, MAIN_RES, dev))
+    po_c, pd_c = prim_c.origin.contiguous(), prim_c.direction.contiguous()
+    co, cd, ctm_c, ctm_a = bounce_like_rays(capb, BOUNCE_RAYS, dev, SEED)
+    print(f"  cap shape: terrain grid {CAP_GRID}, {capb.num_tris} triangles, table {tuple(tab_c.shape)}", flush=True)
+    err_c = max(err_c, _check_closest(torch, bt, tab_c, po_c, pd_c, prim_tm, "cap primary 1024^2", True),
+                _check_closest(torch, bt, tab_c, co, cd, ctm_c, "cap bounce 1M", False))
+    err_a = max(err_a, _check_any(torch, bt, tab_c, co, cd, ctm_a, "cap shadow 1M"))
+    cap_c, cap_plain_c = _in_turns(torch, lambda: bt.trace_closest_plain(tab_c, po_c, pd_c, prim_tm),
+                                   lambda: bt.trace_closest_cuda(tab_c, po_c, pd_c, prim_tm, True), 1, 5)
+    cap_cb, cap_plain_cb = _in_turns(torch, lambda: bt.trace_closest_plain(tab_c, co, cd, ctm_c),
+                                     lambda: bt.trace_closest_cuda(tab_c, co, cd, ctm_c), 1, 5)
+    cap_a, cap_plain_a = _in_turns(torch, lambda: bt.trace_any_plain(tab_c, co, cd, ctm_a),
+                                   lambda: bt.trace_any_cuda(tab_c, co, cd, ctm_a), 1, 5)
+    rows_c = tab_c.shape[0]
+    cap_bound_c = _bound(n_px * (28 + 16) + rows_c * 40, n_px * rows_c * MT_OPS)
+    cap_bound_cb = _bound(BOUNCE_RAYS * (28 + 16) + rows_c * 40, int((ctm_c > 0).sum().item()) * rows_c * MT_OPS)
+    cap_bound_a = _bound(BOUNCE_RAYS * (24 + 4 + 1) + rows_c * 40, _any_tests(bt, tab_c, co, cd, ctm_a) * MT_OPS)
+    print(f"  cap-shape times on {smi} (CUDA events; plain, kernel, kernel, plain): "
+          f"B1 primary 1024^2 {cap_c:.4f} ms vs plain {cap_plain_c:.4f} ms (bound {cap_bound_c[0]:.4f} ms, "
+          f"{cap_bound_c[1]}); B1 bounce 1M {cap_cb:.4f} ms vs plain {cap_plain_cb:.4f} ms (bound "
+          f"{cap_bound_cb[0]:.4f} ms, {cap_bound_cb[1]}); B2 shadow 1M {cap_a:.4f} ms vs plain {cap_plain_a:.4f} ms "
+          f"(bound {cap_bound_a[0]:.4f} ms, {cap_bound_a[1]})", flush=True)
+    n_edges = _check_edges(torch, bt, bounce_like_rays, r.bvh, capb, dev)
+    del rc, prim_c, po_c, pd_c, co, cd, ctm_c, ctm_a
+    cross = [_crossover_frames(torch, np, Renderer, RendererType, sc, dev, smi) for sc in (cap_scene, over_scene)]
+    _require(cross[0]["tier"] == "brute" and cross[1]["tier"] == "cluster",
+             f"the crossover scenes took the tiers {cross[0]['tier']} and {cross[1]['tier']}")
+    del cap_scene, over_scene
 
     # the cluster tier on the 1M-triangle terrain (BASELINE config 5)
     with tempfile.TemporaryDirectory() as tmp:
@@ -623,11 +764,7 @@ def main() -> int:
     print(f"  terrain: {tb.num_tris} triangles, {C} clusters, table {tuple(tb.tri_tab.shape)}, "
           f"write + parse + build {setup_s:.1f} s", flush=True)
     n_t = TERRAIN_RES * TERRAIN_RES
-    lin_t = pixel_order(TERRAIN_RES, TERRAIN_RES, dev)  # the renderer's block order
-    st = rnglib.make_rng(10007, lin_t)
-    st, ju = rnglib.lcg_randomf(st)
-    st, jv = rnglib.lcg_randomf(st)
-    prim_t = primary_rays(rt.state.camera, TERRAIN_RES, TERRAIN_RES, ju, jv, lin=lin_t)
+    prim_t = first_frame_primaries(rt, pixel_order(TERRAIN_RES, TERRAIN_RES, dev))  # the renderer's block order
     cb = cluster._cid_bits(C)
     t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38)
     maxv = cluster._pad128(min(cluster.DEFAULT_MAX_VISITS, C))
@@ -733,7 +870,7 @@ def main() -> int:
         big = Renderer(parse_scene(write_terrain_scene(tmp, grid=ROUNDS_GRID, width=64, height=64)), width=64,
                        height=64, mode=RendererType.NORMALS, device=dev).bvh
     _require(big.sc_min.shape[0] > 256, f"the grid-{ROUNDS_GRID} terrain has only {big.sc_min.shape[0]} superclusters")
-    o2, d2, tm2_c, tm2_a = _bounce_like_rays(torch, big, ROUNDS_RAYS, dev)
+    o2, d2, tm2_c, tm2_a = bounce_like_rays(big, ROUNDS_RAYS, dev, SEED)
     rays2 = Ray(origin=o2, direction=d2)
     args2 = (big.tri_tab, big.cluster_min, big.cluster_max, big.sc_min, big.sc_max, o2, d2)
     keys2 = cluster.cold_start_keys(cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_c))
@@ -834,6 +971,13 @@ def main() -> int:
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the share of lanes with t_max > 0 in each launch of the last frame: B1 traces the primaries (every
+    # lane) and each bounce's valid BSDF samples, B2 each bounce's needed NEE shadow rays
+    per_bounce = r.aux["path_alive_counts"].cpu().numpy() / n_px
+    live_b1 = [1.0] + [float(x) for x in per_bounce[:, 2]]
+    live_b2 = [float(x) for x in per_bounce[:, 1]]
+    print(f"  live lanes (t_max > 0) per launch of the last frame: B1 primary then bounces "
+          f"{[round(x, 4) for x in live_b1]}, B2 bounces {[round(x, 4) for x in live_b2]}", flush=True)
     print(f"[5 main path] PATH depth {MAIN_DEPTH} Cornell {MAIN_RES}^2, {TIMED_FRAMES} frames after "
           f"{WARMUP_FRAMES} warm-up: {secs / TIMED_FRAMES * 1e3:.3f} ms/frame, "
           f"{rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), image mean {img.mean():.5f}, "
@@ -999,11 +1143,23 @@ def main() -> int:
         {"name": "brute_closest", "route": "cuda", "source": src,
          "replaces": "optix_renderer_tpu/accel/pallas_trace.py:88",
          "launches": launches["brute_closest"], "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
-         "bound_ms": bound_c[0], "bound_by": bound_c[1], "library_ms": None},
+         "bound_ms": bound_c[0], "bound_by": bound_c[1], "library_ms": None,
+         "resources": brute_res, "live_lane_share_per_launch": live_b1,
+         "cap": {"triangles": capb.num_tris, "rows": rows_c,
+                 "primary 1024^2": {"ms": cap_c, "plain_ms": cap_plain_c, "bound_ms": cap_bound_c[0],
+                                    "bound_by": cap_bound_c[1]},
+                 "bounce 1M": {"ms": cap_cb, "plain_ms": cap_plain_cb, "bound_ms": cap_bound_cb[0],
+                               "bound_by": cap_bound_cb[1]}},
+         "cornell bounce 1M": {"ms": ms_cb, "plain_ms": plain_cb}, "edge_cases": n_edges, "crossover": cross},
         {"name": "brute_any", "route": "cuda", "source": src,
          "replaces": "optix_renderer_tpu/accel/pallas_trace.py:124",
          "launches": launches["brute_any"], "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
-         "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
+         "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None,
+         "resources": brute_res, "live_lane_share_per_launch": live_b2,
+         "cap": {"triangles": capb.num_tris, "rows": rows_c,
+                 "shadow 1M": {"ms": cap_a, "plain_ms": cap_plain_a, "bound_ms": cap_bound_a[0],
+                               "bound_by": cap_bound_a[1]}},
+         "edge_cases": n_edges},
         # B3 and B4: `launches` counts both forms (`form_launches` each); ms, plain_ms and bound_ms are the
         # walk form's on the 1M incoherent rays (the form that every main path on the card launches), and
         # `forms` holds each form's own numbers at each input

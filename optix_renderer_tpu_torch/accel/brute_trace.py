@@ -6,7 +6,9 @@ has two pieces here:
 * the wrapper (``trace_closest_cuda`` / ``trace_any_cuda``), which checks
   its inputs, allocates the outputs and launches the hand-written CUDA
   kernel in ``csrc/brute_trace.cu`` on the current stream, counting each
-  launch in ``LAUNCHES``;
+  launch in ``LAUNCHES``.  The kernel writes every output element once:
+  the miss result of a ray with ``t_max <= 0`` (or NaN) before the row
+  loop, which only the other rays enter;
 * the plain PyTorch version (``trace_closest_plain`` / ``trace_any_plain``)
   with the TPU kernel's semantics: 8-row chunks, no-cull Moller-Trumbore,
   argmin inside a chunk and strict ``<`` across chunks, so the lowest
@@ -42,20 +44,32 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a compiled ``brute_trace.cu``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.brute_closest.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.brute_closest.restype = ctypes.c_int
+    lib.brute_any.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr]
+    lib.brute_any.restype = ctypes.c_int
+    return lib
+
+
 def kernel_library() -> ctypes.CDLL:
     """The compiled kernels (built from csrc/ at first use)."""
     global _lib
     if _lib is None:
         from ..utils.cuda_build import load_library
 
-        lib = load_library("brute_trace", SOURCES)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.brute_closest.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]
-        lib.brute_closest.restype = ctypes.c_int
-        lib.brute_any.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, ptr]
-        lib.brute_any.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind_library(load_library("brute_trace", SOURCES))
     return _lib
+
+
+def kernel_resources() -> dict:
+    """The constants the library was compiled with: rays a thread, table
+    rows a shared-memory chunk, static shared memory a block (bytes)."""
+    lib = kernel_library()
+    return {"rays_per_thread": lib.brute_rays_per_thread(), "chunk_rows": lib.brute_chunk_rows(),
+            "shared_bytes_per_block": lib.brute_shared_bytes()}
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +157,7 @@ def _check_inputs(tri_tab, origin, direction, t_max) -> int:
         (tuple(direction.shape) == (n, 3), f"direction must be ({n}, 3), got {tuple(direction.shape)}"),
         (tuple(t_max.shape) == (n,), f"t_max must be ({n},), got {tuple(t_max.shape)}"),
         (n < 2**31, "more than 2^31 - 1 rays"),
+        (tri_tab.data_ptr() % 16 == 0, "tri_tab must be 16-byte aligned (the kernels copy its rows as float4)"),
     )
     for ok, msg in checks:
         if not ok:
@@ -162,8 +177,11 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def trace_closest_cuda(tri_tab, origin, direction, t_max):
-    """Kernel B1: closest hit on the card; same outputs as trace_closest_plain."""
+def trace_closest_cuda(tri_tab, origin, direction, t_max, coherent: bool = False):
+    """Kernel B1: closest hit on the card; same outputs as trace_closest_plain.
+    ``coherent`` says that consecutive rays are neighbours (primary rays): the
+    kernel then lets a warp skip the rest of a test that none of its rays can
+    pass, which changes no result and pays only for such rays."""
     n = _check_inputs(tri_tab, origin, direction, t_max)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     tri_id = torch.empty(n, dtype=torch.int32, device=origin.device)
@@ -176,7 +194,7 @@ def trace_closest_cuda(tri_tab, origin, direction, t_max):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.brute_closest(
             tri_tab.data_ptr(), tri_tab.shape[0], origin.data_ptr(), direction.data_ptr(),
-            t_max.data_ptr(), n, t.data_ptr(), tri_id.data_ptr(), u.data_ptr(), v.data_ptr(), stream,
+            t_max.data_ptr(), n, t.data_ptr(), tri_id.data_ptr(), u.data_ptr(), v.data_ptr(), int(coherent), stream,
         )
     _raise_on(err, "brute_closest")
     LAUNCHES["brute_closest"] += 1

@@ -14,6 +14,8 @@ host sync), rays on the CPU the list form.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.types import Hit, Ray
@@ -51,16 +53,21 @@ def _route(o: torch.Tensor, cuda_fn, plain_fn):
     raise ValueError(f"no trace implementation for device {o.device}")
 
 
-def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF) -> Hit:
+def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, coherent: bool = True) -> Hit:
     """Closest hit over a ray batch; Hit in ORIGINAL triangle ids.
     ``t_max`` is a float or a per-ray (N,) tensor.  On the cluster tier it
-    decodes the winners of ``trace_closest_winners``."""
+    decodes the winners of ``trace_closest_winners``.  ``coherent`` (primary
+    rays True, bounce rays False) changes no hit: the cluster tier sorts
+    incoherent rays first, and on the card the brute tier's kernel B1 lets
+    the warps of a coherent batch leave a test that none of their rays can
+    pass."""
     o, d, tm = _prepare(rays, t_min, t_max)
     if bvh.clustered:
         r = Ray(origin=o, direction=d)
-        key, cid, t_eff, _stats = trace_closest_winners(bvh, r, tm)
+        key, cid, t_eff, _stats = trace_closest_winners(bvh, r, tm, coherent=coherent)
         return cluster.decode_hits(key, cid, bvh.tri_tab, r, t_eff)
-    fn = _route(o, brute_trace.trace_closest_cuda, brute_trace.trace_closest_plain)
+    fn = _route(o, functools.partial(brute_trace.trace_closest_cuda, coherent=coherent),
+                brute_trace.trace_closest_plain)
     t, tri_id, u, v = fn(bvh.tri_tab, o, d, tm)
     return Hit(t=t, tri_id=tri_id, bary_u=u, bary_v=v)
 

@@ -151,13 +151,14 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
     which the kernel skips; on the cluster tier
     ``accel.traverse.trace_closest_winners`` rewrites them to an up-ray
     above the scene.  ``coherent`` picks that function's cull and ray order
+    and, on the brute tier, whether kernel B1's warps vote to leave a test
     (primary rays True, bounce rays False); the closest hit is the same
     either way.  The tier decides the shading: the brute tier's Hit reads
     the packed rows, the cluster tier's winners their B5 columns.
     """
     if not bvh.clustered:
         t_max = _INF if active is None else torch.where(active, _INF, 0.0)
-        hit = trace_closest(bvh, rays, t_max=t_max)
+        hit = trace_closest(bvh, rays, t_max=t_max, coherent=coherent)
         return build_surface_interaction(ds, rays, hit), zero_trace_stats()
     key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent)
     cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)

@@ -51,29 +51,30 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str, sources: list[str]) -> str:
+def library_path(name: str, sources: list[str], flags: tuple = NVCC_FLAGS) -> str:
     """Where the library built from ``sources`` lives (content-addressed)."""
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     for src in sources:
         with open(os.path.join(CSRC_DIR, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build_library(name: str, sources: list[str]) -> tuple[str, float]:
-    """Compile ``sources`` (file names under csrc/) unless already built.
+def build_library(name: str, sources: list[str], flags: tuple = NVCC_FLAGS) -> tuple[str, float]:
+    """Compile ``sources`` (file names under csrc/, or absolute paths) with
+    ``flags`` unless already built.
 
     Returns (path of the .so, seconds spent compiling; 0.0 when cached).
     The compiler's resource report (``-Xptxas -v``) is kept beside the
     library as ``<lib>.log``.
     """
-    path = library_path(name, sources)
+    path = library_path(name, sources, flags)
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in sources)]
+    cmd = [find_nvcc(), *flags, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -1,6 +1,6 @@
 """Where a frame's device time goes, on one CUDA card.
 
-    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio [--frames 2]
+    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap [--frames 2]
         [--out prof.jsonl]
 
 Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
@@ -8,14 +8,15 @@ Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
 ``6`` the gallery in PATH depth 4 at 512^2; and the brute tier's main
 paths at 1024^2: ``path`` (PATH depth 4 on Cornell), ``ltc``
 (LTC_BASELINE on Cornell), ``ratio`` (RATIO with 4 shadow samples on the
-three-light Cornell).  For each config, after one warm-up
+three-light Cornell), and ``cap`` (PATH depth 4 on the terrain at grid
+46: 4,062 triangles, the largest in the brute tier).  For each config, after one warm-up
 frame the script times ``--frames`` frames on the host clock (each ends
 in ``torch.cuda.synchronize()``), then renders as many again under
 ``torch.profiler``, timing those on the host clock too.  The stages:
 
-* ``B3``, ``B4`` (list form), ``B3_walk``, ``B4_walk`` (walk form),
-  ``B5``: the hand-written kernels, found by their names in the device
-  trace;
+* ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_walk``,
+  ``B4_walk`` (walk form), ``B5``: the hand-written kernels, found by
+  their names in the device trace;
 * ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
 * ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
@@ -62,12 +63,15 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
     "path": ("cornell", "PATH", 1024, 4),
     "ltc": ("cornell", "LTC_BASELINE", 1024, 4),
     "ratio": ("cornell3", "RATIO", 1024, 4),
+    "cap": ("terrain_cap", "PATH", 1024, 4),
 }
-TERRAIN_GRID = 708  # 2 * 707^2 heightfield triangles + the Cornell walls = 999,710
+# 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
+TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
 STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade")  # record_function ranges
-# the hand-written kernels' names in csrc/cluster_trace.cu
-KERNEL_STAGES = {"B3": "closest_cluster_kernel", "B4": "any_cluster_kernel", "B3_walk": "closest_walk_kernel",
-                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel"}
+# the hand-written kernels' names in csrc/brute_trace.cu and csrc/cluster_trace.cu
+KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
+                 "B4": "any_cluster_kernel", "B3_walk": "closest_walk_kernel", "B4_walk": "any_walk_kernel",
+                 "B5": "winner_attr_kernel"}
 TOP_KERNELS = 10
 
 
@@ -130,8 +134,8 @@ def profile_config(config: str, frames: int, smi: str) -> dict:
     scene_name, mode, res, depth = CONFIGS[config]
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with tempfile.TemporaryDirectory() as tmp:
-        if scene_name == "terrain":
-            scene = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRID, width=res, height=res))
+        if scene_name in TERRAIN_GRIDS:
+            scene = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRIDS[scene_name], width=res, height=res))
         else:
             scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
