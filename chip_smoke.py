@@ -48,15 +48,26 @@ raises and exits non-zero):
    and against the list path's result on every ray (B4 equal on every
    lane; B3's key on every lane and its cluster id on 99.99 %), and the
    walk form of B3 on the primaries in the same way, its time beside
-   tile cull + list form; and both walk forms against their plain versions
-   on a 1.28M-triangle terrain with 312 superclusters, which takes two
-   rounds of supercluster boxes per ray;
+   tile cull + list form; then the baked walk (B3-baked) on the same
+   primaries from the terrain Renderer's own shared-origin table, and
+   again after ``set_camera`` moved the camera (a rebaked table): key and
+   cid equal to the plain baked walk on every lane of the sample, the
+   unbaked walk's winner on 99.9 % of all rays and, where both found the
+   same triangle, the t in the keys within rtol 1e-4 / atol 1e-3
+   (tests/unit/test_baked_mt.py), timed in turns with the
+   unbaked walk, and the bake's own time; and both walk forms against
+   their plain versions on a 1.28M-triangle terrain with 312
+   superclusters, which takes two rounds of supercluster boxes per ray;
+   the crossover frames count one baked walk per frame on the cluster
+   tier and the unbaked walk on the bounces only;
 4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
    on the gallery at 64^2 against ``tests/goldens`` (g-buffers, LTC and
-   the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE), RATIO at 64^2
+   the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE; the gallery's
+   primaries through the baked walk, one launch a frame), RATIO at 64^2
    over 4 frames against the port's own ``device="cpu"`` run of the same
    frames (ltc 1e-4, the stochastic buffers 5e-3), and the terrain at
-   64^2 card against CPU (NORMALS 1e-4, PATH depth 4 5e-3);
+   64^2 card (baked) against CPU (never baked; NORMALS 1e-4, PATH depth 4
+   5e-3);
 5. main path PATH: depth 4, ``scenes/cornell/scene.json`` at 1024^2,
    2 warm-up frames (under CUDA sync debugging: no frame may make the
    host wait for the card) then 16 timed frames, with the share of live
@@ -70,11 +81,21 @@ raises and exits non-zero):
    of tests/integration/test_ratio_render.py;
 8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame under
    sync debugging (no sync allowed), then 16 single frames, each after
-   ``set_camera``;
+   ``set_camera`` to the same camera (which keeps the baked table, so no
+   bake runs inside a timed frame);
 9. main path config 6: the gallery, PATH depth 4 at 512^2, 2 warm-up
    frames under sync debugging (no sync allowed), then 16 timed frames;
 10. main path config 5b: terrain PATH depth 4 at 1024^2, 1 warm-up frame
-   under sync debugging (no sync allowed), then 8 timed frames.
+   under sync debugging (no sync allowed), then 8 timed frames;
+11. the CLI on the card, as a subprocess: the gallery in PATH at 256^2
+   from a moved ``--cam-from`` with ``--save-gbuffers --save-exr
+   --save-checkpoint``; the files must exist, and the checkpoint resumed
+   in a Renderer built at camera 0 must rebake its table at the
+   checkpoint's origin and render through the baked walk.
+
+On the cluster tier every frame's primary trace is one launch of the baked
+walk (``cluster_closest_walk_baked``); the unbaked walk
+(``cluster_closest_walk``) serves the bounce rays, and none in NORMALS.
 
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
@@ -87,7 +108,8 @@ of B3 and B4 count the slab and ray/triangle tests their rules need on
 these lists, read back from the kernel (beside the lane slots the warps
 spent on them: the lane utilisation); the walk forms count, whatever the
 kernel did, the tests any walk needs that ends at the lanes' final bounds
-(over every ray; B3's kernel may not have run fewer).
+(over every ray; B3's kernel may not have run fewer; the baked walk
+counts its tests at BAKED_MT_OPS each).
 B3's and B4's ``launches`` add both forms; every main path on the card
 launches the walk forms, and the list forms go on being built, launched
 and checked in phase 3.  The last three lines are the kernels' JSON record, the nvidia-smi line and
@@ -145,6 +167,13 @@ CROSS_NORMALS_FRAMES, CROSS_PATH_FRAMES = 4, 8
 # bounds: published peaks of one H100 SXM (NVIDIA data sheet, dense, without sparsity)
 PEAK_F32_OPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 MT_OPS = 53  # f32 operations of one Moller-Trumbore test, counted in csrc mt_row
+BAKED_MT_OPS = 27  # f32 operations of one shared-origin test, counted in csrc/cluster_trace.cu mt_tri(BakedTri)
+# the baked walk against the unbaked one (tests/unit/test_baked_mt.py): the same triangle on 99.9 % of
+# lanes (reassociated products may flip a tie within an ulp), the t of a shared winner within rtol 1e-4, atol 1e-3
+BAKED_AGREE_MIN, BAKED_RTOL, BAKED_ATOL = 0.999, 1e-4, 1e-3
+# the second camera origin of the baked walk's check, and the CLI's moved camera of phase 11
+TERRAIN_MOVE = (60.0, 40.0, 80.0)
+CLI_RES, CLI_SPP, CLI_CAM_FROM = 256, 2, (200.0, 320.0, -400.0)
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_OPS = 572  # f32 adds/multiplies, divisions and square roots of one ray-light pair (csrc/ltc.cu)
 
@@ -287,10 +316,12 @@ def _check_edges(torch, bt, bounce_like_rays, small, cap, dev) -> int:
     return len(cases)
 
 
-def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str) -> dict:
+def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, counts) -> dict:
     """One scene's NORMALS and PATH frames at 1024^2: host-clock ms/frame
     (unprofiled), then the device time and the trace kernels' time per
-    frame from a profiled run of the same frames."""
+    frame from a profiled run of the same frames.  ``counts`` = (reset,
+    read) of the launch counts: on the cluster tier each frame's primaries
+    take the baked walk once, and the unbaked walk serves the bounces only."""
     from optix_renderer_tpu_torch.utils.profile_frames import KERNEL_STAGES, device_breakdown
 
     out: dict = {}
@@ -306,9 +337,16 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str) -
                 r.render(frames)
 
         r.render(1)  # warm-up
+        counts[0]()
         t0 = time.perf_counter()
         render()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+        got = counts[1]()
+        bounces = 0 if mode == RendererType.NORMALS else frames * MAIN_DEPTH
+        want = ((frames, bounces) if r.bvh.clustered else (0, 0))
+        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"]) == want,
+                 f"crossover {mode.name} ({r.bvh.num_tris} triangles): baked and unbaked walk launches "
+                 f"{got['cluster_closest_walk_baked']}, {got['cluster_closest_walk']}, expected {want}")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             render()
@@ -542,6 +580,83 @@ def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str, list_pat
             "bound_by": bound_by, "slab_utilisation": util_slab, "test_utilisation": util_test}
 
 
+def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
+    """The baked walk of B3 on primaries that share ``baked.origin``: held
+    against its plain version on the lanes of SAMPLE_TILES seeded tiles (key
+    and cid on every lane: the same visits, the same f32 operations) and
+    against the unbaked walk on every ray (the same triangle on
+    BAKED_AGREE_MIN of lanes; the t in the keys within BAKED_RTOL /
+    BAKED_ATOL where both found the same triangle); times it in turns with
+    the unbaked walk on every ray and with its plain version on the sample.  The bound is ``walk_bound_counts`` of
+    the final bounds with the baked test's operation count."""
+    o, d = rays.origin.contiguous(), rays.direction.contiguous()
+    _require(bool((o == torch.as_tensor(baked.origin, device=o.device)).all()),
+             f"baked walk {label}: the rays do not start at the table's origin {baked.origin}")
+    boxes = (bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max)
+    n = o.shape[0]
+    t_eff = cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, 3.0e38)
+    key0, cid0 = cluster.cold_start_keys(t_eff)
+    work = torch.zeros(4, dtype=torch.int64, device=o.device)
+    key, cid = ct.trace_closest_walk_cuda(baked.tab, *boxes, o, d, key0, cid0, work=work, baked=True)
+    key_u, cid_u = ct.trace_closest_walk_cuda(bvh.tri_tab, *boxes, o, d, key0, cid0)
+    _sel, lanes = _tile_sample(torch, n // ct.TILE, ct.TILE, o.device)
+    sub = (baked.tab, *boxes, o[lanes].contiguous(), d[lanes].contiguous(), key0[lanes].contiguous(),
+           cid0[lanes].contiguous())
+    key_p, cid_p = ct.trace_closest_walk_plain(*sub, baked=True)
+    torch.cuda.synchronize()
+    t_up = lambda k: (k | 63).view(torch.float32)  # noqa: E731
+    key_same = (key[lanes] == key_p).float().mean().item()
+    cid_same = (cid[lanes] == cid_p).float().mean().item()
+    _require(key_same == 1.0 and cid_same == 1.0,
+             f"baked walk {label}: key equal to the plain baked walk's on {key_same:.7f} and cid on {cid_same:.7f} "
+             "of the sampled lanes (every lane required)")
+    err = (t_up(key[lanes]) - t_up(key_p)).abs().max().item()
+    rows, hit = ct.winner_rows(key, cid)
+    rows_u, hit_u = ct.winner_rows(key_u, cid_u)
+    agree = (torch.where(hit, rows, -1) == torch.where(hit_u, rows_u, -1)).float().mean().item()
+    _require(agree >= BAKED_AGREE_MIN,
+             f"baked walk {label}: the unbaked walk's winner on {agree:.7f} of lanes (< {BAKED_AGREE_MIN})")
+    # t as each kernel computed it, decoded from the packed keys, where both found the same triangle (the
+    # exact t that decode_hits recomputes from the unbaked row is then the same by construction)
+    same_w = hit & hit_u & (rows == rows_u)
+    t_k, t_u = t_up(key)[same_w], t_up(key_u)[same_w]
+    t_ok = ((t_k - t_u).abs() <= BAKED_ATOL + BAKED_RTOL * t_u.abs()).all().item()
+    _require(bool(t_ok), f"baked walk {label}: the t of a shared winner outside rtol {BAKED_RTOL} / atol "
+             f"{BAKED_ATOL} of the unbaked walk's")
+    t_err = (t_k - t_u).abs().max().item()
+    # the lanes whose winners differ: both hit another triangle (a tie, or an edge that one test's rounding
+    # puts inside and the other's outside, in front of a farther surface), or only one of them hits
+    h, h_u = (cluster.decode_hits(k, c, bvh.tri_tab, rays, t_eff) for k, c in ((key, cid), (key_u, cid_u)))
+    other = hit & hit_u & (rows != rows_u)
+    t_far = int((other & ((h.t - h_u.t).abs() > BAKED_ATOL + BAKED_RTOL * h_u.t.abs())).sum().item())
+    n_other, n_one = int(other.sum().item()), int((hit != hit_u).sum().item())
+    ms, unbaked_ms = _in_turns(torch, lambda: ct.trace_closest_walk_cuda(bvh.tri_tab, *boxes, o, d, key0, cid0),
+                               lambda: ct.trace_closest_walk_cuda(baked.tab, *boxes, o, d, key0, cid0, baked=True),
+                               10, 10)
+    ms_sample, plain_ms = _in_turns(torch, lambda: ct.trace_closest_walk_plain(*sub, baked=True),
+                                    lambda: ct.trace_closest_walk_cuda(*sub, baked=True), 1, 10)
+    slabs_b, tests_b = ct.walk_bound_counts(*boxes, o, d, t_up(key))
+    slabs, tests, slab_slots, test_slots = (int(w) for w in work.tolist())
+    _require(slabs_b <= slabs and tests_b <= tests,
+             f"baked walk {label}: the kernel ran {slabs} slab and {tests} ray/triangle tests, fewer than the "
+             f"{slabs_b} and {tests_b} that its final bounds need")
+    n_bytes = n * (24 + 16) + baked.tab.numel() * 4 + sum(b.numel() * 4 for b in boxes)
+    bound_ms, bound_by = _bound(n_bytes, slabs_b * SLAB_OPS + tests_b * BAKED_MT_OPS)
+    print(f"  B3 baked walk, {label}: {n} rays from {baked.origin.tolist()}, {int(hit.sum().item())} hits; "
+          f"{SAMPLE_TILES}-tile sample: key and cid equal to the plain baked walk on every lane; against the "
+          f"unbaked walk on all rays: winner {agree:.7f}, max |t err| of a shared winner {t_err:.3g}; "
+          f"{n_other} lanes hit another triangle ({t_far} of them at a decoded t outside the tolerance), "
+          f"{n_one} lanes hit in one walk only; the kernel ran {slabs} "
+          f"slab tests in {slab_slots} lane slots and {tests} baked tests in {test_slots} (utilisation "
+          f"{tests / max(test_slots, 1):.4f}); any walk to these bounds needs {slabs_b} and {tests_b}; kernel "
+          f"{ms:.4f} ms vs unbaked walk {unbaked_ms:.4f} ms in turns (bound {bound_ms:.4f} ms, {bound_by}); "
+          f"sample: kernel {ms_sample:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "unbaked_walk_ms": unbaked_ms, "plain_ms": plain_ms,
+            "sample_ms": ms_sample, "bound_ms": bound_ms, "bound_by": bound_by, "winner_agree": agree,
+            "max_shared_winner_t_err": t_err, "other_winner_lanes": n_other, "other_winner_far_lanes": t_far,
+            "one_sided_hit_lanes": n_one, "test_utilisation": tests / max(test_slots, 1)}
+
+
 def _sorted_lane_walk(torch, cluster, Ray, bvh, rays, active, t_max):
     """What the port does with incoherent rays (accel/traverse.trace_closest_winners,
     cluster.trace_any_clusters_sorted): inactive lanes become above-scene
@@ -603,7 +718,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
     from optix_renderer_tpu_torch.integrators.path import RAY_EPS
-    from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene, write_terrain_scene
+    from optix_renderer_tpu_torch.scene import SceneCamera, parse_scene, write_cornell_scene, write_terrain_scene
     from optix_renderer_tpu_torch.shading import bsdf, ltc
     from optix_renderer_tpu_torch.shading import ltc_kernel as lk
     from optix_renderer_tpu_torch.utils import cuda_build
@@ -746,7 +861,8 @@ def main() -> int:
           f"(bound {cap_bound_a[0]:.4f} ms, {cap_bound_a[1]})", flush=True)
     n_edges = _check_edges(torch, bt, bounce_like_rays, r.bvh, capb, dev)
     del rc, prim_c, po_c, pd_c, co, cd, ctm_c, ctm_a
-    cross = [_crossover_frames(torch, np, Renderer, RendererType, sc, dev, smi) for sc in (cap_scene, over_scene)]
+    cross = [_crossover_frames(torch, np, Renderer, RendererType, sc, dev, smi, (reset_counts, launch_counts))
+             for sc in (cap_scene, over_scene)]
     _require(cross[0]["tier"] == "brute" and cross[1]["tier"] == "cluster",
              f"the crossover scenes took the tiers {cross[0]['tier']} and {cross[1]['tier']}")
     del cap_scene, over_scene
@@ -862,6 +978,23 @@ def main() -> int:
                           "terrain primary 1024^2", (key_e, cid_e))
     print(f"  B3 on the 1024^2 primaries: walk form {b3p['ms']:.4f} ms against tile cull {cull_p_ms:.4f} ms (CUDA "
           f"events around its eager PyTorch ops) + list form {b3['ms']:.4f} ms", flush=True)
+    # the baked walk on the same primaries, from the Renderer's own table, then at a second camera origin
+    cam0 = terrain.cameras[0]
+    _require(rt.baked_tab is not None and bool(np.array_equal(rt.baked_tab.origin, np.float32(cam0.from_))),
+             "the terrain Renderer on the card holds no table baked for its camera")
+    b3k = {"camera 0": _check_baked(torch, ct, cluster, tb, prim_t, rt.baked_tab, "terrain primary 1024^2, camera 0")}
+    bake_ms = _time_ms(torch, lambda: cluster.bake_shared_origin_tab(tb.tri_tab, cam0.from_), 5)
+    cam1 = SceneCamera(from_=np.float32(cam0.from_) + np.float32(TERRAIN_MOVE), at=cam0.at, up=cam0.up,
+                       cos_fovy=cam0.cos_fovy)
+    rt.set_camera(cam1)
+    _require(bool(np.array_equal(rt.baked_tab.origin, np.float32(cam1.from_))), "set_camera did not rebake")
+    prim_1 = first_frame_primaries(rt, pixel_order(TERRAIN_RES, TERRAIN_RES, dev))
+    b3k["camera 0 moved"] = _check_baked(torch, ct, cluster, tb, prim_1, rt.baked_tab,
+                                         f"terrain primary 1024^2, camera 0 moved by {TERRAIN_MOVE}")
+    rt.set_camera(cam0)  # back, and baked again, before the main path of phase 8
+    print(f"  bake_shared_origin_tab of the {tb.num_tris}-triangle table {tuple(tb.tri_tab.shape)}: {bake_ms:.4f} ms "
+          f"(CUDA events), paid per camera move", flush=True)
+    del prim_1
     del bounce, shadow, ob, db, teb, walk_b, os_, ds_, tes, walk_s, si_p, cols_k, cols_p, tab26, u
     del key_lb, cid_lb, occ_ls
 
@@ -925,7 +1058,13 @@ def main() -> int:
         g = Renderer(gallery, width=GOLDEN_RES, height=GOLDEN_RES, mode=RendererType[mode],
                      path_depth=GOLDEN_DEPTH, device=dev)
         _require(g.bvh.clustered, "the gallery does not take the cluster tier")
+        reset_counts()
         g.render(spp)
+        got = launch_counts()
+        want = (spp, spp * GOLDEN_DEPTH if mode == "PATH" else 0)
+        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"]) == want,
+                 f"golden {name}: baked and unbaked walk launches {got['cluster_closest_walk_baked']}, "
+                 f"{got['cluster_closest_walk']}, expected {want}")
         want = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npy"))
         got = g.image()
         _require(got.shape == want.shape, f"golden {name}: shape {got.shape} != {want.shape}")
@@ -939,8 +1078,12 @@ def main() -> int:
         for device in (dev, "cpu"):
             g = Renderer(terrain, width=GOLDEN_RES, height=GOLDEN_RES, mode=mode, path_depth=GOLDEN_DEPTH,
                          device=device)
+            reset_counts()
             g.render(1)
             imgs.append(g.image())
+            baked = launch_counts()["cluster_closest_walk_baked"]
+            _require(baked == (1 if device == dev else 0) and (g.baked_tab is None) == (device != dev),
+                     f"terrain {mode.name} on {device}: {baked} baked walk launches, table {g.baked_tab is not None}")
         terrain_rmse[mode.name] = _golden_rmse(*imgs)
         _require(terrain_rmse[mode.name] < tol,
                  f"terrain {mode.name} card vs cpu: relative RMSE {terrain_rmse[mode.name]:.3g} >= {tol}")
@@ -1061,7 +1204,7 @@ def main() -> int:
     launches_c5 = launch_counts()
     m1 = dict(rt.metrics)
     st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
-    want = expected(cluster_closest_walk=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
+    want = expected(cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
     _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all())
@@ -1085,7 +1228,8 @@ def main() -> int:
     launches_c6 = launch_counts()
     m1 = dict(rg.metrics)
     traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
-    want = expected(cluster_closest_walk=traces, cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
+    want = expected(cluster_closest_walk_baked=TIMED_FRAMES, cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
+                    cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
     st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
     _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
@@ -1117,8 +1261,8 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
     n_fr = TERRAIN_PATH_FRAMES
-    want = expected(cluster_closest_walk=n_fr * (1 + MAIN_DEPTH), cluster_any_walk=n_fr * MAIN_DEPTH,
-                    winner_attrs=n_fr * (1 + MAIN_DEPTH))
+    want = expected(cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
+                    cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH))
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
     _require(not any(st5b.values()), f"config 5b: trace statistics {st5b} from traces that list nothing")
     img = rt.image()
@@ -1131,11 +1275,56 @@ def main() -> int:
           f"image mean {img.mean():.5f}, peak {peak_gib:.3f} GiB, launches {launches_c5b}, trace stats {st5b}, "
           f"host syncs in the warm-up frame: {len(syncs)} ({traces} trace calls), on {smi}", flush=True)
     phase_done("phase 10")
+    del rt
+
+    # ---- 11. the CLI on the card: a moved camera, its outputs, its checkpoint resumed --------
+    gallery_path = os.path.join(ROOT, "scenes", "gallery", "scene.json")
+    with tempfile.TemporaryDirectory() as out:
+        ckpt = os.path.join(out, "resume.npz")
+        cmd = [sys.executable, "-m", "optix_renderer_tpu_torch.engine.cli", "--scene", gallery_path,
+               "--renderer", "path", "--spp", str(CLI_SPP), "--depth", str(MAIN_DEPTH), "--res", str(CLI_RES),
+               "--cam-from", *(str(x) for x in CLI_CAM_FROM), "--save-gbuffers", "--save-exr",
+               "--save-checkpoint", ckpt, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        _require(proc.returncode == 0, f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        files = sorted(os.listdir(out))
+        want_files = {"path.png", "path.exr", "render.json", "resume.npz"} | {
+            f"gbuffer_{f}.{ext}" for f in ("position", "normal", "albedo", "alpha", "material_id")
+            for ext in ("png", "exr")}
+        _require(want_files <= set(files), f"the CLI wrote {files}, missing {sorted(want_files - set(files))}")
+        with open(os.path.join(out, "render.json")) as f:
+            manifest = json.load(f)
+        _require(manifest["spp"] == CLI_SPP and manifest["device"] == kind, f"the CLI's manifest: {manifest}")
+        rc = Renderer(gallery, width=CLI_RES, height=CLI_RES, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
+                      device=dev)
+        origin0 = rc.baked_tab.origin.copy()
+        rc.load_checkpoint(ckpt)
+        moved = np.float32(CLI_CAM_FROM)
+        _require(bool(np.array_equal(rc.baked_tab.origin, moved)) and not np.array_equal(origin0, moved),
+                 f"the resumed Renderer's table has the origin {rc.baked_tab.origin}, not the checkpoint's {moved}")
+        _require(bool(torch.equal(rc.baked_tab.tab, cluster.bake_shared_origin_tab(rc.bvh.tri_tab, moved).tab)),
+                 "the resumed Renderer's table is not the bake of the checkpoint's origin")
+        reset_counts()
+        rc.render(1)
+        resumed = launch_counts()
+        img = rc.image()
+        _require(rc.state.accum_id == CLI_SPP + 1 and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0
+                 and resumed["cluster_closest_walk_baked"] == 1,
+                 f"the resumed render: accum_id {rc.state.accum_id}, mean {img.mean()}, launches {resumed}")
+    print(f"[11 CLI] gallery PATH depth {MAIN_DEPTH} {CLI_RES}^2, {CLI_SPP} spp from --cam-from {list(CLI_CAM_FROM)}: "
+          f"{cli_s:.1f} s for the process; wrote {len(files)} files ({', '.join(files)}); the checkpoint resumed "
+          f"in a Renderer built at camera 0 rebaked its table at {rc.baked_tab.origin.tolist()} and rendered frame "
+          f"{rc.state.accum_id} through the baked walk", flush=True)
+    del rc
+    phase_done("phase 11")
 
     launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,
                                       launches_c5b)) for k in launches_path}
-    _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0,
-             f"the walk form of B3 or B4 never ran on a main path: {launches}")
+    _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0
+             and launches["cluster_closest_walk_baked"] > 0,
+             f"the walk form of B3 or B4 or the baked walk never ran on a main path: {launches}")
     src = "optix_renderer_tpu_torch/csrc/brute_trace.cu"
     csrc = "optix_renderer_tpu_torch/csrc/cluster_trace.cu"
     pc = "optix_renderer_tpu/accel/pallas_cluster.py"
@@ -1178,6 +1367,15 @@ def main() -> int:
          "bound_ms": b4w["bound_ms"], "bound_by": b4w["bound_by"], "library_ms": None,
          "form_launches": {"walk": launches["cluster_any_walk"], "list": launches["cluster_any"]},
          "forms": {"walk, 1M NEE rays": b4w, "list, 1M NEE rays, per-lane lists": b4}},
+        # B3-baked: ms, unbaked_walk_ms and bound_ms on the 1024^2 terrain primaries from the Renderer's own
+        # table (camera 0); plain_ms on the 64-tile sample; `origins` holds both cameras' numbers
+        {"name": "cluster_closest_baked", "route": "cuda", "source": csrc, "replaces": f"{pc}:848 (baked, :984)",
+         "launches": launches["cluster_closest_walk_baked"],
+         "max_abs_err": max(v["max_abs_err"] for v in b3k.values()), "ms": b3k["camera 0"]["ms"],
+         "plain_ms": b3k["camera 0"]["plain_ms"], "plain_tiles": SAMPLE_TILES,
+         "sample_ms": b3k["camera 0"]["sample_ms"], "bound_ms": b3k["camera 0"]["bound_ms"],
+         "bound_by": b3k["camera 0"]["bound_by"], "library_ms": None,
+         "unbaked_walk_ms": b3k["camera 0"]["unbaked_walk_ms"], "bake_ms": bake_ms, "origins": b3k},
         {"name": "winner_attrs", "route": "cuda", "source": csrc, "replaces": f"{pc}:1657",
          "launches": launches["winner_attrs"], "max_abs_err": err_b5, "ms": ms_b5, "plain_ms": plain_b5,
          "bound_ms": bound_b5[0], "bound_by": bound_b5[1], "library_ms": lib_b5},

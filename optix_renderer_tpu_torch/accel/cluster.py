@@ -45,6 +45,13 @@ The JAX package's ``lax.cond`` and batched ``while_loop`` become host
 control flow on the count of unresolved tiles: one host sync per trace
 call, and only where ``_cull_can_drop`` says a list can be cut.
 
+**Baked primaries.**  Rays that all share one origin (primary rays) may
+come with the shared-origin table of that origin (``BakedTable``, from
+``bake_shared_origin_tab``; the Renderer bakes one per camera position on
+the card): CUDA rays then take the baked walk kernel, CPU rays its plain
+version, never the list path.  Culls, decode and shading read the unbaked
+tables only.
+
 The device of the rays alone decides between the two (``_walks``); both
 return the same hits.  ``trace_closest_lists`` and ``trace_any_lists`` are
 the list form on any device (the CPU tier, and the checks that hold the
@@ -60,6 +67,9 @@ left to ``Renderer.metrics``.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..core.types import Hit, Ray
@@ -404,6 +414,50 @@ def _cull_can_drop(C: int, maxv: int, refine: bool) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the shared-origin table
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BakedTable:
+    """The flat table baked for one ray origin: ``tab`` (C*64, 16) on the
+    table's device, ``origin`` the (3,) float32 host copy it was baked for.
+    Only the baked walk reads ``tab``; it is never decoded."""
+
+    tab: torch.Tensor
+    origin: np.ndarray
+
+
+def bake_shared_origin_tab(tri_tab: torch.Tensor, origin) -> BakedTable:
+    """The shared-origin rebake of the flat cluster table for rays that
+    all start at ``origin`` (pallas_cluster.py::bake_shared_origin_tab, its
+    component formulas and operation order).  With T = origin - v0,
+    columns 0-9 of every row become n2 = e2 x e1 (det = d . n2), uvec = e2
+    x T (u = (d . uvec) / det), vvec = T x e1 (v = (d . vvec) / det) and
+    tconst = e2 . vvec (t = tconst / det); columns 10-15 pass through.  A
+    padding row (e1 = e2 = 0) bakes to n2 = 0, a miss.  One ``torch.stack``
+    writes the result: ten column writes would copy the table ten times."""
+    origin = np.asarray(origin, np.float32).reshape(3).copy()
+    c = lambda j: tri_tab[:, j]  # noqa: E731
+    e1x, e1y, e1z = c(3), c(4), c(5)
+    e2x, e2y, e2z = c(6), c(7), c(8)
+    tx = float(origin[0]) - c(0)
+    ty = float(origin[1]) - c(1)
+    tz = float(origin[2]) - c(2)
+    n2x = e2y * e1z - e2z * e1y
+    n2y = e2z * e1x - e2x * e1z
+    n2z = e2x * e1y - e2y * e1x
+    ux = e2y * tz - e2z * ty
+    uy = e2z * tx - e2x * tz
+    uz = e2x * ty - e2y * tx
+    vx = ty * e1z - tz * e1y
+    vy = tz * e1x - tx * e1z
+    vz = tx * e1y - ty * e1x
+    tc = e2x * vx + e2y * vy + e2z * vz
+    tab = torch.stack([n2x, n2y, n2z, ux, uy, uz, vx, vy, vz, tc] + [c(j) for j in range(10, 16)], dim=1)
+    return BakedTable(tab=tab, origin=origin)
+
+
+# ---------------------------------------------------------------------------
 # trace entry points
 # ---------------------------------------------------------------------------
 
@@ -454,15 +508,28 @@ def cold_start_keys(t_eff: torch.Tensor):
 
 
 def trace_closest_clusters_packed(bvh: BVH, rays: Ray, t_max=_INF, *, refine: bool = False,
-                                  t_eff: torch.Tensor | None = None):
+                                  t_eff: torch.Tensor | None = None, baked_tab: BakedTable | None = None):
     """Packed closest hit: returns (key (N,) i32, cid (N,) i32, t_eff (N,)
     f32, stats).  ``key`` is the winning (quantized t | local triangle id)
     per lane and ``cid`` its cluster (-1 = miss); the winning SORTED
     triangle is ``cid * 64 + (key & 63)``.  ``t_eff`` (optional) is a
     precomputed ``ray_t_bounds``.  Exact: the walk form (``_walks``) caps
-    nothing, the list form checks every list it cut."""
+    nothing, the list form checks every list it cut.
+
+    ``baked_tab``: the table baked for the origin that every ray shares
+    (the caller's contract; not checked, which would cost a host sync).
+    The rays then take the baked walk, the kernel on a CUDA device, its
+    plain version on the CPU."""
     if t_eff is None:
         t_eff = ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
+    if baked_tab is not None:
+        if baked_tab.tab.shape != bvh.tri_tab.shape:
+            raise ValueError(f"baked table {tuple(baked_tab.tab.shape)} is not the shape of the BVH's table "
+                             f"{tuple(bvh.tri_tab.shape)}")
+        walk = cluster_trace.trace_closest_walk_cuda if _walks(rays) else cluster_trace.trace_closest_walk_plain
+        key, cid = walk(baked_tab.tab, bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max,
+                        rays.origin.contiguous(), rays.direction.contiguous(), *cold_start_keys(t_eff), baked=True)
+        return key, cid, t_eff, zero_trace_stats()
     if _walks(rays):
         key, cid = cluster_trace.trace_closest_walk_cuda(
             bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max, rays.origin.contiguous(),
@@ -525,7 +592,10 @@ def trace_closest_lists(bvh: BVH, rays: Ray, t_eff: torch.Tensor, refine: bool):
 def decode_hits(key, cid, tri_tab, rays: Ray, t_eff) -> Hit:
     """Packed (key, cid) -> exact Hit: one row gather of the winning
     triangle's flat table row, the kernels' Moller-Trumbore repeated for
-    (t, u, v), and the ORIGINAL prim id from column 9."""
+    (t, u, v), and the ORIGINAL prim id from column 9.  ``tri_tab`` is the
+    unbaked table: a ``BakedTable`` holds tconst in column 9 and is refused."""
+    if isinstance(tri_tab, BakedTable):
+        raise ValueError("decode_hits reads the unbaked table; a baked table is for the baked walk only")
     valid = cid >= 0
     tri_sorted = torch.where(valid, cid * CLUSTER_SIZE + (key & _LOCAL_MASK), 0).long()
     rows = tri_tab[tri_sorted]

@@ -44,6 +44,15 @@ prunes less and finds the same minimum; where two clusters hold the same
 packed key it keeps the lower cluster id and the kernel the one it
 visited first.
 
+**Baked walk** (``baked=True`` on the walk form of B3; every primary trace
+of the cluster tier on the card).  Rays that all share one origin are
+traced against the shared-origin table of that origin
+(``accel.cluster.bake_shared_origin_tab``) with the cheaper test of
+``_mt_block_baked``; the walk and the packed key are the walk form's.  It
+agrees with the unbaked walk up to float reassociation of the same
+products, so a winner tied within an ulp may differ; kernel and plain
+baked walk agree bit for bit.
+
 The kernels take an optional ``work`` tensor ((4,) int64 on the rays'
 device) to which they add: the (ray, box) slab tests and the ray/triangle
 tests the rules need (B4 stops inside a cluster at the first hit), and the
@@ -70,8 +79,8 @@ _LOCAL_MASK = CLUSTER_SIZE - 1
 
 # Launches of each kernel since the last reset_launch_counts(); the plain
 # versions are not counted.
-LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "cluster_closest_walk": 0, "cluster_any_walk": 0,
-            "winner_attrs": 0}
+LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "cluster_closest_walk": 0, "cluster_closest_walk_baked": 0,
+            "cluster_any_walk": 0, "winner_attrs": 0}
 # plain walk form: lanes per dense chunk, and (lane, cluster) pairs per block of 64 Moller-Trumbore tests
 _WALK_LANES = 4096
 _WALK_PAIRS = 1 << 14
@@ -96,11 +105,12 @@ def kernel_library() -> ctypes.CDLL:
         lib.cluster_closest.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
         lib.cluster_any.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
         lib.cluster_closest_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
+        lib.cluster_closest_walk_baked.argtypes = lib.cluster_closest_walk.argtypes
         lib.cluster_any_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
         lib.winner_attrs.argtypes = [p, p, p, p, i32, p, p]
         lib.cluster_tile.argtypes = lib.cluster_group.argtypes = []
-        for fn in (lib.cluster_closest, lib.cluster_any, lib.cluster_closest_walk, lib.cluster_any_walk,
-                   lib.winner_attrs, lib.cluster_tile, lib.cluster_group):
+        for fn in (lib.cluster_closest, lib.cluster_any, lib.cluster_closest_walk, lib.cluster_closest_walk_baked,
+                   lib.cluster_any_walk, lib.winner_attrs, lib.cluster_tile, lib.cluster_group):
             fn.restype = ctypes.c_int
         if lib.cluster_tile() != TILE:
             raise RuntimeError(f"csrc/cluster_trace.cu walks tiles of {lib.cluster_tile()} rays, the culls {TILE}")
@@ -140,6 +150,21 @@ def _mt_block(rows, o, d):
     hit, t, _, _ = moller_trumbore(lambda j: rows[:, :, j], (o[:, 0:1], o[:, 1:2], o[:, 2:3]),
                                    (d[:, 0:1], d[:, 1:2], d[:, 2:3]))
     return hit, t
+
+
+def _mt_block_baked(rows, d):
+    """The shared-origin test of each lane's ray against its cluster's 64
+    baked rows (A, 64, 16), in pallas_cluster.py::_mt_chunk_baked's
+    operation order (columns: n2 0-2, uvec 3-5, vvec 6-8, tconst 9).
+    Returns (hit without a t bound, t), each (A, 64)."""
+    c = lambda j: rows[:, :, j]  # noqa: E731
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    det = dx * c(0) + dy * c(1) + dz * c(2)
+    inv = 1.0 / torch.where(det.abs() < 1e-12, 1.0, det)
+    u = (dx * c(3) + dy * c(4) + dz * c(5)) * inv
+    v = (dx * c(6) + dy * c(7) + dz * c(8)) * inv
+    t = c(9) * inv
+    return (det.abs() >= 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0), t
 
 
 def _walk(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, lane_bound, visit, work):
@@ -233,9 +258,11 @@ def _walk_candidates(cmin, cmax, sc_min, sc_max, o, inv, bound):
     return li[pi], c[pi, gi], n_box
 
 
-def _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound):
+def _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound, baked: bool = False):
     """Yield (lane (B,), cluster (B,), hit (B, 64), t (B, 64)) over every
-    (lane, cluster) pair whose box the lane's ray passes within ``bound``."""
+    (lane, cluster) pair whose box the lane's ray passes within ``bound``;
+    ``baked``: ``tab`` is the shared-origin table of the rays' one origin
+    (the slab tests still take the rays' own origins)."""
     inv = inv_dir(direction)
     tab = tab.reshape(-1, CLUSTER_SIZE, 16)
     for l0 in range(0, origin.shape[0], _WALK_LANES):
@@ -244,17 +271,19 @@ def _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound)
         lane = lane + l0
         for p0 in range(0, lane.shape[0], _WALK_PAIRS):
             ln, cl = lane[p0:p0 + _WALK_PAIRS], c[p0:p0 + _WALK_PAIRS]
-            hit, t = _mt_block(tab[cl], origin[ln], direction[ln])
+            hit, t = _mt_block_baked(tab[cl], direction[ln]) if baked else _mt_block(tab[cl], origin[ln],
+                                                                                      direction[ln])
             yield ln, cl, hit, t
 
 
-def trace_closest_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0):
-    """B3's walk form in PyTorch, dense; returns (key, cid), each (N,) int32."""
+def trace_closest_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, baked: bool = False):
+    """B3's walk form in PyTorch, dense; returns (key, cid), each (N,) int32.
+    ``baked``: the baked walk (``tab`` baked for the rays' shared origin)."""
     local = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
     # (key, cid) as one int64 so that one scatter-min keeps the lower cluster id of a tied key
     best = (key0.long() << 32) | (cid0.long() & 0xFFFFFFFF)
     bound = (key0 | _LOCAL_MASK).view(torch.float32)
-    for lane, c, hit, t in _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound):
+    for lane, c, hit, t in _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound, baked):
         kmin = torch.where(hit, (t.view(torch.int32) & ~_LOCAL_MASK) | local, MISS_KEY).amin(dim=1)
         better = kmin < key0[lane]  # a cluster id is taken on a strict decrease only
         best.scatter_reduce_(0, lane[better], (kmin[better].long() << 32) | c[better], "amin")
@@ -418,8 +447,11 @@ def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: in
     return occ
 
 
-def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, work=None):
-    """Kernel B3's walk form on the card: (key, cid) as trace_closest_walk_plain."""
+def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, work=None,
+                            baked: bool = False):
+    """Kernel B3's walk form on the card: (key, cid) as trace_closest_walk_plain
+    with the same ``baked``, which launches the baked walk kernel."""
+    name = "cluster_closest_walk_baked" if baked else "cluster_closest_walk"
     n = _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
     _require(tuple(key0.shape) == (n,) and tuple(cid0.shape) == (n,), f"key0 and cid0 must be ({n},)")
     _check(origin.device, key0=(key0, torch.int32), cid0=(cid0, torch.int32))
@@ -427,14 +459,13 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
     cid = torch.empty_like(key)
     if n == 0:  # a grid of 0 blocks is an invalid launch
         return key, cid
-    lib = kernel_library()
     with torch.cuda.device(origin.device):
-        err = lib.cluster_closest_walk(
+        err = getattr(kernel_library(), name)(
             tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0], sc_min.data_ptr(), sc_max.data_ptr(),
             sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), key0.data_ptr(), cid0.data_ptr(), n,
             key.data_ptr(), cid.data_ptr(), _ptr(work), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "cluster_closest_walk")
-    LAUNCHES["cluster_closest_walk"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return key, cid
 
 

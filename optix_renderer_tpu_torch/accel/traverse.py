@@ -73,7 +73,7 @@ def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, coherent:
 
 
 def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor | None = None,
-                          coherent: bool = True):
+                          coherent: bool = True, baked_tab: cluster.BakedTable | None = None):
     """The cluster tier's closest hit as packed winners: (key (N,) i32,
     cid (N,) i32, t bound (N,) f32, trace stats); the winning SORTED
     triangle is ``cid * 64 + (key & 63)``, cid < 0 a miss.
@@ -88,13 +88,21 @@ def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor 
     form again, straight after the sweep; on the CPU the per-lane cull and
     the list form) and unsorts the outputs.  The winners are the same
     either way.
+
+    ``baked_tab`` (``cluster.BakedTable``): the rays all start at its
+    origin and take the baked walk.  The shared origin is refused where
+    this function would break it: with ``active`` (the rewrite moves lanes
+    above the scene) and with ``coherent=False`` (the sort serves
+    scattered origins).
     """
     if not bvh.clustered:
         raise ValueError(f"packed winners come from the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
+    if baked_tab is not None and (active is not None or not coherent):
+        raise ValueError("a baked table needs untouched rays that share its origin: no active mask, coherent=True")
     if active is not None:
         rays = cluster.rays_above_scene(bvh, rays, active)
     if coherent:
-        return cluster.trace_closest_clusters_packed(bvh, rays, t_max)
+        return cluster.trace_closest_clusters_packed(bvh, rays, t_max, baked_tab=baked_tab)
     keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
     perm = torch.argsort(keys)
     od_s = torch.cat([rays.origin, rays.direction, t_eff[:, None]], dim=1)[perm]  # one gather: rays and bounds

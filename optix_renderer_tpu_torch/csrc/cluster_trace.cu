@@ -56,6 +56,18 @@
 // only its t comparison is repeated with the fresh bound.  Warps never wait for
 // each other: no __syncthreads.
 //
+// Baked walk (cluster_closest_walk_baked): B3's walk form for rays that all
+// share one origin (primary rays), over the shared-origin table that
+// accel/cluster.py::bake_shared_origin_tab makes per camera position; replaces
+// the baked=True body of pallas_cluster.py::_closest_cluster_kernel (its test
+// _mt_chunk_baked).  Columns 0-9 of each row hold n2 = e2 x e1, uvec = e2 x T,
+// vvec = T x e1 and tconst = e2 . vvec (T = origin - v0), so a test is
+// det = d . n2, u = (d . uvec) / det, v = (d . vvec) / det, t = tconst / det:
+// 27 f32 operations against Moller-Trumbore's 53.  The walk, the staging (the
+// 12 staged columns already hold column 9) and the packed key are B3's; only
+// the row type and its test differ (the template argument of ray_walk).  The
+// boxes are the unbaked ones and the slab tests use the rays' own origins.
+//
 // B5: for each lane, the 20 shade_a columns and the 6 uv columns of shade_b of
 // its winning sorted triangle cid * 64 + (key & 63), attribute-major (26, N),
 // zeros on a miss.  One thread per lane reads its two rows: 112 bytes a lane
@@ -94,6 +106,10 @@ struct Ray {
 
 struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+struct BakedTri {  // a row of the shared-origin table
+  float n2x, n2y, n2z, ux, uy, uz, vx, vy, vz, tc;
 };
 
 __device__ __forceinline__ float inv_dir(float d) {
@@ -182,13 +198,32 @@ __device__ __forceinline__ void stage_wait() {
   __syncwarp();
 }
 
-__device__ __forceinline__ Tri staged_tri(const float* row) {
+// One staged row (12 floats at `row`, 16-byte aligned) as a triangle: 9 floats
+// of the unbaked table, 10 of the baked one.
+template <class Q>
+__device__ Q staged(const float* row);
+
+template <>
+__device__ __forceinline__ Tri staged<Tri>(const float* row) {
   const float4 a = *reinterpret_cast<const float4*>(row);      // v0x v0y v0z e1x
   const float4 b = *reinterpret_cast<const float4*>(row + 4);  // e1y e1z e2x e2y
   Tri q;
   q.v0x = a.x, q.v0y = a.y, q.v0z = a.z;
   q.e1x = a.w, q.e1y = b.x, q.e1z = b.y;
   q.e2x = b.z, q.e2y = b.w, q.e2z = row[8];
+  return q;
+}
+
+template <>
+__device__ __forceinline__ BakedTri staged<BakedTri>(const float* row) {
+  const float4 a = *reinterpret_cast<const float4*>(row);      // n2x n2y n2z ux
+  const float4 b = *reinterpret_cast<const float4*>(row + 4);  // uy uz vx vy
+  const float2 c = *reinterpret_cast<const float2*>(row + 8);  // vz tconst
+  BakedTri q;
+  q.n2x = a.x, q.n2y = a.y, q.n2z = a.z;
+  q.ux = a.w, q.uy = b.x, q.uz = b.y;
+  q.vx = b.z, q.vy = b.w, q.vz = c.x;
+  q.tc = c.y;
   return q;
 }
 
@@ -213,11 +248,24 @@ __device__ __forceinline__ bool mt_tri(const Tri& q, const Ray& r, float& t) {
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
+// The shared-origin test against one baked row (_mt_chunk_baked's operation
+// order; the ray's origin is the one the table was baked for and is not read).
+__device__ __forceinline__ bool mt_tri(const BakedTri& q, const Ray& r, float& t) {
+  const float det = r.dx * q.n2x + r.dy * q.n2y + r.dz * q.n2z;
+  const bool ok = fabsf(det) >= 1e-12f;
+  const float inv = 1.0f / (ok ? det : 1.0f);
+  const float u = (r.dx * q.ux + r.dy * q.uy + r.dz * q.uz) * inv;
+  const float v = (r.dx * q.vx + r.dy * q.vy + r.dz * q.vz) * inv;
+  t = q.tc * inv;
+  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
+}
+
 // ---- the warp-cooperative intersection ---------------------------------------
 
 // One ray (the same in every lane) against one staged cluster: lane l holds
 // triangles l (q0) and l + 32 (q1).  Returns the minimum packed key over the hits.
-__device__ __forceinline__ int32_t warp_closest(const Tri& q0, const Tri& q1, const Ray& r, int lane) {
+template <class Q>
+__device__ __forceinline__ int32_t warp_closest(const Q& q0, const Q& q1, const Ray& r, int lane) {
   float t;
   int32_t k = kMissKey;
   if (mt_tri(q0, r, t)) k = (__float_as_int(t) & ~kLocalMask) | lane;
@@ -341,8 +389,8 @@ __device__ __forceinline__ void list_walk(const ListArgs& a) {
       stage_wait<1>();  // entry k's rows have landed; entry k + 1's may be in flight
       const float* rows = buf + (k & 1) * kStageFloats;
       // the whole warp serves the lanes that pass one (ray, cluster) pair at a time
-      const Tri q0 = staged_tri(rows + lane * kStageCols);
-      const Tri q1 = staged_tri(rows + (lane + 32) * kStageCols);
+      const Tri q0 = staged<Tri>(rows + lane * kStageCols);
+      const Tri q1 = staged<Tri>(rows + (lane + 32) * kStageCols);
       for (unsigned m = ballot; m != 0; m &= m - 1) {
         const int src = __ffs(m) - 1;
         const Ray rs = warp_ray(r, src, false);
@@ -437,7 +485,8 @@ __device__ __forceinline__ uint32_t pick_cluster(uint32_t& w0, uint32_t& w1, int
   return p;
 }
 
-template <bool kAny, bool kCount>
+// Q: the row type of a.tab (Tri, or BakedTri for the baked walk, closest only).
+template <bool kAny, bool kCount, class Q>
 __device__ __forceinline__ void ray_walk(const WalkArgs& a) {
   __shared__ __align__(16) float stage[kWarps][2][kStageFloats];
   const int lane = threadIdx.x & 31;
@@ -527,9 +576,9 @@ __device__ __forceinline__ void ray_walk(const WalkArgs& a) {
           stage_commit();
           stage_wait<1>();
           const float* rows = buf + par * kStageFloats;
-          const Tri q0 = staged_tri(rows + lane * kStageCols);
-          const Tri q1 = staged_tri(rows + (lane + 32) * kStageCols);
-          if (kAny) {
+          const Q q0 = staged<Q>(rows + lane * kStageCols);
+          const Q q1 = staged<Q>(rows + (lane + 32) * kStageCols);
+          if constexpr (kAny) {  // compiled for Tri rows only: warp_any takes no baked row
             int first;
             occluded = warp_any(q0, q1, r, t_lim, first);
             if (kCount && lane == 0) tests += occluded ? first + 1 : kCluster;
@@ -567,14 +616,14 @@ __device__ __forceinline__ void ray_walk(const WalkArgs& a) {
   if (kCount) add_work(a.work, slabs, tests, slab_steps, test_steps);
 }
 
-template <bool kCount>
+template <bool kCount, class Q>
 __global__ void __launch_bounds__(kTraceThreads) closest_walk_kernel(const WalkArgs a) {
-  ray_walk<false, kCount>(a);
+  ray_walk<false, kCount, Q>(a);
 }
 
 template <bool kCount>
 __global__ void __launch_bounds__(kTraceThreads) any_walk_kernel(const WalkArgs a) {
-  ray_walk<true, kCount>(a);
+  ray_walk<true, kCount, Tri>(a);
 }
 
 // ---- B5 ------------------------------------------------------------------------
@@ -601,6 +650,16 @@ winner_attr_kernel(const float* __restrict__ shade_a, const float* __restrict__ 
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
+
+template <class Q>
+int launch_closest_walk(const WalkArgs& a, void* stream) {
+  const int blocks = blocks_for(a.n, kTraceThreads);
+  if (a.work != nullptr)
+    closest_walk_kernel<true, Q><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  else
+    closest_walk_kernel<false, Q><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -645,12 +704,18 @@ extern "C" int cluster_closest_walk(const float* tab, const float* cmin, const f
                                     int32_t* key_out, int32_t* cid_out, unsigned long long* work, void* stream) {
   const WalkArgs a{tab, cmin, cmax, n_clusters, scmin, scmax, n_super, org, dir, key0, cid0, nullptr,
                    n, key_out, cid_out, nullptr, work};
-  const int blocks = blocks_for(n, kTraceThreads);
-  if (work != nullptr)
-    closest_walk_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  else
-    closest_walk_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_closest_walk<Tri>(a, stream);
+}
+
+// The baked walk: `tab` is the shared-origin table of the rays' one origin.
+extern "C" int cluster_closest_walk_baked(const float* tab, const float* cmin, const float* cmax, int n_clusters,
+                                          const float* scmin, const float* scmax, int n_super, const float* org,
+                                          const float* dir, const int32_t* key0, const int32_t* cid0, int n,
+                                          int32_t* key_out, int32_t* cid_out, unsigned long long* work,
+                                          void* stream) {
+  const WalkArgs a{tab, cmin, cmax, n_clusters, scmin, scmax, n_super, org, dir, key0, cid0, nullptr,
+                   n, key_out, cid_out, nullptr, work};
+  return launch_closest_walk<BakedTri>(a, stream);
 }
 
 extern "C" int cluster_any_walk(const float* tab, const float* cmin, const float* cmax, int n_clusters,

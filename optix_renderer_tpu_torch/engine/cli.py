@@ -1,31 +1,39 @@
 """Command-line renderer (counterpart of ``optix_renderer_tpu/engine/cli.py``).
 
-The subset of the JAX CLI that the port's modes support: scene, renderer
-mode, samples, resolution, path depth, output directory, checkpoints, the
-RATIO denoise-and-combine stage and the device.  ``--device`` defaults to
-``cuda`` and fails when no CUDA device is present; ``--cpu`` is
-``--device cpu``.  Outputs are the JAX CLI's files, written through
-``postprocess.io``.
+The JAX CLI's flags that need no module beyond the renderer: scene,
+renderer mode, samples, resolution, path depth, camera (``--camera``,
+``--cam-from/--cam-to/--cam-up/--cam-fovy``, ``--record-camera``), output
+directory and files (``--save-npy``, ``--save-exr``, ``--save-gbuffers``),
+checkpoints (a resumed camera wins over the flags), the RATIO
+denoise-and-combine stage, ``--preview N``, ``--profile DIR`` (a
+``torch.profiler`` trace of the render loop) and the device.  ``--device``
+defaults to ``cuda`` and fails when no CUDA device is present; ``--cpu`` is
+``--device cpu``.  Outputs are the JAX CLI's files for the same flags,
+written through ``postprocess.io``.
 
 Examples:
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json \\
       --renderer path --spp 16 --res 1024 --depth 4 --out out/
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell3/scene.json \\
       --renderer ratio --spp 16 --res 1024 --denoise-ratio --out out/
+  python -m optix_renderer_tpu_torch.engine.cli --scene scenes/gallery/scene.json \\
+      --renderer path --spp 16 --res 512 --depth 4 --cam-from 200 320 -400 --save-gbuffers --out out/
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 
-from ..postprocess.io import save_npy, save_png
-from ..scene.config import parse_scene
+from ..postprocess.io import save_exr, save_npy, save_png
+from ..scene.config import SceneCamera, parse_scene
 from ..utils.log import get_logger, log_ok
 from .modes import DETERMINISTIC_MODES, RENDERER_NAMES, RendererType
 
@@ -59,14 +67,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--res", type=int, default=None, help="square resolution override")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
+    p.add_argument("--camera", type=int, default=0, help="camera index from the scene (past the end: 0)")
+    p.add_argument("--cam-from", type=float, nargs=3, default=None, help="camera position override")
+    p.add_argument("--cam-to", type=float, nargs=3, default=None, help="camera look-at override")
+    p.add_argument("--cam-up", type=float, nargs=3, default=None, help="camera up override")
+    p.add_argument("--cam-fovy", type=float, default=None, help="cos_fovy override")
+    p.add_argument("--record-camera", action="store_true",
+                   help="append the active camera to the scene JSON's cameras (viewer.hpp R/F keys)")
     p.add_argument("--depth", type=int, default=10, help="max path depth (PATH mode)")
     p.add_argument("--out", default="out", help="output directory")
+    p.add_argument("--save-gbuffers", action="store_true", help="dump all g-buffers")
     p.add_argument("--save-npy", action="store_true", help="also dump lossless .npy")
-    p.add_argument("--checkpoint", default=None, help="resume accumulation from this .npz")
+    p.add_argument("--save-exr", action="store_true", help="also dump float32 EXR")
+    p.add_argument("--checkpoint", default=None, help="resume accumulation (and its camera) from this .npz")
     p.add_argument("--save-checkpoint", default=None, help="write accumulation state here")
     p.add_argument("--denoise-ratio", action="store_true",
                    help="RATIO mode: denoise the stochastic buffers and combine them with the LTC "
-                        "buffer on the device; writes ratio_final.png and ratio_final.npy")
+                        "buffer on the device; writes ratio_final.png (and ratio_final.npy with --save-npy)")
+    p.add_argument("--preview", type=int, default=0, metavar="N",
+                   help="write a progressive preview PNG every N frames")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the render loop into DIR")
     p.add_argument("--device", default="cuda", help="torch device to render on (default: cuda)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
     return p
@@ -74,6 +95,79 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def _camera(args, scene) -> SceneCamera:
+    """The scene's camera ``--camera`` (0 past the end), with the ``--cam-*``
+    overrides."""
+    cam = scene.cameras[args.camera if args.camera < len(scene.cameras) else 0]
+    if all(v is None for v in (args.cam_from, args.cam_to, args.cam_up, args.cam_fovy)):
+        return cam
+    pick = lambda flag, own: np.asarray(flag if flag is not None else own, np.float32)  # noqa: E731
+    return SceneCamera(from_=pick(args.cam_from, cam.from_), at=pick(args.cam_to, cam.at),
+                       up=pick(args.cam_up, cam.up),
+                       cos_fovy=float(args.cam_fovy if args.cam_fovy is not None else cam.cos_fovy))
+
+
+def _record_camera(scene_path: str, cam: SceneCamera) -> None:
+    """Append the camera to the scene JSON (viewer.hpp:802-845: R records
+    into Viewer::cameras, F rewrites the JSON's 'cameras' array)."""
+    with open(scene_path) as f:
+        cfg = json.load(f)
+    cfg.setdefault("cameras", []).append({
+        "from": [float(x) for x in cam.from_],
+        "to": [float(x) for x in cam.at],
+        "up": [float(x) for x in cam.up],
+        "cos_fovy": float(cam.cos_fovy),
+    })
+    with open(scene_path, "w") as f:
+        json.dump(cfg, f, indent=2)
+
+
+def _render_loop(r, spp: int, preview: int, preview_path: str) -> None:
+    """``spp`` frames; with ``preview`` < spp, in steps of ``preview`` frames,
+    each followed by the image so far at ``preview_path``."""
+    if not (preview and preview < spp):
+        r.render(spp)
+        return
+    done = 0
+    while done < spp:
+        step = min(preview, spp - done)
+        r.render(step)
+        done += step
+        save_png(preview_path, r.image())
+        log.info("preview %d/%d spp", done, spp)
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the block, written into ``out_dir``
+    (the card's kernels too on a CUDA device); nothing without ``out_dir``."""
+    if not out_dir:
+        yield
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    trace = os.path.join(out_dir, "render_loop.pt.trace.json")
+    prof.export_chrome_trace(trace)
+    log.info("profiler trace -> %s", trace)
+
+
+def _save_gbuffers(out: str, gb, npy: bool, exr: bool) -> None:
+    """The five g-buffers as linear PNGs (the normal mapped to n/2 + 1/2),
+    and as .npy and .exr when asked."""
+    for field, arr in (("position", gb.position), ("normal", gb.normal * 0.5 + 0.5), ("albedo", gb.albedo),
+                       ("alpha", gb.alpha), ("material_id", gb.material_id)):
+        arr = arr.cpu().numpy()
+        save_png(os.path.join(out, f"gbuffer_{field}.png"), arr, apply_gamma=False)
+        if npy:
+            save_npy(os.path.join(out, f"gbuffer_{field}.npy"), arr)
+        if exr:
+            save_exr(os.path.join(out, f"gbuffer_{field}.exr"), arr)
 
 
 def main(argv=None) -> int:
@@ -97,14 +191,17 @@ def main(argv=None) -> int:
              args.scene, mode.name, width, height, spp, args.depth, _device_name(device))
 
     r = Renderer(scene, width=width, height=height, mode=mode, path_depth=args.depth, device=device)
-    if args.checkpoint:
+    cam = _camera(args, scene)
+    r.set_camera(cam)
+    if args.checkpoint:  # after the flags: a resumed camera wins
         r.load_checkpoint(args.checkpoint)
         log.info("resumed at accum_id=%d", r.state.accum_id)
     os.makedirs(args.out, exist_ok=True)
     name = mode.name.lower()
 
     t0 = time.perf_counter()
-    r.render(spp)
+    with _profiled(args.profile, device):
+        _render_loop(r, spp, args.preview, os.path.join(args.out, f"{name}_preview.png"))
     img = r.image()
     dt = time.perf_counter() - t0
     m = r.metrics
@@ -117,6 +214,10 @@ def main(argv=None) -> int:
     save_png(os.path.join(args.out, f"{name}.png"), img)
     if args.save_npy:
         save_npy(os.path.join(args.out, f"{name}.npy"), img)
+    if args.save_exr:
+        save_exr(os.path.join(args.out, f"{name}.exr"), img)
+    if args.save_gbuffers and r.gbuffers is not None:
+        _save_gbuffers(args.out, r.gbuffers, args.save_npy, args.save_exr)
     if mode == RendererType.RATIO and r.aux:
         for k in ("ltc", "sto_direct", "sto_no_vis"):
             save_png(os.path.join(args.out, f"{k}.png"), r.aux[k].cpu().numpy())
@@ -125,10 +226,14 @@ def main(argv=None) -> int:
 
             final = denoise_and_combine(r.aux, r.gbuffers).cpu().numpy()
             save_png(os.path.join(args.out, "ratio_final.png"), final)
-            save_npy(os.path.join(args.out, "ratio_final.npy"), final)
+            if args.save_npy:
+                save_npy(os.path.join(args.out, "ratio_final.npy"), final)
     if args.save_checkpoint:
         r.save_checkpoint(args.save_checkpoint)
         log.info("checkpoint -> %s", args.save_checkpoint)
+    if args.record_camera:
+        _record_camera(args.scene, cam)
+        log.info("camera recorded into %s", args.scene)
 
     manifest = {
         "scene": os.path.abspath(args.scene),

@@ -18,6 +18,14 @@ renderer.py:72-96): the cluster tier culls per 1024-ray tile, and a tile of
 row-major rays is a frustum one pixel tall across the image.  RNG streams
 are keyed by the absolute pixel id, so the image does not depend on the
 order.
+
+On the cluster tier on a CUDA device the primaries all start at the camera
+position, so the Renderer keeps the table baked for it
+(``accel.cluster.bake_shared_origin_tab``) and every frame's primary trace
+takes the baked walk (JAX renderer.py:99-107, 293-305).  The bake is paid
+per camera move (``set_camera``, ``load_checkpoint``), never per frame: a
+camera whose position equals the table's origin, decided on the host,
+keeps the table.  The CPU never bakes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from ..accel.build import BRUTE_MAX_TRIS, BVH, build_bvh, pack_attr_tab
-from ..accel.cluster import merge_trace_stats
+from ..accel.cluster import BakedTable, bake_shared_origin_tab, merge_trace_stats
 from ..core import rng as rnglib
 from ..core.types import Camera, GBuffers, RenderState
 from ..scene.config import Scene, SceneCamera
@@ -54,11 +62,19 @@ def pixel_order(width: int, height: int, device) -> torch.Tensor:
     return lin.reshape(height // bh, bh, width // bw, bw).transpose(1, 2).reshape(-1)
 
 
+def _bakes(bvh: BVH) -> bool:
+    """Does a Renderer of this BVH bake the shared-origin table?  On the
+    cluster tier on a CUDA device only."""
+    return bvh.clustered and bvh.tri_tab.device.type == "cuda"
+
+
 def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
-                mode: RendererType, width: int, height: int, path_depth: int, ratio_samples: int):
+                mode: RendererType, width: int, height: int, path_depth: int, ratio_samples: int,
+                baked_tab: BakedTable | None = None):
     """Render the whole width x height frame as one tile (the JAX
     package's row tiles serve its multi-device split, not yet ported).
     RNG streams are keyed by the linear pixel id (deviceCode.cu:65-66).
+    ``baked_tab``: the table baked for ``camera.pos``, for the primary trace.
 
     Returns (color (height*width, 3), gbuffers (height, width, ...), aux
     dict, trace stats).
@@ -83,7 +99,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     rstate, ju = rnglib.lcg_randomf(rstate)
     rstate, jv = rnglib.lcg_randomf(rstate)
     rays = cameralib.primary_rays(camera, width, height, ju, jv, lin=lin)
-    si, stats = trace_closest_si(ds, bvh, rays)
+    si, stats = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab)
 
     aux: dict = {}
     if mode in GBUFFER_MODES:
@@ -111,10 +127,12 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
 
 
 def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
-                width: int, height: int, path_depth: int, ratio_samples: int):
+                width: int, height: int, path_depth: int, ratio_samples: int,
+                baked_tab: BakedTable | None = None):
     """One frame over the whole image: ``(state', gbuffers, aux, trace stats)``."""
     color, gb, aux, stats = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
-                                        height=height, path_depth=path_depth, ratio_samples=ratio_samples)
+                                        height=height, path_depth=path_depth, ratio_samples=ratio_samples,
+                                        baked_tab=baked_tab)
     state.accum += color.reshape(height, width, 3)  # in place: no second (H, W, 3) buffer
     return RenderState(accum=state.accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux, stats
 
@@ -161,6 +179,7 @@ class Renderer:
                              tri_attr=tri_attr)
 
         self.state: RenderState = None  # set by set_camera
+        self._baked_tab: BakedTable | None = None  # the primaries' shared-origin table (_rebake)
         self.gbuffers: GBuffers | None = None
         self.aux: dict = {}
         # honest ray accounting: primary rays + the NEE and bounce rays the
@@ -176,8 +195,25 @@ class Renderer:
     def _zero_accum(self) -> torch.Tensor:
         return torch.zeros((self.height, self.width, 3), dtype=torch.float32, device=self.device)
 
+    @property
+    def baked_tab(self) -> BakedTable | None:
+        """The table the primary trace takes, baked for the camera's origin;
+        None off the card or off the cluster tier."""
+        return self._baked_tab
+
+    def _rebake(self, origin) -> None:
+        """Bake the table for the camera at ``origin`` (host (3,)) unless the
+        table already has that origin: the bake enqueues one pass over the
+        table, which a set_camera that keeps the position must not put into
+        the next frame."""
+        origin = np.asarray(origin, np.float32).reshape(3)
+        stale = self._baked_tab is None or not np.array_equal(self._baked_tab.origin, origin)
+        if _bakes(self.bvh) and stale:
+            self._baked_tab = bake_shared_origin_tab(self.bvh.tri_tab, origin)
+
     def set_mode(self, mode: RendererType) -> None:
-        """Switch renderer mode and restart accumulation."""
+        """Switch renderer mode and restart accumulation (the baked table
+        stays: the camera did not move)."""
         mode = RendererType(mode)
         if mode == self.mode:
             return
@@ -189,6 +225,7 @@ class Renderer:
         device_cam = cameralib.camera_from_lookat(
             cam.from_, cam.at, cam.up, cam.cos_fovy, self.width, self.height, self.device)
         self.state = RenderState(accum=self._zero_accum(), accum_id=0, camera=device_cam)
+        self._rebake(cam.from_)
 
     def render(self, n_frames: int = 1) -> None:
         """Advance progressive accumulation by ``n_frames`` frames."""
@@ -201,6 +238,7 @@ class Renderer:
             self.state, self.gbuffers, self.aux, stats = _frame_impl(
                 self.state, self.device_scene, self.bvh, mode=self.mode, width=self.width,
                 height=self.height, path_depth=self.path_depth, ratio_samples=self.ratio_samples,
+                baked_tab=self._baked_tab,
             )
             frames += 1
             self._pending_stats.append(stats)
@@ -279,3 +317,4 @@ class Renderer:
             camera=Camera(pos=f32("cam_pos"), dir_00=f32("cam_dir_00"),
                           dir_du=f32("cam_dir_du"), dir_dv=f32("cam_dir_dv")),
         )
+        self._rebake(arrs["cam_pos"])  # the resumed camera's primaries

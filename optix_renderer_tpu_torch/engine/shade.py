@@ -20,6 +20,7 @@ import torch
 
 from ..accel import cluster_trace
 from ..accel.brute_trace import moller_trumbore
+from ..accel.build import BRUTE_MAX_TRIS
 from ..accel.traverse import _INF, trace_closest, trace_closest_winners, zero_trace_stats
 from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
@@ -143,7 +144,7 @@ def build_surface_interaction_fused(ds: DeviceScene, rays: Ray, cid: torch.Tenso
 
 
 def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | None = None,
-                     coherent: bool = True):
+                     coherent: bool = True, baked_tab=None):
     """Trace + shade in one step.  Returns (SurfaceInteraction, trace stats).
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
@@ -155,11 +156,18 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
     (primary rays True, bounce rays False); the closest hit is the same
     either way.  The tier decides the shading: the brute tier's Hit reads
     the packed rows, the cluster tier's winners their B5 columns.
+
+    ``baked_tab`` (cluster tier, ``accel.cluster.BakedTable``): the rays
+    share its origin and take the baked walk; B5 and the shading still read
+    the unbaked rows.
     """
+    if baked_tab is not None and not bvh.clustered:
+        raise ValueError(f"baked tables belong to the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
     if not bvh.clustered:
         t_max = _INF if active is None else torch.where(active, _INF, 0.0)
         hit = trace_closest(bvh, rays, t_max=t_max, coherent=coherent)
         return build_surface_interaction(ds, rays, hit), zero_trace_stats()
-    key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent)
+    key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent,
+                                                    baked_tab=baked_tab)
     cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)
     return build_surface_interaction_fused(ds, rays, cid, cols), stats

@@ -14,9 +14,10 @@ frame the script times ``--frames`` frames on the host clock (each ends
 in ``torch.cuda.synchronize()``), then renders as many again under
 ``torch.profiler``, timing those on the host clock too.  The stages:
 
-* ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_walk``,
-  ``B4_walk`` (walk form), ``B5``: the hand-written kernels, found by
-  their names in the device trace;
+* ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_baked``
+  (the baked walk of the primaries), ``B3_walk``, ``B4_walk`` (walk form),
+  ``B5``: the hand-written kernels, found by their names in the device
+  trace (the first stage whose name matches);
 * ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
 * ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
@@ -68,10 +69,11 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
 STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade")  # record_function ranges
-# the hand-written kernels' names in csrc/brute_trace.cu and csrc/cluster_trace.cu
+# the hand-written kernels' names in csrc/brute_trace.cu and csrc/cluster_trace.cu, the first match
+# decides (the baked walk is closest_walk_kernel over BakedTri rows)
 KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
-                 "B4": "any_cluster_kernel", "B3_walk": "closest_walk_kernel", "B4_walk": "any_walk_kernel",
-                 "B5": "winner_attr_kernel"}
+                 "B4": "any_cluster_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
+                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel"}
 TOP_KERNELS = 10
 
 
@@ -184,10 +186,10 @@ def device_breakdown(events, frames: int) -> dict:
             stages[e.name]["calls_per_frame"] += 1 / frames
     owner: list = [None] * len(kernels)
     for i, e in enumerate(kernels):
-        for label, kname in KERNEL_STAGES.items():
-            if kname in e.name:
-                owner[i] = label
-                stages[label]["calls_per_frame"] += 1 / frames
+        label = next((label for label, kname in KERNEL_STAGES.items() if kname in e.name), None)
+        if label is not None:
+            owner[i] = label
+            stages[label]["calls_per_frame"] += 1 / frames
     starts = [e.time_range.start for e in kernels]
     for span in spans:
         i = bisect.bisect_left(starts, span.time_range.start)

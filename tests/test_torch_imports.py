@@ -4,7 +4,10 @@ A fresh interpreter imports every module of ``optix_renderer_tpu_torch``,
 renders one 16^2 PATH frame and one 16^2 RATIO frame on the CPU, and one
 MASK frame of a grid-60 terrain (above 4096 triangles: the cluster tier),
 traces 64 incoherent rays per lane there (on CPU tensors that is the list
-path with the plain kernels: no kernel is launched), and must have loaded neither ``jax`` nor any module of the JAX package
+path with the plain kernels: no kernel is launched), traces the frame's
+primaries through the plain baked walk with the shared-origin table of the
+camera, runs the CLI with the camera and output flags, and must have
+loaded neither ``jax`` nor any module of the JAX package
 ``optix_renderer_tpu``.
 Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
 ``--device cuda`` must fail with a clear message rather than render on
@@ -38,7 +41,8 @@ assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0, i
 r = Renderer(scene, width=16, height=16, mode=RendererType.RATIO, device="cpu")
 r.render(1)
 assert np.isfinite(r.image()).all() and float(r.aux["sto_no_vis"].max()) > 0
-terrain = parse_scene(write_terrain_scene(tempfile.mkdtemp(), grid=60, width=16, height=16))
+TERRAIN = write_terrain_scene(tempfile.mkdtemp(), grid=60, width=16, height=16)
+terrain = parse_scene(TERRAIN)
 r = Renderer(terrain, width=16, height=16, mode=RendererType.MASK, device="cpu")
 assert r.bvh.num_tris > 4096
 r.render(1)
@@ -54,6 +58,19 @@ d = torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=-1)
 key, cid, t_b, stats = traverse.trace_closest_winners(r.bvh, Ray(origin=o, direction=d), coherent=False)
 occ, _ = traverse.trace_any_with_stats(r.bvh, Ray(origin=o, direction=d), t_max=1e4, refine=True, coherent=False)
 assert (occ == (cid >= 0)).all() and 0 < int(occ.sum()) < 64, int(occ.sum())
+from optix_renderer_tpu_torch.accel import cluster
+from optix_renderer_tpu_torch.engine import cli
+from optix_renderer_tpu_torch.engine.renderer import pixel_order
+from optix_renderer_tpu_torch.utils.bench_rays import first_frame_primaries
+prim = first_frame_primaries(r, pixel_order(16, 16, "cpu"))
+baked = cluster.bake_shared_origin_tab(r.bvh.tri_tab, terrain.cameras[0].from_)
+key_b, cid_b, _t, _s = traverse.trace_closest_winners(r.bvh, prim, baked_tab=baked)
+key_u, cid_u, _t, _s = traverse.trace_closest_winners(r.bvh, prim)
+assert (cid_b >= 0).any() and ((cid_b == cid_u).float().mean() >= 0.99), (cid_b == cid_u).float().mean()
+out = tempfile.mkdtemp()
+assert cli.main(["--scene", TERRAIN, "--renderer", "normals",
+                 "--res", "8", "--cam-from", "1", "2", "3", "--save-gbuffers", "--save-exr", "--profile", out + "/p",
+                 "--out", out, "--cpu"]) == 0
 assert not any(cluster_trace.LAUNCHES.values()), cluster_trace.LAUNCHES
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 ref = sorted(m for m in sys.modules if m == "optix_renderer_tpu" or m.startswith("optix_renderer_tpu."))

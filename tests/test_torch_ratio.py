@@ -216,7 +216,8 @@ def _cli(tmp_path, *args):
 
 def test_cli_ratio_denoise_writes_outputs(tmp_path):
     scene = os.path.join(REPO, "scenes", "cornell3", "scene.json")
-    out_dir = _cli(tmp_path, "--scene", scene, "--renderer", "ratio", "--spp", "2", "--denoise-ratio")
+    # ratio_final.npy only under --save-npy, as the JAX CLI (tests/test_torch_cli.py holds the file sets)
+    out_dir = _cli(tmp_path, "--scene", scene, "--renderer", "ratio", "--spp", "2", "--denoise-ratio", "--save-npy")
     for name in ("ratio", "ltc", "sto_direct", "sto_no_vis", "ratio_final"):
         assert (out_dir / f"{name}.png").exists(), name
     final = np.load(out_dir / "ratio_final.npy")
