@@ -31,11 +31,15 @@ raises and exits non-zero):
    terrain at grid 46 (brute tier) and at grid 47 (4,244 triangles,
    cluster tier), same camera, ms/frame on the host clock and the
    hand-written trace kernels' device time per frame from a profiled run
-   of the same frames; B6 (LTC) on the operands of an LTC frame
-   at 1024^2 on Cornell (2 triangle lights) and on the three-light Cornell
-   (6), and on 1M seeded random operands with 7 lights, so that every clip
-   case occurs (tolerance of tests/unit/test_ltc_pallas.py, and at least
-   99.99 % of rays bit-equal); then, on the 1M-triangle terrain (BASELINE
+   of the same frames; B6 (LTC, from the hit: frame, LUT, matrices and
+   the light loop in one launch) on the primary hits of an LTC frame at
+   1024^2 on Cornell (2 triangle lights) and on the three-light Cornell
+   (6), and on 1M seeded random hits with 7 lights and the edge lanes of
+   ``bench_rays.random_ltc_hits`` (singular basis, head-on and
+   below-horizon wo, alpha 0.01 and 1, theta near pi/2, lights facing
+   away), so that every clip case occurs, against ``ltc_direct_plain``
+   (tolerance of tests/unit/test_ltc_pallas.py, and at least 99.99 % of
+   rays bit-equal); then, on the 1M-triangle terrain (BASELINE
    config 5), the list form of B3 on 1024^2 primaries with tile lists and
    on 1M cosine bounce rays from their hits with corridor-sorted per-lane
    lists, the list form of B4 on 1M NEE shadow rays, B5 on the primaries'
@@ -74,7 +78,9 @@ raises and exits non-zero):
    lanes (t_max > 0) in each B1 and B2 launch of the last frame;
 6. main path LTC_BASELINE: Cornell at 1024^2, 1 warm-up frame, then 16
    single frames, each after ``set_camera`` (a deterministic mode renders
-   one frame per accumulation);
+   one frame per accumulation); in one more frame, profiled, the LTC term
+   must run B6 alone (no setup op), and the state the frame started from
+   must be left as it was;
 7. main path RATIO: the three-light Cornell at 1024^2 with 4 shadow
    samples per pixel, 2 warm-up frames under sync debugging, 16 timed
    frames, then denoise x2 and ratio-combine, checked for the invariants
@@ -175,7 +181,7 @@ BAKED_AGREE_MIN, BAKED_RTOL, BAKED_ATOL = 0.999, 1e-4, 1e-3
 TERRAIN_MOVE = (60.0, 40.0, 80.0)
 CLI_RES, CLI_SPP, CLI_CAM_FROM = 256, 2, (200.0, 320.0, -400.0)
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
-B6_OPS = 572  # f32 adds/multiplies, divisions and square roots of one ray-light pair (csrc/ltc.cu)
+B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -366,12 +372,13 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
     return out
 
 
-def _check_ltc(torch, lk, ops, label: str) -> float:
-    """B6 against its plain version, with the tolerance of
+def _check_ltc(torch, lk, args, label: str) -> float:
+    """B6 against its plain version on the inputs ``args`` (origin, p,
+    n_geom, alpha, diffuse, lights), with the tolerance of
     tests/unit/test_ltc_pallas.py:97-102 (a vertex z within an ulp of the
     horizon may take another clip case); returns the max abs error."""
-    out_k = lk.ltc_integrate_cuda(*ops)
-    out_p = lk.ltc_integrate_plain(*ops)
+    out_k = lk.ltc_direct_cuda(*args)
+    out_p = lk.ltc_direct_plain(*args)
     torch.cuda.synchronize()
     fin_k, fin_p = torch.isfinite(out_k), torch.isfinite(out_p)
     _require(bool((fin_k == fin_p).all()), f"B6 {label}: the kernel and the plain version differ in which "
@@ -388,47 +395,10 @@ def _check_ltc(torch, lk, ops, label: str) -> float:
              f"max abs {err:.3g} (< 5e-2)")
     _require(bit_equal >= LTC_BIT_EQUAL_MIN,
              f"B6 {label}: bit-equal on {bit_equal:.7f} of rays (< {LTC_BIT_EQUAL_MIN})")
-    print(f"  B6 {label}: {ops[0].shape[0]} rays x {ops[5].shape[0]} lights, bit-equal rays {bit_equal:.7f}, "
+    print(f"  B6 {label}: {args[0].shape[0]} rays x {args[5].shape[0]} lights, bit-equal rays {bit_equal:.7f}, "
           f"values above rel 1e-3 {frac:.3g}, p99 rel {p99:.3g}, max |err| {err:.3g}, "
           f"non-finite {int((~fin_p).sum().item())}, mean {p.mean().item():.5f}", flush=True)
     return err
-
-
-def _frame_ltc_operands(torch, r, first_frame_primaries, trace_closest_si, ltd, ltc):
-    """B6's operands in the first LTC frame of renderer ``r`` (the path of
-    render_tile: jittered primary rays, B1, shading, ltc_inputs)."""
-    rays = first_frame_primaries(r, torch.arange(r.width * r.height, dtype=torch.int64, device=r.device))
-    si, _ = trace_closest_si(r.device_scene, r.bvh, rays)
-    _, args = ltd.ltc_inputs(r.device_scene, si, *ltd.shading_frame(rays, si))
-    return ltc.kernel_operands(*args)
-
-
-def _random_ltc_operands(torch, cm, ltc, n: int, n_lights: int, device):
-    """The seeded random operands of tests/unit/test_ltc_pallas.py:26-50,
-    built on the card by the port's own frame functions."""
-    import numpy as np
-
-    rng = np.random.default_rng(SEED)
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
-    p = rng.normal(size=(n, 3)) * 2.0
-    nrm = rng.normal(size=(n, 3))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    wo = rng.normal(size=(n, 3))
-    wo /= np.linalg.norm(wo, axis=1, keepdims=True)
-    diffuse = rng.uniform(0, 1, size=(n, 3))
-    alpha = rng.uniform(0.01, 1, size=(n,))
-    lv1 = rng.normal(size=(n_lights, 3)) * 3 + np.array([0, 4, 0])
-    lv2 = lv1 + rng.normal(size=(n_lights, 3))
-    lv3 = lv1 + rng.normal(size=(n_lights, 3))
-    lnorm = np.cross(lv2 - lv1, lv3 - lv1)
-    lnorm /= np.linalg.norm(lnorm, axis=1, keepdims=True)
-    lemit = rng.uniform(0, 5, size=(n_lights, 3))
-    to_local, _ = cm.orthonormal_basis(f32(nrm))
-    wo_local = cm.normalize(cm.apply_mat(to_local, f32(wo)), eps=1e-30)
-    mat, amp = ltc.fetch_ltc_mat(f32(alpha), cm.spherical_theta(wo_local))
-    return ltc.kernel_operands(f32(p), f32(diffuse), to_local, ltc.iso_frame_from_wo_local(wo_local),
-                               cm.matrix_inverse_3x3(mat), amp, f32(lv1), f32(lv2), f32(lv3), f32(lnorm),
-                               f32(lemit))
 
 
 def _no_implicit_syncs(torch, fn) -> list:
@@ -714,15 +684,17 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine import RendererType
     from optix_renderer_tpu_torch.core.types import Ray
     from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
-    from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused, trace_closest_si
+    from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused
     from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
     from optix_renderer_tpu_torch.integrators.path import RAY_EPS
     from optix_renderer_tpu_torch.scene import SceneCamera, parse_scene, write_cornell_scene, write_terrain_scene
-    from optix_renderer_tpu_torch.shading import bsdf, ltc
+    from optix_renderer_tpu_torch.shading import bsdf
     from optix_renderer_tpu_torch.shading import ltc_kernel as lk
     from optix_renderer_tpu_torch.utils import cuda_build
-    from optix_renderer_tpu_torch.utils.bench_rays import bounce_like_rays, first_frame_primaries
+    from optix_renderer_tpu_torch.utils.bench_rays import (bounce_like_rays, first_frame_primaries, ltc_frame_inputs,
+                                                           random_ltc_inputs)
+    from optix_renderer_tpu_torch.utils.profile_frames import device_breakdown, labeled
 
     def reset_counts():
         bt.reset_launch_counts()
@@ -805,27 +777,28 @@ def main() -> int:
           f"B1 primary 1024^2 {ms_c:.4f} ms vs plain {plain_c:.4f} ms; "
           f"B1 bounce 1M {ms_cb:.4f} ms vs plain {plain_cb:.4f} ms; "
           f"B2 shadow 1M {ms_a:.4f} ms vs plain {plain_a:.4f} ms", flush=True)
-    frame_ops = lambda rend: _frame_ltc_operands(  # noqa: E731
-        torch, rend, first_frame_primaries, trace_closest_si, ltd, ltc)
-    ops_l2, ops_l6 = frame_ops(rl), frame_ops(rr)
-    ops_rand = _random_ltc_operands(torch, cm, ltc, LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, dev)
-    err_l = max(_check_ltc(torch, lk, ops_l2, "Cornell LTC frame 1024^2"),
-                _check_ltc(torch, lk, ops_l6, "Cornell-3 LTC frame 1024^2"),
-                _check_ltc(torch, lk, ops_rand, "random 1M"))
-    ltc_times = {}
-    for label, ops in (("L=2", ops_l2), ("L=6", ops_l6), ("random L=7", ops_rand)):
-        ltc_times[label] = _in_turns(torch, lambda: lk.ltc_integrate_plain(*ops),
-                                     lambda: lk.ltc_integrate_cuda(*ops), 3, 20)
-    del ops_l6, ops_rand
+    ltc_l2, ltc_l6 = ltc_frame_inputs(rl), ltc_frame_inputs(rr)
+    ltc_rand = random_ltc_inputs(LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, SEED, dev)
+    err_l = max(_check_ltc(torch, lk, ltc_l2, "Cornell LTC frame 1024^2"),
+                _check_ltc(torch, lk, ltc_l6, "Cornell-3 LTC frame 1024^2"),
+                _check_ltc(torch, lk, ltc_rand, "random 1M"))
+    ltc_times, ltc_bounds, ltc_ops = {}, {}, {}
+    for label, args in (("L=2", ltc_l2), ("L=6", ltc_l6), ("random L=7", ltc_rand)):
+        ltc_times[label] = _in_turns(torch, lambda: lk.ltc_direct_plain(*args),
+                                     lambda: lk.ltc_direct_cuda(*args), 3, 20)
+        # 13 floats in and 3 out a ray, each light's row and the LUT once; the f32 operations these hits need
+        n_r, n_lt = args[0].shape[0], args[5].shape[0]
+        ltc_ops[label] = lk.ltc_direct_ops(*args)
+        ltc_bounds[label] = _bound(n_r * 64 + n_lt * 64 + B6_LUT_BYTES, ltc_ops[label])
+    del ltc_l6, ltc_rand
     print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain): "
-          + "; ".join(f"B6 1024^2 {k} {v[0]:.4f} ms vs plain {v[1]:.4f} ms" for k, v in ltc_times.items()),
-          flush=True)
+          + "; ".join(f"B6 {k} {v[0]:.4f} ms vs plain {v[1]:.4f} ms (bound {ltc_bounds[k][0]:.4f} ms, "
+                      f"{ltc_bounds[k][1]}; {ltc_ops[k]} operations)" for k, v in ltc_times.items()), flush=True)
     # bounds: each input byte read once, each output byte written once
     rows = tab.shape[0]
     bound_c = _bound(n_px * (28 + 16) + rows * 40, n_px * rows * MT_OPS)
     bound_a = _bound(BOUNCE_RAYS * (24 + 4 + 1) + rows * 40, _any_tests(bt, tab, bo, bd, btm_a) * MT_OPS)
-    n_l2, lights_l2 = ops_l2[0].shape[0], ops_l2[5].shape[0]
-    bound_l = _bound(n_l2 * 112 + lights_l2 * 64, n_l2 * lights_l2 * B6_OPS)
+    bound_l = ltc_bounds["L=2"]
     print(f"  bounds: B1 primary {bound_c[0]:.4f} ms ({bound_c[1]}), B2 shadow {bound_a[0]:.4f} ms ({bound_a[1]}), "
           f"B6 L=2 {bound_l[0]:.4f} ms ({bound_l[1]})", flush=True)
 
@@ -1144,10 +1117,33 @@ def main() -> int:
     img = rl.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"LTC_BASELINE image: shape {img.shape}, mean {img.mean()}")
+    # the LTC term of a frame is one launch of B6 and nothing else: no setup op runs on the card
+    # (one more profiled frame, the integrator in a profiler range as profile_frames puts it); the
+    # frame leaves the state it started from as it was (a pure function of the state, as in JAX)
+    rl.set_camera(cornell.cameras[0])
+    state0 = rl.state
+    accum0 = state0.accum.clone()
+    ltc_direct = ltd.ltc_direct
+    ltd.ltc_direct = labeled(ltc_direct, "ltc")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            rl.render(1)
+            torch.cuda.synchronize()
+    finally:
+        ltd.ltc_direct = ltc_direct
+    _require(rl.state.accum is not state0.accum and bool(torch.equal(state0.accum, accum0))
+             and state0.accum_id == 0 and rl.state.accum_id == 1, "the LTC frame changed the state it started from")
+    ltc_stages = device_breakdown(prof.events(), 1)["stages"]
+    _require(ltc_stages["ltc"]["calls_per_frame"] == 1 and ltc_stages["B6"]["calls_per_frame"] == 1
+             and ltc_stages["ltc"]["device_ms_per_frame"] == 0.0,
+             f"the LTC term of a frame: {ltc_stages['ltc']} outside B6 ({ltc_stages['B6']}), expected B6 alone")
     print(f"[6 main path] LTC_BASELINE Cornell {MAIN_RES}^2, {TIMED_FRAMES} single frames after 1 warm-up: "
           f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {TIMED_FRAMES * n_px / secs / 1e6:.3f} Mrays/s "
-          f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}, on {smi}", flush=True)
-    del rl, ops_l2
+          f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}; a profiled frame's LTC term: "
+          f"B6 {ltc_stages['B6']['device_ms_per_frame']:.4f} ms, no other kernel; its input state unchanged, "
+          f"on {smi}", flush=True)
+    del rl, ltc_l2
     phase_done("phase 6")
 
     # ---- 7. main path RATIO at full size, then denoise and combine ---------
@@ -1379,10 +1375,13 @@ def main() -> int:
         {"name": "winner_attrs", "route": "cuda", "source": csrc, "replaces": f"{pc}:1657",
          "launches": launches["winner_attrs"], "max_abs_err": err_b5, "ms": ms_b5, "plain_ms": plain_b5,
          "bound_ms": bound_b5[0], "bound_by": bound_b5[1], "library_ms": lib_b5},
+        # B6: ms, plain_ms and bound_ms at the Cornell LTC frame (L = 2); `by_lights` at every input
         {"name": "ltc", "route": "cuda", "source": "optix_renderer_tpu_torch/csrc/ltc.cu",
          "replaces": "optix_renderer_tpu/shading/ltc_pallas.py:154",
          "launches": launches["ltc"], "max_abs_err": err_l, "ms": ltc_times["L=2"][0],
-         "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None},
+         "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None,
+         "by_lights": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": ltc_bounds[k][0],
+                           "bound_by": ltc_bounds[k][1], "ops": ltc_ops[k]} for k, v in ltc_times.items()}},
     ]}
     _require(all(k["launches"] > 0 for k in record["kernels"]), f"a kernel never ran on a main path: {launches}")
     _require(all(math.isfinite(k[f]) for k in record["kernels"]

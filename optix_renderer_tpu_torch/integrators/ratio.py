@@ -40,8 +40,8 @@ from ..core import math as cm
 from ..core import rng as rnglib
 from ..core.types import Ray, SurfaceInteraction
 from ..scene.device import DeviceScene
-from ..shading import material
-from .ltc_direct import ltc_direct, shading_frame
+from ..shading import ltc, material
+from .ltc_direct import ltc_direct
 from .path import RAY_EPS, _clamp_dot, gather_light_attrs, pdf_area_to_solid_angle
 
 
@@ -81,8 +81,8 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
     Returns (accumulated color = the LTC buffer (N, 3), rng, aux buffers
     {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}, trace stats).
     """
-    to_local, wo_local = shading_frame(rays, si)
-    ltc_color = ltc_direct(ds, si, to_local, wo_local)
+    ltc_color = ltc_direct(ds, rays, si)
+    to_local, wo_local = ltc.shading_frame(rays.origin, si.p, si.n_geom)  # the stochastic samples' frame
 
     n = rays.origin.shape[0]
     shadow_origin = si.p + si.n_geom * RAY_EPS

@@ -16,14 +16,16 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 
 * ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_baked``
   (the baked walk of the primaries), ``B3_walk``, ``B4_walk`` (walk form),
-  ``B5``: the hand-written kernels, found by their names in the device
-  trace (the first stage whose name matches);
+  ``B5``, ``B6`` (LTC): the hand-written kernels, found by their names in
+  the device trace (the first stage whose name matches);
 * ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
 * ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
   a list-form per-lane trace, which rays on the card no longer take);
 * ``fallback_cull``: the checked fallback's single-level re-culls;
 * ``shade``: the fused surface interaction from B5's columns;
+* ``ltc``: the LTC term (``integrators.ltc_direct.ltc_direct``) outside
+  B6, that is its setup: 0 where B6 takes the hits themselves;
 * ``glue``: all other device time (integrator, camera, accumulation).
 
 The PyTorch stages are wrapped in a ``record_function`` range once, at
@@ -68,16 +70,18 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 }
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
-STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade")  # record_function ranges
-# the hand-written kernels' names in csrc/brute_trace.cu and csrc/cluster_trace.cu, the first match
-# decides (the baked walk is closest_walk_kernel over BakedTri rows)
+STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade", "ltc")  # record_function ranges
+# the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu and csrc/ltc.cu, the
+# first match decides (the baked walk is closest_walk_kernel over BakedTri rows)
 KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
                  "B4": "any_cluster_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
-                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel"}
+                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel"}
 TOP_KERNELS = 10
 
 
-def _labeled(fn, label):
+def labeled(fn, label):
+    """``fn`` inside a profiler range named ``label`` (or ``label(kwargs)``)."""
+
     def wrapper(*args, **kwargs):
         name = label(kwargs) if callable(label) else label
         with torch.profiler.record_function(name):
@@ -90,14 +94,16 @@ def _instrument() -> None:
     """Wrap each PyTorch stage's entry point in a named profiler range."""
     from ..accel import cluster
     from ..engine import shade
+    from ..integrators import ltc_direct, ratio
 
     for name in ("ray_t_bounds", "corridor_keys_and_t_bounds"):
-        setattr(cluster, name, _labeled(getattr(cluster, name), "sweep"))
+        setattr(cluster, name, labeled(getattr(cluster, name), "sweep"))
     for name in ("cull_clusters", "cull_clusters_per_lane"):
-        setattr(cluster, name, _labeled(getattr(cluster, name),
+        setattr(cluster, name, labeled(getattr(cluster, name),
                                         lambda kw: "fallback_cull" if kw.get("single_level") else "cull"))
-    torch.argsort = _labeled(torch.argsort, "sort")
-    shade.build_surface_interaction_fused = _labeled(shade.build_surface_interaction_fused, "shade")
+    torch.argsort = labeled(torch.argsort, "sort")
+    shade.build_surface_interaction_fused = labeled(shade.build_surface_interaction_fused, "shade")
+    ltc_direct.ltc_direct = ratio.ltc_direct = labeled(ltc_direct.ltc_direct, "ltc")  # ratio holds its own name
 
 
 def _render_frames(r, n: int, deterministic: bool) -> None:

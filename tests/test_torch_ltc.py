@@ -8,7 +8,8 @@ Tolerances:
 - ``fetch_ltc_mat``, ``matrix_inverse_3x3``, ``spherical_theta`` and
   ``iso_frame_from_wo_local``: rtol 1e-6; ``integrate_edge_vec`` rtol 1e-6
   and atol 1e-6;
-- ``ltc_integrate_plain`` against the JAX pipeline and the Pallas kernel
+- ``ltc_integrate_plain`` (operands from ``fused_frames`` and
+  ``pack_lights``) against the JAX pipeline and the Pallas kernel
   (interpret mode): the tolerance of ``tests/unit/test_ltc_pallas.py``
   (under 1 % of lanes above relative error 1e-3, 99th percentile below
   1e-3, max abs error below 5e-2), because a transformed vertex whose z
@@ -127,9 +128,10 @@ def test_integrate_edge_vec_matches_jax():
 
 
 def _port_operands(inputs):
-    (p, diffuse, to_local, iso, ltc_mat_inv, amplitude, lv1, lv2, lv3, lnorm, lemit) = inputs
-    return ltc.kernel_operands(*(_t(a) for a in (p, diffuse, to_local, iso, ltc_mat_inv, amplitude,
-                                                 lv1, lv2, lv3, lnorm, lemit)))
+    """The operands of ltc_integrate_plain from the JAX test's setup outputs."""
+    (p, diffuse, to_local, iso, ltc_mat_inv, amplitude, lv1, lv2, lv3, lnorm, lemit) = (_t(a) for a in inputs)
+    mat_a, mat_b = ltc.fused_frames(iso, to_local, ltc_mat_inv)
+    return p, diffuse, mat_a, mat_b, amplitude, ltc_kernel.pack_lights(lv1, lv2, lv3, lnorm, lemit)
 
 
 @pytest.mark.parametrize("seed,L", [(0, 1), (1, 3), (2, 7)])
@@ -139,9 +141,6 @@ def test_plain_matches_jax_pipeline(seed, L):
     got = ltc_kernel.ltc_integrate_plain(*_port_operands(inputs))
     assert got.shape == want.shape and got.dtype == torch.float32
     _assert_kernel_tolerance(got.numpy(), want)
-    # the CPU route of the dispatcher is the plain version
-    routed = ltc.integrate_over_polygon(*(_t(a) for a in inputs))
-    np.testing.assert_array_equal(routed.numpy(), got.numpy())
 
 
 def test_plain_matches_pallas_kernel_interpret():
@@ -164,20 +163,21 @@ def test_no_lights_or_rays_give_zeros():
 
 def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
     from optix_renderer_tpu_torch.utils import cuda_build
+    from optix_renderer_tpu_torch.utils.bench_rays import random_ltc_inputs
 
     def no_build(*_a, **_k):
         raise AssertionError("the wrapper must not build for a CPU tensor")
 
     monkeypatch.setattr(cuda_build, "build_library", no_build)
     monkeypatch.setattr(cuda_build, "load_library", no_build)
-    ops = _port_operands(_random_inputs(3, R=64, L=2))
+    args = random_ltc_inputs(64, 2, 3, "cpu")
     before = dict(ltc_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        ltc_kernel.ltc_integrate_cuda(*ops)
+        ltc_kernel.ltc_direct_cuda(*args)
     with pytest.raises(ValueError, match=r"\(L, 16\)"):
-        ltc_kernel.ltc_integrate_cuda(*ops[:5], ops[5][:, :12])
-    with pytest.raises(ValueError, match="mat_b"):
-        ltc_kernel.ltc_integrate_cuda(ops[0], ops[1], ops[2], ops[3][:5], ops[4], ops[5])
+        ltc_kernel.ltc_direct_cuda(*args[:5], args[5][:, :12])
+    with pytest.raises(ValueError, match="n_geom"):
+        ltc_kernel.ltc_direct_cuda(args[0], args[1], args[2][:5], *args[3:])
     assert ltc_kernel.LAUNCHES == before
     ltc_kernel.reset_launch_counts()
     assert ltc_kernel.LAUNCHES == {"ltc": 0}

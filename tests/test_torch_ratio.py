@@ -160,7 +160,7 @@ def test_ltc_direct_matches_jax(scene):
     tsi = SurfaceInteraction(**{f.name: torch.as_tensor(np.array(getattr(si, f.name)))
                                 for f in dataclasses.fields(si)})
     trays = Ray(torch.as_tensor(np.array(rays.origin)), torch.as_tensor(np.array(rays.direction)))
-    ports = {"ltc_direct": lambda: tltc_direct.ltc_direct(tds, tsi, *tltc_direct.shading_frame(trays, tsi)),
+    ports = {"ltc_direct": lambda: tltc_direct.ltc_direct(tds, trays, tsi),
              "ltc_baseline_color": lambda: tltc_direct.ltc_baseline_color(tds, trays, tsi)}
     for name, port in ports.items():
         want = np.asarray(getattr(jltc_direct, name)(jds, rays, si))
