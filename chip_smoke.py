@@ -98,6 +98,27 @@ raises and exits non-zero):
    --save-checkpoint``; the files must exist, and the checkpoint resumed
    in a Renderer built at camera 0 must rebake its table at the
    checkpoint's origin and render through the baked walk.
+12. the multi-device split (``parallel.sharding``) over two shares of the
+   one card: Cornell PATH depth 4 at 1024^2 through the row split, 4 frames
+   bit-equal to 4 single-device frames with the same honest ray count;
+   the spp split's 2 frames in one step bit-equal to 2 sequential frames;
+   config 5's terrain NORMALS at 1024^2 through the row split, every tile's
+   primaries through the baked walk (one launch a tile), bit-equal to the
+   single frame; no implicit sync in a split frame; ms/frame of split and
+   single;
+13. the live viewer (``engine.serve.ViewerServer`` on port 0) over config
+   5b, terrain PATH depth 4 at 1024^2: three rounds of 10 /status requests
+   and an orbit while frames are in flight, each round from a client
+   process of its own (as a browser), every answer under a third of
+   the median committed frame; after each orbit /status reads accum_id 0,
+   the next committed frame is accum_id 1, the baked table's origin is the
+   new camera's and a frame in flight was dropped; NORMALS and
+   LTC_BASELINE stop at one frame, LTC_BASELINE launches B6; back to PATH;
+   a screenshot, a recorded camera, /frame.png's latency, a finite image;
+14. the BVH cache on the terrain: a cold build and a warm load into a
+   temporary directory, every tensor equal, their host seconds; the CLI
+   as a subprocess with ``--bvh-cache`` twice, the second run loading the
+   entry the first wrote.
 
 On the cluster tier every frame's primary trace is one launch of the baked
 walk (``cluster_closest_walk_baked``); the unbaked walk
@@ -105,7 +126,8 @@ walk (``cluster_closest_walk_baked``); the unbaked walk
 
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
-those six reads.  Each kernel's ``bound_ms`` is the larger of the bytes it
+those reads: phases 5-10, the row split's two paths and the spp split of
+phase 12, and the viewer of phase 13.  Each kernel's ``bound_ms`` is the larger of the bytes it
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), counted from this run's inputs (B2: every table
 row for a live ray that is not occluded, one test for an occluded one);
@@ -124,9 +146,11 @@ and checked in phase 3.  The last three lines are the kernels' JSON record, the 
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -180,6 +204,10 @@ BAKED_AGREE_MIN, BAKED_RTOL, BAKED_ATOL = 0.999, 1e-4, 1e-3
 # the second camera origin of the baked walk's check, and the CLI's moved camera of phase 11
 TERRAIN_MOVE = (60.0, 40.0, 80.0)
 CLI_RES, CLI_SPP, CLI_CAM_FROM = 256, 2, (200.0, 320.0, -400.0)
+# phases 12-14: the split's frames (two shares of the one card), the viewer's rounds of /status requests and an
+# orbit, and a deadline for each of its waits
+SPLIT_FRAMES, SPLIT_DEVICES, VIEWER_ROUNDS, VIEWER_STATUS_REQUESTS, VIEWER_DEADLINE_S = 4, 2, 3, 10, 120.0
+CACHE_CLI_RES = 256
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
 
@@ -658,6 +686,43 @@ def _golden_rmse(got, want) -> float:
 
     scale = max(float(np.abs(want).mean()), 1e-6)
     return float(np.sqrt(((got - want) ** 2).mean())) / scale
+
+
+def _http(port: int, path: str, body: dict | None = None):
+    """(answer, seconds) of one request to the viewer on localhost."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST") if body is not None else url
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as f:
+        data = f.read()
+    return (data if path == "/frame.png" else json.loads(data)), time.perf_counter() - t0
+
+
+# one round of phase 13 from a process of its own, as a browser would send it: /status n times, an orbit,
+# /status once more; prints the answers and their seconds as one JSON line
+_VIEWER_CLIENT = r"""
+import json, sys, time, urllib.request
+port, n = int(sys.argv[1]), int(sys.argv[2])
+def req(path, body=None):
+    url = f"http://127.0.0.1:{port}{path}"
+    r = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST") if body is not None else url
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(r, timeout=120) as f:
+        out = json.loads(f.read())
+    return out, time.perf_counter() - t0
+lat = [req("/status")[1] for _ in range(n)]
+orbit, orbit_s = req("/control", {"op": "orbit", "daz": 0.15, "del": 0.05})
+print(json.dumps({"status_s": lat, "orbit": orbit, "orbit_s": orbit_s, "after": req("/status")[0]}))
+"""
+
+
+def _wait_for(cond, what: str, timeout: float = VIEWER_DEADLINE_S) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        _require(time.monotonic() - t0 < timeout, f"{what}: not within {timeout} s")
+        time.sleep(0.005)
 
 
 def main() -> int:
@@ -1316,8 +1381,226 @@ def main() -> int:
     del rc
     phase_done("phase 11")
 
+    from optix_renderer_tpu_torch.accel.build import build_bvh_cached
+    from optix_renderer_tpu_torch.engine.renderer import bvh_inputs
+    from optix_renderer_tpu_torch.engine.serve import ViewerServer
+    from optix_renderer_tpu_torch.parallel import sharding
+    from optix_renderer_tpu_torch.scene.device import build_device_scene
+
+    with tempfile.TemporaryDirectory() as surf:  # the terrain's files for the viewer's record op and the CLI
+        # ---- 12. the multi-device split on the card: SPLIT_DEVICES shares of the one card ----------
+        pair = [dev] * SPLIT_DEVICES
+        one, split = (Renderer(cornell, width=MAIN_RES, height=MAIN_RES, mode=RendererType.PATH,
+                               path_depth=MAIN_DEPTH, device=dev) for _ in range(2))
+        one.render(1)  # warm-up, the same frame on both sides
+        syncs = _no_implicit_syncs(torch, lambda: sharding.render_rows(split, pair, 1))
+        _require(not syncs, f"a row-split PATH frame synchronizes with the card at {syncs}")
+        m0 = {"one": dict(one.metrics), "split": dict(split.metrics)}
+        reset_counts()
+        one.render(SPLIT_FRAMES)
+        reset_counts()
+        sharding.render_rows(split, pair, SPLIT_FRAMES)
+        launches_split = launch_counts()
+        m1 = {"one": dict(one.metrics), "split": dict(split.metrics)}
+        want = expected(brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
+                        brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH)
+        _require(launches_split == want, f"row-split PATH launch counts {launches_split}, expected {want}")
+        _require(split.state.accum_id == one.state.accum_id == SPLIT_FRAMES + 1
+                 and bool(torch.equal(split.state.accum, one.state.accum)),
+                 "the row-split PATH frames differ from the single-device frames")
+        _require(m1["split"]["rays_traced"] == m1["one"]["rays_traced"]
+                 and m1["split"]["alive_per_bounce"] == m1["one"]["alive_per_bounce"],
+                 f"honest rays: split {m1['split']['rays_traced']}, single {m1['one']['rays_traced']}")
+        ms_path = {k: (m1[k]["seconds"] - m0[k]["seconds"]) / SPLIT_FRAMES * 1e3 for k in m1}
+        del one, split
+        # the spp split: SPLIT_DEVICES frames in one step, against as many sequential frames
+        rs = Renderer(cornell, width=MAIN_RES, height=MAIN_RES, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
+                      device=dev)
+        step = sharding.make_spp_sharded_frame_fn(pair, RendererType.PATH, MAIN_RES, MAIN_RES, path_depth=MAIN_DEPTH)
+        reps = [sharding.replicate(x, pair) for x in (rs.device_scene, rs.bvh, rs.baked_tab)]
+        out = []
+        reset_counts()
+        syncs_spp = _no_implicit_syncs(torch, lambda: out.append(step(rs.state, *reps)))
+        torch.cuda.synchronize(dev)
+        launches_spp = launch_counts()
+        _require(not syncs_spp, f"the spp split synchronizes with the card at {syncs_spp}")
+        rs.render(SPLIT_DEVICES)
+        _require(out[0][0].accum_id == SPLIT_DEVICES and bool(torch.equal(out[0][0].accum, rs.state.accum)),
+                 "the spp split differs from the sequential frames")
+        del rs, out, reps
+        # config 5's terrain NORMALS through the row split: every tile's primaries through the baked walk
+        terrain_json = write_terrain_scene(surf, grid=TERRAIN_GRID, width=TERRAIN_RES, height=TERRAIN_RES)
+        rv = Renderer(terrain, width=TERRAIN_RES, height=TERRAIN_RES, mode=RendererType.NORMALS,
+                      path_depth=MAIN_DEPTH, device=dev)
+        secs_t = {"one": [], "split": []}
+        for _ in range(SPLIT_FRAMES):
+            rv.set_camera(terrain.cameras[0])  # a deterministic mode renders one frame per accumulation
+            s0 = rv.metrics["seconds"]
+            rv.render(1)
+            secs_t["one"].append(rv.metrics["seconds"] - s0)
+        single_t = rv.state.accum
+        rv.set_camera(terrain.cameras[0])
+        syncs_t = _no_implicit_syncs(torch, lambda: sharding.render_rows(rv, pair, 1))
+        _require(not syncs_t, f"a row-split terrain frame synchronizes with the card at {syncs_t}")
+        _require(bool(torch.equal(rv.state.accum, single_t)), "the row-split terrain frame differs from the single")
+        reset_counts()
+        for _ in range(SPLIT_FRAMES):
+            rv.set_camera(terrain.cameras[0])
+            s0 = rv.metrics["seconds"]
+            sharding.render_rows(rv, pair, 1)
+            secs_t["split"].append(rv.metrics["seconds"] - s0)
+            _require(bool(torch.equal(rv.state.accum, single_t)), "a row-split terrain frame differs from the single")
+        launches_split_t = launch_counts()
+        want = expected(cluster_closest_walk_baked=SPLIT_DEVICES * SPLIT_FRAMES,
+                        winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES)
+        _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
+        ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
+        print(f"[12 split] {SPLIT_DEVICES} shares of {dev}: Cornell PATH depth {MAIN_DEPTH} {MAIN_RES}^2, "
+              f"{SPLIT_FRAMES} frames after 1 warm-up, bit-equal to one device with the same honest rays "
+              f"({m1['split']['rays_traced']}): split {ms_path['split']:.3f} ms/frame, single "
+              f"{ms_path['one']:.3f}, launches {launches_split}; spp split of {SPLIT_DEVICES} frames in one step "
+              f"bit-equal to {SPLIT_DEVICES} sequential frames, launches {launches_spp}; config 5 terrain NORMALS "
+              f"{TERRAIN_RES}^2 ({rv.bvh.num_tris} triangles), {SPLIT_FRAMES} split frames bit-equal to the "
+              f"single frame: split {ms_t['split']:.3f} ms/frame, single {ms_t['one']:.3f}, launches "
+              f"{launches_split_t}; implicit syncs in a split frame: {len(syncs)} (PATH), {len(syncs_t)} "
+              f"(terrain), {len(syncs_spp)} (spp); on {smi}", flush=True)
+        phase_done("phase 12")
+
+        # ---- 13. the live viewer on the card: config 5b (terrain PATH depth 4 at 1024^2) --------
+        rv.set_mode(RendererType.PATH)
+        shots = os.path.join(surf, "shots")
+        os.makedirs(shots)
+        server = ViewerServer(rv, scene_path=terrain_json, port=0, out_dir=shots)
+        reset_counts()
+        server.start()
+        try:
+            port = server.port
+            _wait_for(lambda: len(server.commits) >= 2, "the viewer's first two frames")
+            lat_status, lat_orbit, firsts = [], [], []
+            c0, t_rounds = len(server.commits), time.perf_counter()
+            for k in range(VIEWER_ROUNDS):
+                d0 = server.discarded
+                proc = subprocess.run([sys.executable, "-c", _VIEWER_CLIENT, str(port), str(VIEWER_STATUS_REQUESTS)],
+                                      capture_output=True, text=True, timeout=VIEWER_DEADLINE_S)
+                _require(proc.returncode == 0, f"viewer client round {k}: {proc.stderr[-2000:]}")
+                got = json.loads(proc.stdout.strip().splitlines()[-1])
+                lat_status += got["status_s"]
+                lat_orbit.append(got["orbit_s"])
+                ans, st = got["orbit"], got["after"]
+                epoch = ans["epoch"]
+                _require(ans["ok"] and st["epoch"] == epoch and st["accum_id"] == 0,
+                         f"orbit {k}: {ans}, then /status {st}")
+                _wait_for(lambda: any(c[0] == epoch for c in list(server.commits)), f"a frame after orbit {k}")
+                first = next(c for c in list(server.commits) if c[0] == epoch)
+                moved = server.cam.as_scene_camera().from_
+                _require(first[1] == 1, f"orbit {k}: the first committed frame has accum_id {first[1]}, not 1")
+                firsts.append(first[2] * 1e3)  # the bake of the new origin runs on the stream just before it
+                _require(bool(np.array_equal(rv.baked_tab.origin, moved)),
+                         f"orbit {k}: the table's origin {rv.baked_tab.origin} is not the camera's {moved}")
+                _require(server.discarded > d0, f"orbit {k}: no frame in flight was dropped")
+            fps = (len(server.commits) - c0) / (time.perf_counter() - t_rounds)
+            frame_ms = statistics.median(c[2] for c in server.commits) * 1e3
+            worst = max(lat_status + lat_orbit) * 1e3
+            _require(worst < frame_ms / 3, f"a /status or /control answer took {worst:.3f} ms, more than a third "
+                                           f"of the median committed frame ({frame_ms:.3f} ms)")
+            # mode switches: a deterministic mode stops at one frame; LTC_BASELINE runs B6
+            stops = {}
+            for mode in (RendererType.NORMALS, RendererType.LTC_BASELINE, RendererType.PATH):
+                ltc0 = launch_counts()["ltc"]
+                epoch = _http(port, "/control", {"op": "mode", "mode": int(mode)})[0]["epoch"]
+                frames_of = lambda e=epoch: [c for c in list(server.commits) if c[0] == e]  # noqa: E731
+                _wait_for(lambda: len(frames_of()) >= (2 if mode == RendererType.PATH else 1),
+                          f"frames after the switch to {mode.name}")
+                if mode != RendererType.PATH:
+                    time.sleep(0.6)  # two of the idle loop's 0.25 s waits: no further frame may come
+                    stops[mode.name] = len(frames_of())
+                    _require(stops[mode.name] == 1 and _http(port, "/status")[0]["accum_id"] == 1,
+                             f"{mode.name}: {stops[mode.name]} frames committed, expected 1")
+                if mode == RendererType.LTC_BASELINE:
+                    _require(launch_counts()["ltc"] > ltc0, "the viewer's LTC_BASELINE frame did not launch B6")
+            shot = _http(port, "/control", {"op": "screenshot"})[0]
+            with open(shot["path"], "rb") as f:
+                _require(shot["ok"] and f.read(8) == b"\x89PNG\r\n\x1a\n", f"the screenshot {shot}")
+            with open(terrain_json) as f:
+                n_cams = len(json.load(f)["cameras"])
+            _require(_http(port, "/control", {"op": "record"})[0]["ok"], "the record op failed")
+            with open(terrain_json) as f:
+                _require(len(json.load(f)["cameras"]) == n_cams + 1, "record did not append the camera")
+            c1 = len(server.commits)
+            _wait_for(lambda: len(server.commits) > c1, "a frame after the record op")
+            png, png_s = _http(port, "/frame.png")  # a frame not encoded yet: the copy and the encode
+            _require(png[:8] == b"\x89PNG\r\n\x1a\n", "/frame.png is not a PNG")
+        finally:
+            server.shutdown()
+        launches_viewer = launch_counts()
+        _require(server.error is None and not any(t.is_alive() for t in server._threads),
+                 f"the viewer's render loop failed: {server.error!r}")
+        for name in ("cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk", "winner_attrs", "ltc"):
+            _require(launches_viewer[name] > 0, f"the viewer never launched {name}: {launches_viewer}")
+        img = rv.image()
+        _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0,
+                 f"the viewer's final image: mean {img.mean()}")
+        print(f"[13 viewer] config 5b terrain PATH depth {MAIN_DEPTH} {TERRAIN_RES}^2 behind a ViewerServer on port "
+              f"{port}: {fps:.3f} committed frames/s over the {VIEWER_ROUNDS} rounds (each orbit drops the frame in "
+              f"flight), median committed frame {frame_ms:.3f} ms, the first after each orbit (its bake included) "
+              f"{[round(x, 3) for x in firsts]} ms; while frames were in flight, to a client process of its own, "
+              f"/status answered in {statistics.median(lat_status) * 1e3:.3f} ms median, "
+              f"{max(lat_status) * 1e3:.3f} max ({len(lat_status)} requests), orbit in "
+              f"{[round(x * 1e3, 3) for x in lat_orbit]} ms (bound a third of a frame, {frame_ms / 3:.3f} ms); "
+              f"{server.discarded} frames dropped, each orbit's first frame accum_id 1 from a table rebaked at its "
+              f"origin; NORMALS and LTC_BASELINE stopped at {stops} frame(s); /frame.png in {png_s * 1e3:.3f} ms; "
+              f"{len(server.commits)} frames committed, image mean {img.mean():.5f}, launches {launches_viewer}, "
+              f"on {smi}", flush=True)
+        del server, rv
+        phase_done("phase 13")
+
+        # ---- 14. the BVH cache on the terrain: cold build, warm load, and the CLI twice --------------
+        _ds, host = build_device_scene(terrain, dev)
+        tv, bvh_kw = bvh_inputs(host)
+        cache = os.path.join(surf, "bvh_cache")
+        t0 = time.perf_counter()
+        cold = build_bvh_cached(cache, tv, dev, **bvh_kw)
+        torch.cuda.synchronize(dev)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = build_bvh_cached(cache, tv, dev, **bvh_kw)
+        torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
+        entries = os.listdir(cache)
+        _require(len(entries) == 1 and entries[0].startswith("torch-bvh-"), f"cache entries {entries}")
+        for f in dataclasses.fields(cold):
+            _require(bool(torch.equal(getattr(cold, f.name), getattr(warm, f.name))),
+                     f"the warm BVH's {f.name} differs from the cold build's")
+        entry_mb = os.path.getsize(os.path.join(cache, entries[0])) / 2**20
+        del _ds, host, cold, warm
+        cli_cache, runs = os.path.join(surf, "cli_cache"), []
+        for k in range(2):
+            out_k = os.path.join(surf, f"cli{k}")
+            cmd = [sys.executable, "-m", "optix_renderer_tpu_torch.engine.cli", "--scene", terrain_json,
+                   "--renderer", "normals", "--res", str(CACHE_CLI_RES), "--bvh-cache", cli_cache, "--save-npy",
+                   "--out", out_k]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            runs.append(time.perf_counter() - t0)
+            _require(proc.returncode == 0, f"the CLI with --bvh-cache failed ({proc.returncode}): {proc.stderr[-3000:]}")
+            said = [ln for ln in proc.stderr.splitlines() if "bvh cache:" in ln]
+            _require(len(said) == 1 and ("built and wrote" if k == 0 else "loaded") in said[0],
+                     f"CLI run {k} with --bvh-cache said {said}")
+            runs.append(said[0].split("] ", 1)[-1])
+        _require(len(os.listdir(cli_cache)) == 1, f"the CLI's cache holds {os.listdir(cli_cache)}")
+        _require(bool(np.array_equal(np.load(os.path.join(surf, "cli0", "normals.npy")),
+                                     np.load(os.path.join(surf, "cli1", "normals.npy")))),
+                 "the CLI's image from the cached BVH differs from the built one")
+        print(f"[14 BVH cache] terrain ({tv.shape[0]} triangles): cold build {cold_s:.3f} s, warm load "
+              f"{warm_s:.3f} s (host seconds, upload included), one {entry_mb:.1f} MiB entry, every tensor equal; "
+              f"the CLI with --bvh-cache (NORMALS {CACHE_CLI_RES}^2): {runs[0]:.1f} s for the process ({runs[1]}), "
+              f"then {runs[2]:.1f} s ({runs[3]}), the same image", flush=True)
+        del tv, bvh_kw
+        phase_done("phase 14")
+
     launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,
-                                      launches_c5b)) for k in launches_path}
+                                      launches_c5b, launches_split, launches_spp, launches_split_t, launches_viewer))
+                for k in launches_path}
     _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0
              and launches["cluster_closest_walk_baked"] > 0,
              f"the walk form of B3 or B4 or the baked walk never ran on a main path: {launches}")

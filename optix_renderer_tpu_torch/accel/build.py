@@ -14,14 +14,25 @@ to a multiple of 64 rows so that cluster ``c`` is rows ``[64c, 64c+64)``
 (4 KB, contiguous; the JAX package's (C*8, 128) grouped layout exists only
 because Mosaic cannot read at a lane offset), and the fused shading rows
 ``shade_a``/``shade_b`` are stored in sorted order.
+
+``build_bvh_cached`` keeps the host build products in a content-addressed
+``.npz`` cache (JAX build.py:262-321), so a second run of a 1M-triangle
+scene loads its tables instead of sorting and packing them again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import time
 
 import numpy as np
 import torch
+
+from ..utils.log import get_logger
+
+log = get_logger()
 
 BRUTE_MAX_TRIS = 4096  # the dispatch threshold: above it, the cluster tier
 TRI_SUB = 8  # brute-tier table rows are padded to a multiple of this
@@ -127,6 +138,13 @@ def build_bvh(tri_verts: np.ndarray, device, tri_normal: np.ndarray | None = Non
     ``tri_attr`` is the ``pack_attr_tab`` pair in ORIGINAL triangle order;
     the cluster tier (above ``BRUTE_MAX_TRIS``) needs it for its shade rows.
     """
+    return bvh_from_numpy(build_bvh_arrays(tri_verts, tri_normal, tri_mesh, tri_attr), device)
+
+
+def build_bvh_arrays(tri_verts: np.ndarray, tri_normal: np.ndarray | None = None,
+                     tri_mesh: np.ndarray | None = None, tri_attr=None) -> dict:
+    """The host half of ``build_bvh``: its products as numpy arrays, the
+    input of ``bvh_from_numpy``."""
     tri_verts = np.asarray(tri_verts, np.float32)
     T = tri_verts.shape[0]
     if T == 0:
@@ -178,9 +196,56 @@ def build_bvh(tri_verts: np.ndarray, device, tri_normal: np.ndarray | None = Non
         shade_a[T:, 19] = -1.0
         shade_b = np.zeros((Tp, SHADE_B_COLS), np.float32)
         shade_b[:T, 0:6] = uvm_o[order, 0:6]
-    return bvh_from_numpy({"tri_tab": tri_tab, "tri_v0": v0, "tri_e1": e1, "tri_e2": e2, "prim_id": order,
-                           "cluster_min": cmin, "cluster_max": cmax, "shade_a": shade_a, "shade_b": shade_b},
-                          device)
+    return {"tri_tab": tri_tab, "tri_v0": v0, "tri_e1": e1, "tri_e2": e2, "prim_id": order,
+            "cluster_min": cmin, "cluster_max": cmax, "shade_a": shade_a, "shade_b": shade_b}
+
+
+# the port's tables differ from the JAX package's (flat (C*64, 16) table,
+# shade_a/shade_b rows), so its entries have a tag and a file name of their
+# own: a JAX cache entry (bvh-<sha1>.npz) in the same directory is never read
+_CACHE_TAG = b"optix_renderer_tpu_torch-bvh-v1"
+_CACHE_PREFIX = "torch-bvh-"
+
+
+def bvh_cache_key(tri_verts: np.ndarray, tri_normal=None, tri_mesh=None, tri_attr=None) -> str:
+    """sha1 over everything that decides the build's products: the tag, the
+    layout constants and every input array (its dtype and shape too)."""
+    h = hashlib.sha1(_CACHE_TAG)
+    h.update(np.int64([BRUTE_MAX_TRIS, TRI_SUB, CLUSTER_SIZE, SC_GROUP]).tobytes())
+    arrays = [np.asarray(tri_verts, np.float32), tri_normal, tri_mesh]
+    arrays += [None, None] if tri_attr is None else list(tri_attr)
+    for a in arrays:
+        if a is None:
+            h.update(b"none")
+            continue
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def build_bvh_cached(cache_dir: str | None, tri_verts: np.ndarray, device, **kw) -> BVH:
+    """``build_bvh`` through a content-addressed cache in ``cache_dir``
+    (None: just build).  The file holds the host arrays, so one entry
+    serves every device; it is written to a temporary name and renamed,
+    so a reader sees all of it or nothing."""
+    if cache_dir is None:
+        return build_bvh(tri_verts, device, **kw)
+    path = os.path.join(cache_dir, f"{_CACHE_PREFIX}{bvh_cache_key(tri_verts, **kw)}.npz")
+    t0 = time.perf_counter()
+    if os.path.exists(path):
+        with np.load(path) as z:
+            arrs = {k: z[k] for k in z.files}
+        log.info("bvh cache: loaded %s in %.3f s", path, time.perf_counter() - t0)
+        return bvh_from_numpy(arrs, device)
+    arrs = build_bvh_arrays(tri_verts, **kw)
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrs)
+    os.replace(tmp, path)
+    log.info("bvh cache: built and wrote %s in %.3f s", path, time.perf_counter() - t0)
+    return bvh_from_numpy(arrs, device)
 
 
 def supercluster_boxes(cluster_min: torch.Tensor, cluster_max: torch.Tensor):

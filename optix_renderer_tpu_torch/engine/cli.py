@@ -1,15 +1,20 @@
 """Command-line renderer (counterpart of ``optix_renderer_tpu/engine/cli.py``).
 
-The JAX CLI's flags that need no module beyond the renderer: scene,
-renderer mode, samples, resolution, path depth, camera (``--camera``,
-``--cam-from/--cam-to/--cam-up/--cam-fovy``, ``--record-camera``), output
-directory and files (``--save-npy``, ``--save-exr``, ``--save-gbuffers``),
-checkpoints (a resumed camera wins over the flags), the RATIO
-denoise-and-combine stage, ``--preview N``, ``--profile DIR`` (a
-``torch.profiler`` trace of the render loop) and the device.  ``--device``
-defaults to ``cuda`` and fails when no CUDA device is present; ``--cpu`` is
-``--device cpu``.  Outputs are the JAX CLI's files for the same flags,
-written through ``postprocess.io``.
+The JAX CLI's flags: scene, renderer mode, samples, resolution, path
+depth, camera (``--camera``, ``--cam-from/--cam-to/--cam-up/--cam-fovy``,
+``--record-camera``), output directory and files (``--save-npy``,
+``--save-exr``, ``--save-gbuffers``), checkpoints (a resumed camera wins
+over the flags), the RATIO denoise-and-combine stage, ``--preview N``,
+``--profile DIR`` (a ``torch.profiler`` trace of the render loop),
+``--devices N`` (the frames split by image rows over ``cuda:0`` ..
+``cuda:N-1``, or over N CPU tiles with ``--cpu``: the same image, bit for
+bit; refused when fewer cards exist), ``--bvh-cache DIR`` (the trace
+tables through a content-addressed cache), ``--serve [PORT]`` (the live
+viewer instead of a batch render, ``max_spp`` = ``--spp`` or 0) and the
+device.  ``--device`` defaults to ``cuda`` and fails, whatever the other
+flags, when no CUDA device is present; ``--cpu`` is ``--device cpu``.
+Outputs are the JAX CLI's files for the same flags, written through
+``postprocess.io``.
 
 Examples:
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json \\
@@ -18,6 +23,9 @@ Examples:
       --renderer ratio --spp 16 --res 1024 --denoise-ratio --out out/
   python -m optix_renderer_tpu_torch.engine.cli --scene scenes/gallery/scene.json \\
       --renderer path --spp 16 --res 512 --depth 4 --cam-from 200 320 -400 --save-gbuffers --out out/
+  python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json \\
+      --renderer path --spp 16 --res 1024 --depth 4 --devices 4 --bvh-cache bvh/ --out out/
+  python -m optix_renderer_tpu_torch.engine.cli --scene scenes/cornell/scene.json --serve 8000
 """
 
 from __future__ import annotations
@@ -88,9 +96,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a progressive preview PNG every N frames")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the render loop into DIR")
+    p.add_argument("--devices", type=int, default=0, metavar="N",
+                   help="split the render over N devices by image rows (cuda:0..N-1, or N CPU tiles with "
+                        "--cpu; needs height %% N == 0)")
+    p.add_argument("--bvh-cache", metavar="DIR", default=None,
+                   help="load or store the trace tables in DIR (content-addressed)")
+    p.add_argument("--serve", type=int, nargs="?", const=8000, default=None, metavar="PORT",
+                   help="start the live HTTP viewer (orbit camera, runtime mode switch; viewer.hpp:659-845) "
+                        "instead of a batch render")
     p.add_argument("--device", default="cuda", help="torch device to render on (default: cuda)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
     return p
+
+
+def _split_devices(n: int, device: torch.device) -> list[torch.device]:
+    """``--devices N``: cuda:0..N-1 on a CUDA device, else N tiles on ``device``."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [device] * n
 
 
 def _device_name(device: torch.device) -> str:
@@ -124,9 +147,16 @@ def _record_camera(scene_path: str, cam: SceneCamera) -> None:
         json.dump(cfg, f, indent=2)
 
 
-def _render_loop(r, spp: int, preview: int, preview_path: str) -> None:
-    """``spp`` frames; with ``preview`` < spp, in steps of ``preview`` frames,
-    each followed by the image so far at ``preview_path``."""
+def _render_loop(r, spp: int, preview: int, preview_path: str, devices: list | None) -> None:
+    """``spp`` frames, split over ``devices`` when given; with ``preview`` <
+    spp, in steps of ``preview`` frames, each followed by the image so far at
+    ``preview_path``."""
+    if devices:
+        from ..parallel.sharding import render_rows
+
+        render_rows(r, devices, spp)
+        log.info("split by rows over %d devices (%s)", len(devices), ", ".join(map(str, devices)))
+        return
     if not (preview and preview < spp):
         r.render(spp)
         return
@@ -190,7 +220,16 @@ def main(argv=None) -> int:
     log.info("scene=%s mode=%s %dx%d spp=%d depth=%d device=%s",
              args.scene, mode.name, width, height, spp, args.depth, _device_name(device))
 
-    r = Renderer(scene, width=width, height=height, mode=mode, path_depth=args.depth, device=device)
+    devices = None
+    if args.devices > 1:
+        from ..parallel.sharding import check_devices
+
+        try:  # no fewer cards than asked for, and whole row tiles
+            devices = check_devices(_split_devices(args.devices, device), height)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--devices {args.devices}: {e}")
+    r = Renderer(scene, width=width, height=height, mode=mode, path_depth=args.depth, device=device,
+                 bvh_cache_dir=args.bvh_cache)
     cam = _camera(args, scene)
     r.set_camera(cam)
     if args.checkpoint:  # after the flags: a resumed camera wins
@@ -199,9 +238,17 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     name = mode.name.lower()
 
+    if args.serve is not None:
+        from .serve import ViewerServer
+
+        server = ViewerServer(r, scene_path=args.scene, port=args.serve, out_dir=args.out, max_spp=args.spp or 0)
+        log.info("live viewer: http://127.0.0.1:%d/  (ctrl-C to stop)", server.port)
+        server.serve_forever()
+        return 0
+
     t0 = time.perf_counter()
     with _profiled(args.profile, device):
-        _render_loop(r, spp, args.preview, os.path.join(args.out, f"{name}_preview.png"))
+        _render_loop(r, spp, args.preview, os.path.join(args.out, f"{name}_preview.png"), devices)
     img = r.image()
     dt = time.perf_counter() - t0
     m = r.metrics

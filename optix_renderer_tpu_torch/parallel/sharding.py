@@ -1,0 +1,222 @@
+"""A frame split over several devices (counterpart of
+``optix_renderer_tpu/parallel/sharding.py``).
+
+The JAX module maps a frame over a 1-D TPU mesh with ``shard_map``; here
+one host thread issues each device's share in turn over a list of
+``torch.device``s (CUDA launches are asynchronous, so the devices run
+together).  The list may name one device more than once: each entry is one
+share, so ``[cuda:0, cuda:0]`` or eight CPU entries exercise the split on
+one card or on the CPU.
+
+* **Row split** (``make_sharded_frame_fn``, JAX :120-173): device i renders
+  the ``height / n`` image rows starting at row ``i * height / n`` into an
+  accumulator row shard of its own (``ShardedState``).  Pixel ids, and so
+  the RNG streams, are absolute (``engine.renderer.render_tile``), so the
+  image is bit-identical to one device's.  Every share gets the scene, the
+  BVH and the baked primary table (``replicate``; the JAX frame functions
+  drop the table, :86).  Gathering the image (``gather_state``,
+  ``gather_rows``) is the only step that crosses devices.
+* **spp split** (``make_spp_sharded_frame_fn``, JAX :60-118): device i
+  renders the whole frame for ``accum_id + i``; the colors are added onto
+  the accumulator on ``devices[0]`` in frame order, so one step is
+  bit-equal to n sequential frames (the JAX ``psum`` matches them only up
+  to summation order).
+
+``render_rows`` runs frames of a ``Renderer`` through the row split and
+leaves the renderer as ``Renderer.render`` would: state, g-buffers, aux and
+the honest ray count (the tiles' ``path_alive_counts`` summed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from ..accel.cluster import merge_trace_stats
+from ..core.types import Camera, RenderState
+from ..engine.modes import DETERMINISTIC_MODES, RendererType
+from ..engine.renderer import render_tile
+
+
+def check_devices(devices, height: int | None = None) -> list[torch.device]:
+    """The split's devices as ``torch.device``s.  Raises on an empty list,
+    on a device other than CUDA or CPU, on a CUDA device that does not
+    exist (never a CPU stand-in), and when ``height`` does not divide into
+    as many row tiles."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("the split needs at least one device")
+    for d in devices:
+        if d.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {d}: no CUDA device (torch.cuda.is_available() is false)")
+            if (d.index or 0) >= torch.cuda.device_count():
+                raise RuntimeError(f"device {d}: no such CUDA device ({torch.cuda.device_count()} visible)")
+        elif d.type != "cpu":
+            raise ValueError(f"device {d}: the split runs on CUDA or CPU devices")
+    if height is not None and height % len(devices):
+        raise ValueError(f"height {height} must divide into {len(devices)} row tiles")
+    return devices
+
+
+def _to(x, device):
+    """``x`` with every tensor in it (through nested dataclasses) on
+    ``device``; ``Tensor.to`` returns the tensor itself on its own device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _to(getattr(x, f.name), device)
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def replicate(x, devices) -> list:
+    """One copy of ``x`` (a DeviceScene, BVH, BakedTable or None) per
+    device."""
+    return [_to(x, d) for d in devices]
+
+
+@dataclasses.dataclass
+class ShardedState:
+    """The row split's progressive state: accumulator row shard i, (rows,
+    width, 3), and a copy of the camera on device i."""
+
+    accum: list[torch.Tensor]
+    accum_id: int
+    camera: list[Camera]
+
+
+def shard_render_state(state: RenderState, devices) -> ShardedState:
+    """Cut ``state``'s accumulator into ``len(devices)`` row shards, one on
+    each device; the camera goes to every device."""
+    rows = state.accum.shape[0] // len(devices)
+    return ShardedState(accum=[state.accum[i * rows:(i + 1) * rows].to(d) for i, d in enumerate(devices)],
+                        accum_id=state.accum_id, camera=replicate(state.camera, devices))
+
+
+def gather_rows(tiles: list, device):
+    """Tiles (tensors, or dataclasses or dicts of them) stacked by rows on
+    ``device``."""
+    first = tiles[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([t.to(device) for t in tiles])
+    if isinstance(first, dict):
+        return {k: gather_rows([t[k] for t in tiles], device) for k in first}
+    return type(first)(**{f.name: gather_rows([getattr(t, f.name) for t in tiles], device)
+                          for f in dataclasses.fields(first)})
+
+
+def gather_state(state: ShardedState, device) -> RenderState:
+    """The whole image's state on ``device``."""
+    return RenderState(accum=gather_rows(state.accum, device), accum_id=state.accum_id,
+                       camera=_to(state.camera[0], device))
+
+
+def merge_aux(auxs: list, device) -> dict:
+    """One frame's aux from its tiles on ``device``: ``path_alive_counts``
+    summed, RATIO's (rows, width, c) buffers stacked by rows."""
+    return {k: (sum(a[k].to(device) for a in auxs) if k == "path_alive_counts"
+                else gather_rows([a[k] for a in auxs], device)) for k in auxs[0]}
+
+
+def _merge_stats(stats: list, device) -> dict:
+    out = {k: 0 for k in stats[0]}
+    for s in stats:
+        out = merge_trace_stats(out, {k: _to(v, device) for k, v in s.items()})
+    return out
+
+
+def make_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
+                          ratio_samples: int = 4):
+    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
+    one frame, device i rendering row tile i.  ``state`` is a
+    ``ShardedState``; ``ds``, ``bvh`` and ``baked_tab`` are ``replicate``
+    lists; ``gbuffers`` and ``aux`` are per-tile lists (``gather_rows``,
+    ``merge_aux``); ``stats`` are the trace statistics summed on
+    ``devices[0]``."""
+    devices = check_devices(devices, height)
+    rows = height // len(devices)
+
+    def frame(state: ShardedState, ds: list, bvh: list, baked_tab: list):
+        accum, gbs, auxs, stats = [], [], [], []
+        for i in range(len(devices)):
+            color, gb, aux, st = render_tile(
+                state.camera[i], state.accum_id, ds[i], bvh[i], mode=mode, width=width, height=height,
+                path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab[i],
+                row_offset=i * rows, rows=rows)
+            accum.append(state.accum[i] + color.reshape(rows, width, 3))
+            gbs.append(gb)
+            auxs.append(aux)
+            stats.append(st)
+        new = ShardedState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera)
+        return new, gbs, auxs, _merge_stats(stats, devices[0])
+
+    return frame
+
+
+def make_spp_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
+                              ratio_samples: int = 4):
+    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
+    ``len(devices)`` frames in one step, device i rendering the whole frame
+    for ``state.accum_id + i``.  ``state`` is a ``RenderState`` on
+    ``devices[0]``; its accumulator takes the colors in frame order, so the
+    step is bit-equal to as many sequential frames.  ``gbuffers`` and
+    ``aux`` are per-frame lists."""
+    devices = check_devices(devices)
+    dev0 = devices[0]
+
+    def frame(state: RenderState, ds: list, bvh: list, baked_tab: list):
+        colors, gbs, auxs, stats = [], [], [], []
+        for i, d in enumerate(devices):  # every device's frame is enqueued before any sum
+            color, gb, aux, st = render_tile(
+                _to(state.camera, d), state.accum_id + i, ds[i], bvh[i], mode=mode, width=width,
+                height=height, path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab[i])
+            colors.append(color)
+            gbs.append(gb)
+            auxs.append(aux)
+            stats.append(st)
+        accum = state.accum
+        for color in colors:
+            accum = accum + color.to(dev0).reshape(height, width, 3)
+        new = RenderState(accum=accum, accum_id=state.accum_id + len(devices), camera=state.camera)
+        return new, gbs, auxs, _merge_stats(stats, dev0)
+
+    return frame
+
+
+def _synchronize(devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def render_rows(r, devices, n_frames: int = 1) -> None:
+    """``r.render(n_frames)`` through the row split over ``devices``: the
+    same image, bit for bit.  Afterwards ``r.state`` (on ``r.device``),
+    ``r.gbuffers``, ``r.aux`` (RATIO: the mean over this call's frames) and
+    ``r.metrics`` are what ``r.render`` leaves."""
+    devices = check_devices(devices, r.height)
+    frame = make_sharded_frame_fn(devices, r.mode, r.width, r.height, r.path_depth, r.ratio_samples)
+    ds, bvh, baked = (replicate(x, devices) for x in (r.device_scene, r.bvh, r.baked_tab))
+    t0 = time.perf_counter()
+    state = shard_render_state(r.state, devices)
+    done = []  # (path_alive_counts or None, trace stats) per frame
+    auxs = ratio_sums = None
+    for _ in range(n_frames):
+        if r.mode in DETERMINISTIC_MODES and state.accum_id >= 1:
+            break  # analytic modes converge in one frame
+        state, gbs, auxs, stats = frame(state, ds, bvh, baked)
+        counts = [a["path_alive_counts"] for a in auxs if "path_alive_counts" in a]
+        done.append((sum(c.to(r.device) for c in counts) if counts else None, stats))
+        if r.mode == RendererType.RATIO:
+            ratio_sums = (auxs if ratio_sums is None
+                          else [{k: s[k] + a[k] for k in s} for s, a in zip(ratio_sums, auxs)])
+    if done:
+        r.state = gather_state(state, r.device)
+        r.gbuffers = gather_rows(gbs, r.device)
+        r.aux = merge_aux(auxs if ratio_sums is None else
+                          [{k: v / len(done) for k, v in s.items()} for s in ratio_sums], r.device)
+    _synchronize(devices)
+    r.record_frames(time.perf_counter() - t0, done)

@@ -13,18 +13,30 @@ same camera through the same arithmetic); the recorded camera entry equal;
 ``--camera 1`` on the recorded scene rendering the ``--cam-*`` image, and
 an index past the end rendering camera 0.  Port-only: ``--preview`` writes
 ``<mode>_preview.png``; ``--profile`` leaves a non-empty trace.
+
+The surfaces: ``--devices 4`` (PATH depth 2 on Cornell) writes the JAX
+CLI's files, an image bit-equal to ``--devices 1`` with the same honest
+ray count, and within the goldens' PATH tolerance (5e-3) of the JAX CLI's
+``--devices 4``; ``--devices`` is refused for a height that does not
+divide and for cards that do not exist; ``--bvh-cache`` writes one entry
+that a second run loads without building; ``--serve`` is refused without
+a card unless ``--cpu`` is given, and with ``--cpu`` serves (started and
+stopped in-process, ``max_spp`` from ``--spp``).
 """
 
 import json
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from optix_renderer_tpu.engine import cli as jcli
+from optix_renderer_tpu_torch.accel import build
 from optix_renderer_tpu_torch.engine import cli
+from optix_renderer_tpu_torch.engine.serve import ViewerServer
 
 torch.set_num_threads(2)
 
@@ -138,3 +150,96 @@ def test_profile_leaves_a_trace(preview_run):
     assert traces and all(os.path.getsize(t) > 0 for t in traces)
     with open(traces[0]) as f:
         assert json.load(f)["traceEvents"]
+
+
+DEVICES_ARGV = ["--scene", CORNELL, "--renderer", "path", "--spp", "2", "--depth", "2", "--save-npy",
+                "--save-gbuffers"]
+PATH_TOL = 5e-3  # tests/goldens/test_goldens.py
+
+
+@pytest.fixture(scope="module")
+def devices_runs(tmp_path_factory):
+    """Output dirs of the JAX CLI with --devices 4 and the port's with 4 and 1."""
+    tmp = tmp_path_factory.mktemp("cli_devices")
+    return (_run(jcli.main, tmp, "jax4", [*DEVICES_ARGV, "--devices", "4"]),
+            _run(cli.main, tmp, "port4", [*DEVICES_ARGV, "--devices", "4"]),
+            _run(cli.main, tmp, "port1", [*DEVICES_ARGV, "--devices", "1"]))
+
+
+def test_devices_writes_the_jax_files(devices_runs):
+    jax4, port4, _port1 = devices_runs
+    assert sorted(os.listdir(port4)) == sorted(os.listdir(jax4))
+    assert {"path.png", "path.npy", "gbuffer_normal.npy", "render.json"} <= set(os.listdir(port4))
+
+
+def test_devices_image_equals_one_device(devices_runs):
+    jax4, port4, port1 = devices_runs
+    got = np.load(os.path.join(port4, "path.npy"))
+    np.testing.assert_array_equal(got, np.load(os.path.join(port1, "path.npy")))
+    np.testing.assert_array_equal(np.load(os.path.join(port4, "gbuffer_normal.npy")),
+                                  np.load(os.path.join(port1, "gbuffer_normal.npy")))
+    assert _rmse(got, np.load(os.path.join(jax4, "path.npy"))) < PATH_TOL
+    manifests = []
+    for out in (port4, port1):
+        with open(os.path.join(out, "render.json")) as f:
+            manifests.append(json.load(f))
+    a, b = (m["metrics"] for m in manifests)
+    assert manifests[0]["spp"] == 2 and a["frames"] == b["frames"] == 2
+    assert a["rays_traced"] == b["rays_traced"] > 2 * 32 * 32  # the tiles' honest counts summed
+    assert a["alive_per_bounce"] == b["alive_per_bounce"]
+
+
+def test_devices_refusals(tmp_path):
+    with pytest.raises(SystemExit, match="divide into 3 row tiles"):
+        cli.main(["--scene", CORNELL, "--devices", "3", "--res", RES, "--out", str(tmp_path / "a"), "--cpu"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card refusal cannot be exercised")
+    with pytest.raises(SystemExit, match="is_available"):
+        cli.main(["--scene", CORNELL, "--devices", "2", "--res", RES, "--out", str(tmp_path / "b")])
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+
+
+def test_bvh_cache_flag_writes_then_reads(tmp_path, monkeypatch):
+    cache = tmp_path / "cache"
+    argv = ["--scene", CORNELL, "--renderer", "normals", "--save-npy", "--bvh-cache", str(cache)]
+    first = _run(cli.main, tmp_path, "first", argv)
+    entries = sorted(os.listdir(cache))
+    assert len(entries) == 1 and entries[0].startswith("torch-bvh-")
+    monkeypatch.setattr(build, "build_bvh_arrays", lambda *a, **k: pytest.fail("the second run built the BVH"))
+    second = _run(cli.main, tmp_path, "second", argv)
+    assert sorted(os.listdir(cache)) == entries
+    np.testing.assert_array_equal(np.load(os.path.join(second, "normals.npy")),
+                                  np.load(os.path.join(first, "normals.npy")))
+
+
+def test_serve_is_refused_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal path cannot be exercised")
+    with pytest.raises(SystemExit, match="is_available"):
+        cli.main(["--scene", CORNELL, "--serve", "0", "--res", RES, "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_serve_runs_with_cpu(tmp_path, monkeypatch):
+    """``--serve 0 --cpu --spp 2``: the CLI's server, started and stopped in
+    process instead of blocking in ``serve_forever``; it renders up to
+    max_spp = 2 and no further."""
+    seen = {}
+
+    def serve_briefly(server):
+        server.start()
+        try:
+            t0 = time.monotonic()
+            while server.status()["accum_id"] < 2:
+                assert time.monotonic() - t0 < 60, "the viewer never reached 2 frames"
+                time.sleep(0.02)
+        finally:
+            server.shutdown()
+        seen.update(max_spp=server.max_spp, accum_id=server.r.state.accum_id, error=server.error,
+                    scene_path=server.scene_path, png=server.frame_png()[:8])
+
+    monkeypatch.setattr(ViewerServer, "serve_forever", serve_briefly)
+    assert cli.main(["--scene", CORNELL, "--renderer", "path", "--depth", "2", "--spp", "2", "--serve", "0",
+                     "--res", RES, "--out", str(tmp_path / "out"), "--cpu"]) == 0
+    assert seen == {"max_spp": 2, "accum_id": 2, "error": None, "scene_path": CORNELL,
+                    "png": b"\x89PNG\r\n\x1a\n"}

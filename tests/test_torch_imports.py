@@ -6,9 +6,10 @@ MASK frame of a grid-60 terrain (above 4096 triangles: the cluster tier),
 traces 64 incoherent rays per lane there (on CPU tensors that is the list
 path with the plain kernels: no kernel is launched), traces the frame's
 primaries through the plain baked walk with the shared-origin table of the
-camera, runs the CLI with the camera and output flags, and must have
-loaded neither ``jax`` nor any module of the JAX package
-``optix_renderer_tpu``.
+camera, runs the CLI with the camera and output flags, renders a frame
+through the row split (``parallel.sharding``) and serves frames from the
+live viewer (``engine.serve``), and must have loaded neither ``jax`` nor
+any module of the JAX package ``optix_renderer_tpu``.
 Without a CUDA device, ``Renderer(device="cuda")`` and the CLI's default
 ``--device cuda`` must fail with a clear message rather than render on
 the CPU.
@@ -30,6 +31,7 @@ import optix_renderer_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
+assert {"optix_renderer_tpu_torch.parallel.sharding", "optix_renderer_tpu_torch.engine.serve"} <= set(mods), mods
 from optix_renderer_tpu_torch.engine import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer
 from optix_renderer_tpu_torch.scene import parse_scene, write_cornell_scene, write_terrain_scene
@@ -38,6 +40,18 @@ r = Renderer(scene, width=16, height=16, mode=RendererType.PATH, path_depth=4, d
 r.render(1)
 img = r.image()
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0, img.mean()
+from optix_renderer_tpu_torch.parallel import sharding
+from optix_renderer_tpu_torch.engine.serve import ViewerServer
+sharding.render_rows(r, ["cpu"] * 4, 1)
+assert r.state.accum_id == 2 and np.isfinite(r.image()).all()
+import time
+server = ViewerServer(r, port=0, out_dir=tempfile.mkdtemp(), max_spp=3)
+server.start()
+t0 = time.monotonic()
+while server.status()["accum_id"] < 3 and time.monotonic() - t0 < 60:
+    time.sleep(0.02)
+server.shutdown()
+assert server.error is None and server.status()["accum_id"] == 3, server.status()
 r = Renderer(scene, width=16, height=16, mode=RendererType.RATIO, device="cpu")
 r.render(1)
 assert np.isfinite(r.image()).all() and float(r.aux["sto_no_vis"].max()) > 0

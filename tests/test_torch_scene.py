@@ -4,7 +4,8 @@ The port keeps copies of the numpy-only scene code (``scene.config``,
 ``scene.obj_loader`` with its native parser, ``scene.procedural``), so it
 imports nothing of ``optix_renderer_tpu``.  Every array that the two
 ``parse_scene`` produce must be equal, on the committed scenes and on a
-grid-60 terrain, and the procedural writers must write the same files.
+grid-60 terrain, and the procedural writers (Cornell, Cornell-3, the
+gallery with its four textures, the terrain) must write the same files.
 """
 
 import dataclasses
@@ -62,9 +63,10 @@ def test_native_parser_builds():
     assert get_objparse() is not None
 
 
-@pytest.mark.parametrize("writer", ["write_cornell_scene", "write_terrain_scene"])
+@pytest.mark.parametrize("writer", ["write_cornell_scene", "write_terrain_scene", "write_cornell3_scene",
+                                    "write_gallery_scene"])
 def test_procedural_writes_the_jax_files(writer, tmp_path):
-    kwargs = {"grid": 12} if writer == "write_terrain_scene" else {}
+    kwargs = {"write_terrain_scene": {"grid": 12}, "write_gallery_scene": {"sphere_grid": 3}}.get(writer, {})
     a = getattr(procedural, writer)(str(tmp_path / "port"), width=16, height=16, **kwargs)
     b = getattr(jproc, writer)(str(tmp_path / "jax"), width=16, height=16, **kwargs)
     names = sorted(os.listdir(os.path.dirname(b)))
