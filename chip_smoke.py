@@ -73,8 +73,10 @@ raises and exits non-zero):
    64^2 card (baked) against CPU (never baked; NORMALS 1e-4, PATH depth 4
    5e-3);
 5. main path PATH: depth 4, ``scenes/cornell/scene.json`` at 1024^2,
-   2 warm-up frames (under CUDA sync debugging: no frame may make the
-   host wait for the card) then 16 timed frames, with the share of live
+   3 warm-up frames (under CUDA sync debugging: no frame may make the
+   host wait for the card; an eager frame, the capture of the frame graph
+   and one replay, then an ordinary frame) then 16 timed frames (15
+   replays and an ordinary frame), with the share of live
    lanes (t_max > 0) in each B1 and B2 launch of the last frame;
 6. main path LTC_BASELINE: Cornell at 1024^2, 1 warm-up frame, then 16
    single frames, each after ``set_camera`` (a deterministic mode renders
@@ -82,16 +84,16 @@ raises and exits non-zero):
    must run B6 alone (no setup op), and the state the frame started from
    must be left as it was;
 7. main path RATIO: the three-light Cornell at 1024^2 with 4 shadow
-   samples per pixel, 2 warm-up frames under sync debugging, 16 timed
+   samples per pixel, 3 warm-up frames under sync debugging, 16 timed
    frames, then denoise x2 and ratio-combine, checked for the invariants
    of tests/integration/test_ratio_render.py;
 8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame under
    sync debugging (no sync allowed), then 16 single frames, each after
    ``set_camera`` to the same camera (which keeps the baked table, so no
    bake runs inside a timed frame);
-9. main path config 6: the gallery, PATH depth 4 at 512^2, 2 warm-up
+9. main path config 6: the gallery, PATH depth 4 at 512^2, 3 warm-up
    frames under sync debugging (no sync allowed), then 16 timed frames;
-10. main path config 5b: terrain PATH depth 4 at 1024^2, 1 warm-up frame
+10. main path config 5b: terrain PATH depth 4 at 1024^2, 3 warm-up frames
    under sync debugging (no sync allowed), then 8 timed frames;
 11. the CLI on the card, as a subprocess: the gallery in PATH at 256^2
    from a moved ``--cam-from`` with ``--save-gbuffers --save-exr
@@ -118,7 +120,21 @@ raises and exits non-zero):
 14. the BVH cache on the terrain: a cold build and a warm load into a
    temporary directory, every tensor equal, their host seconds; the CLI
    as a subprocess with ``--bvh-cache`` twice, the second run loading the
-   entry the first wrote.
+   entry the first wrote;
+15. several frames in one dispatch (``engine.frame_graph``): Cornell PATH
+   depth 4 at 1024^2, RATIO on the three-light Cornell at 1024^2 and
+   config 6 over 8 frames, config 5b over 3: from one state, n
+   ``_frame_impl`` frames run directly against ``render(n)`` (n-1 replays
+   of the frame graph captured in the warm-up, then an ordinary frame):
+   the accumulator and RATIO's aux bit-equal, the same honest rays and
+   per-bounce counts, the same launch counts, no implicit sync; then
+   eager frames against replays of the graph in turns (host clock and
+   CUDA events), the capture's ms, and the peak memory both ways (the
+   graph's pool, what dropping the graph gives back, beside it).
+
+In PATH and RATIO every ``render(n)`` runs its first n-1 frames as
+replays of one captured CUDA graph of a frame; its launch counts are the
+kernels that ran, replays included (``utils.launches``).
 
 On the cluster tier every frame's primary trace is one launch of the baked
 walk (``cluster_closest_walk_baked``); the unbaked walk
@@ -127,7 +143,7 @@ walk (``cluster_closest_walk_baked``); the unbaked walk
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
 those reads: phases 5-10, the row split's two paths and the spp split of
-phase 12, and the viewer of phase 13.  Each kernel's ``bound_ms`` is the larger of the bytes it
+phase 12, the viewer of phase 13 and the graph frames of phase 15.  Each kernel's ``bound_ms`` is the larger of the bytes it
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), counted from this run's inputs (B2: every table
 row for a live ray that is not occluded, one test for an occluded one);
@@ -160,7 +176,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-MAIN_RES, MAIN_DEPTH, WARMUP_FRAMES, TIMED_FRAMES = 1024, 4, 2, 16
+# 3 warm-up frames: in PATH and RATIO an eager frame, the capture of the frame graph and one replay, then an
+# ordinary frame (Renderer.render), so that no timed run captures
+MAIN_RES, MAIN_DEPTH, WARMUP_FRAMES, TIMED_FRAMES = 1024, 4, 3, 16
 BOUNCE_RAYS = 1 << 20
 LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS = 1 << 20, 7
 RATIO_SAMPLES = 4
@@ -207,6 +225,8 @@ CLI_RES, CLI_SPP, CLI_CAM_FROM = 256, 2, (200.0, 320.0, -400.0)
 # phases 12-14: the split's frames (two shares of the one card), the viewer's rounds of /status requests and an
 # orbit, and a deadline for each of its waits
 SPLIT_FRAMES, SPLIT_DEVICES, VIEWER_ROUNDS, VIEWER_STATUS_REQUESTS, VIEWER_DEADLINE_S = 4, 2, 3, 10, 120.0
+# phase 15: frames through the frame graph against as many eager frames (config 5b: 3, at ~0.3 s a frame)
+GRAPH_FRAMES, GRAPH_FRAMES_5B = 8, 3
 CACHE_CLI_RES = 256
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
@@ -370,7 +390,7 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
             else:
                 r.render(frames)
 
-        r.render(1)  # warm-up
+        r.render(WARMUP_FRAMES)  # warm-up (PATH: the frame graph's capture too)
         counts[0]()
         t0 = time.perf_counter()
         render()
@@ -393,7 +413,7 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
         out[mode.name] = {"ms_per_frame": wall_ms, "device_ms_per_frame": b["device_ms_per_frame"],
                           "trace_kernels_ms_per_frame": sum(kernels.values()), "kernels_ms_per_frame": kernels}
         print(f"  crossover: {out['triangles']} triangles ({out['tier']} tier), "
-              f"{mode.name} {MAIN_RES}^2, {frames} frames after 1 warm-up: {wall_ms:.3f} ms/frame on the host clock; "
+              f"{mode.name} {MAIN_RES}^2, {frames} frames after warm-up: {wall_ms:.3f} ms/frame on the host clock; "
               f"profiled: device {b['device_ms_per_frame']:.3f} ms/frame, hand-written trace kernels "
               f"{sum(kernels.values()):.3f} ms/frame ({', '.join(f'{k} {v:.3f}' for k, v in kernels.items())}), on {smi}",
               flush=True)
@@ -1310,7 +1330,7 @@ def main() -> int:
     # ---- 10. main path config 5b: terrain PATH depth 4 at 1024^2 ------------
     rt.set_mode(RendererType.PATH)
     traces = 1 + 2 * MAIN_DEPTH  # primary, then NEE and bounce per bounce
-    syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
+    syncs = _no_implicit_syncs(torch, lambda: rt.render(WARMUP_FRAMES))  # warm-up, the frame graph's capture too
     # the walk forms cut nothing and ask the host nothing
     _require(not syncs, f"the terrain PATH frame synchronizes with the card at {syncs}")
     m0 = dict(rt.metrics)
@@ -1331,10 +1351,10 @@ def main() -> int:
              f"terrain PATH image: shape {img.shape}, mean {img.mean()}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
-    print(f"[10 main path] config 5b: terrain PATH depth {MAIN_DEPTH} {TERRAIN_RES}^2, {n_fr} frames after 1 "
-          f"warm-up: {secs / n_fr * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
+    print(f"[10 main path] config 5b: terrain PATH depth {MAIN_DEPTH} {TERRAIN_RES}^2, {n_fr} frames after "
+          f"{WARMUP_FRAMES} warm-up: {secs / n_fr * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
           f"image mean {img.mean():.5f}, peak {peak_gib:.3f} GiB, launches {launches_c5b}, trace stats {st5b}, "
-          f"host syncs in the warm-up frame: {len(syncs)} ({traces} trace calls), on {smi}", flush=True)
+          f"host syncs in the warm-up frames: {len(syncs)} ({traces} trace calls a frame), on {smi}", flush=True)
     phase_done("phase 10")
     del rt
 
@@ -1392,8 +1412,8 @@ def main() -> int:
         pair = [dev] * SPLIT_DEVICES
         one, split = (Renderer(cornell, width=MAIN_RES, height=MAIN_RES, mode=RendererType.PATH,
                                path_depth=MAIN_DEPTH, device=dev) for _ in range(2))
-        one.render(1)  # warm-up, the same frame on both sides
-        syncs = _no_implicit_syncs(torch, lambda: sharding.render_rows(split, pair, 1))
+        one.render(WARMUP_FRAMES)  # warm-up, the same frames on both sides (and the single side's frame graph)
+        syncs = _no_implicit_syncs(torch, lambda: sharding.render_rows(split, pair, WARMUP_FRAMES))
         _require(not syncs, f"a row-split PATH frame synchronizes with the card at {syncs}")
         m0 = {"one": dict(one.metrics), "split": dict(split.metrics)}
         reset_counts()
@@ -1405,7 +1425,7 @@ def main() -> int:
         want = expected(brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
                         brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH)
         _require(launches_split == want, f"row-split PATH launch counts {launches_split}, expected {want}")
-        _require(split.state.accum_id == one.state.accum_id == SPLIT_FRAMES + 1
+        _require(split.state.accum_id == one.state.accum_id == SPLIT_FRAMES + WARMUP_FRAMES
                  and bool(torch.equal(split.state.accum, one.state.accum)),
                  "the row-split PATH frames differ from the single-device frames")
         _require(m1["split"]["rays_traced"] == m1["one"]["rays_traced"]
@@ -1456,7 +1476,7 @@ def main() -> int:
         _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
         ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
         print(f"[12 split] {SPLIT_DEVICES} shares of {dev}: Cornell PATH depth {MAIN_DEPTH} {MAIN_RES}^2, "
-              f"{SPLIT_FRAMES} frames after 1 warm-up, bit-equal to one device with the same honest rays "
+              f"{SPLIT_FRAMES} frames after {WARMUP_FRAMES} warm-up, bit-equal to one device with the same honest rays "
               f"({m1['split']['rays_traced']}): split {ms_path['split']:.3f} ms/frame, single "
               f"{ms_path['one']:.3f}, launches {launches_split}; spp split of {SPLIT_DEVICES} frames in one step "
               f"bit-equal to {SPLIT_DEVICES} sequential frames, launches {launches_spp}; config 5 terrain NORMALS "
@@ -1598,8 +1618,138 @@ def main() -> int:
         del tv, bvh_kw
         phase_done("phase 14")
 
+    # ---- 15. several frames in one dispatch: render(n) replays a captured CUDA graph of one frame -----
+    from optix_renderer_tpu_torch.engine import renderer as renderer_mod
+
+    captures = []  # host ms of each capture in this phase
+    frame_graph = renderer_mod.FrameGraph
+
+    class TimedGraph(frame_graph):
+        """The Renderer's FrameGraph, its capture timed on the host clock."""
+
+        def __init__(self, *args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            captures.append((time.perf_counter() - t0) * 1e3)
+
+    def eager_frames(rend, state, n):
+        """n ``_frame_impl`` frames from ``state``: (the last state, each frame's aux)."""
+        auxes = []
+        for _ in range(n):
+            state, _gb, aux, _stats = renderer_mod._frame_impl(
+                state, rend.device_scene, rend.bvh, mode=rend.mode, width=rend.width, height=rend.height,
+                path_depth=rend.path_depth, ratio_samples=rend.ratio_samples, baked_tab=rend.baked_tab)
+            auxes.append(aux)
+        return state, auxes
+
+    def per_frame_ms(fn, n):
+        """(host-clock ms, CUDA-event ms) per frame of ``fn``, which runs n frames."""
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, start.elapsed_time(end) / n
+
+    def graph_vs_eager(label, rend, n):
+        captures.clear()
+        rend.render(WARMUP_FRAMES)  # an eager frame, the capture and a replay, then an ordinary frame
+        graph = rend._scan[2] if rend._scan is not None else None
+        _require(len(captures) == 1 and isinstance(graph, TimedGraph), f"{label}: the warm-up captured {captures}")
+        state0 = rend.state
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        want, auxes = eager_frames(rend, state0, n)
+        torch.cuda.synchronize(dev)
+        l_eager = launch_counts()
+        peak_eager = torch.cuda.max_memory_allocated(dev) / 2**30
+        m0 = dict(rend.metrics)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        syncs = _no_implicit_syncs(torch, lambda: rend.render(n))
+        l_graph = launch_counts()
+        peak_graph = torch.cuda.max_memory_allocated(dev) / 2**30
+        m1 = dict(rend.metrics)
+        _require(not syncs, f"{label}: render({n}) with the frame graph synchronizes with the card at {syncs}")
+        _require(len(captures) == 1 and rend._scan[2] is graph, f"{label}: render({n}) captured again")
+        _require(rend.state.accum_id == state0.accum_id + n and bool(torch.equal(rend.state.accum, want.accum)),
+                 f"{label}: {n} frames through the graph differ from {n} eager frames")
+        if rend.mode == RendererType.RATIO:
+            for k in auxes[0]:
+                total = auxes[0][k]
+                for a in auxes[1:]:
+                    total = total + a[k]
+                _require(bool(torch.equal(rend.aux[k], total / n)), f"{label}: aux {k} differs from the eager mean")
+        _require(l_graph == l_eager and any(l_graph.values()),
+                 f"{label}: launches through the graph {l_graph}, eager {l_eager}")
+        alive = [a["path_alive_counts"] for a in auxes if "path_alive_counts" in a]
+        per_frame = rend.width * rend.height * (1 + (rend.ratio_samples if rend.mode == RendererType.RATIO else 0))
+        rays = n * per_frame + sum(int(a[:, 1:].sum()) for a in alive)
+        _require(m1["rays_traced"] - m0["rays_traced"] == rays and m1["frames"] - m0["frames"] == n,
+                 f"{label}: honest rays {m1['rays_traced'] - m0['rays_traced']} through the graph, {rays} eager")
+        _require(not alive or m1["alive_per_bounce"] == [int(x) for x in alive[-1][:, 0]],
+                 f"{label}: alive_per_bounce {m1['alive_per_bounce']}")
+        render_ms = (m1["seconds"] - m0["seconds"]) * 1e3 / n
+
+        def replays():
+            for _ in range(n):
+                graph.replay()
+
+        turns = {"eager": [], "graph": []}
+        reset_counts()
+        for side in ("eager", "graph", "graph", "eager"):
+            turns[side].append(per_frame_ms(replays if side == "graph" else lambda: eager_frames(rend, want, n), n))
+        reset_counts()  # the timed turns are not a main path's run
+        # the graph's own pool: what dropping the graph gives back
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        rend._scan = None
+        del graph
+        torch.cuda.empty_cache()
+        pool_gib = (reserved - torch.cuda.memory_reserved(dev)) / 2**30
+        out = {"frames": n, "render_ms_per_frame": render_ms, "capture_ms": captures[0],
+               "eager_ms_per_frame": {"host": [t[0] for t in turns["eager"]], "events": [t[1] for t in turns["eager"]]},
+               "graph_ms_per_frame": {"host": [t[0] for t in turns["graph"]], "events": [t[1] for t in turns["graph"]]},
+               "peak_gib": {"eager": peak_eager, "graph": peak_graph + pool_gib, "graph_pool": pool_gib},
+               "rays": rays, "launches": l_graph}
+        print(f"  {label}: {n} frames bit-equal eager vs graph (accum{', aux' if rend.mode == RendererType.RATIO else ''}), "
+              f"honest rays "
+              f"{rays}, launches {l_graph}, 0 implicit syncs; render({n}) {render_ms:.3f} ms/frame; in turns "
+              f"eager, graph, graph, eager ms/frame host {out['eager_ms_per_frame']['host'][0]:.3f}, "
+              f"{out['graph_ms_per_frame']['host'][0]:.3f}, {out['graph_ms_per_frame']['host'][1]:.3f}, "
+              f"{out['eager_ms_per_frame']['host'][1]:.3f}, CUDA events {out['eager_ms_per_frame']['events'][0]:.3f}, "
+              f"{out['graph_ms_per_frame']['events'][0]:.3f}, {out['graph_ms_per_frame']['events'][1]:.3f}, "
+              f"{out['eager_ms_per_frame']['events'][1]:.3f}; capture {captures[0]:.3f} ms; peak GiB eager "
+              f"{peak_eager:.3f}, graph {peak_graph + pool_gib:.3f} (its pool {pool_gib:.3f})", flush=True)
+        return out, l_graph
+
+    renderer_mod.FrameGraph = TimedGraph
+    try:
+        graphs, launches_graphs = {}, []
+        for label, scene, mode, res, n, kw in (
+                ("Cornell PATH", cornell, RendererType.PATH, MAIN_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
+                ("RATIO Cornell-3", cornell3, RendererType.RATIO, MAIN_RES, GRAPH_FRAMES,
+                 {"ratio_samples": RATIO_SAMPLES}),
+                ("config 6", gallery, RendererType.PATH, GALLERY_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
+                ("config 5b", terrain, RendererType.PATH, TERRAIN_RES, GRAPH_FRAMES_5B, {"path_depth": MAIN_DEPTH})):
+            rend = Renderer(scene, width=res, height=res, mode=mode, device=dev, **kw)
+            graphs[label], got = graph_vs_eager(label, rend, n)
+            launches_graphs.append(got)
+            del rend
+    finally:
+        renderer_mod.FrameGraph = frame_graph
+    print(f"[15 frame graph] render(n) replays one captured frame: bit-equal to eager frames in "
+          f"{', '.join(graphs)}; on {smi}", flush=True)
+    phase_done("phase 15")
+
     launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,
-                                      launches_c5b, launches_split, launches_spp, launches_split_t, launches_viewer))
+                                      launches_c5b, launches_split, launches_spp, launches_split_t, launches_viewer,
+                                      *launches_graphs))
                 for k in launches_path}
     _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0
              and launches["cluster_closest_walk_baked"] > 0,

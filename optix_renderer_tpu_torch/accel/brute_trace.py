@@ -27,11 +27,13 @@ import ctypes
 
 import torch
 
+from ..utils.launches import count_launch
 from .build import TRI_SUB  # table rows per plain-version chunk (the TPU kernel's sublane step)
 
 _INF = 3.0e38
 
-# Launches of each kernel since the last reset_launch_counts(); the plain
+# Launches of each kernel since the last reset_launch_counts(), counted by
+# utils.launches.count_launch (a CUDA graph's replays included); the plain
 # versions are not counted.
 LAUNCHES = {"brute_closest": 0, "brute_any": 0}
 
@@ -197,7 +199,7 @@ def trace_closest_cuda(tri_tab, origin, direction, t_max, coherent: bool = False
             t_max.data_ptr(), n, t.data_ptr(), tri_id.data_ptr(), u.data_ptr(), v.data_ptr(), int(coherent), stream,
         )
     _raise_on(err, "brute_closest")
-    LAUNCHES["brute_closest"] += 1
+    count_launch(LAUNCHES, "brute_closest")
     return t, tri_id, u, v
 
 
@@ -215,5 +217,5 @@ def trace_any_cuda(tri_tab, origin, direction, t_max):
             t_max.data_ptr(), n, occ.data_ptr(), stream,
         )
     _raise_on(err, "brute_any")
-    LAUNCHES["brute_any"] += 1
+    count_launch(LAUNCHES, "brute_any")
     return occ

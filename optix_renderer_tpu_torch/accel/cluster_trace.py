@@ -69,6 +69,7 @@ import ctypes
 
 import torch
 
+from ..utils.launches import count_launch
 from .brute_trace import moller_trumbore
 from .build import CLUSTER_SIZE, SC_GROUP, SHADE_A_COLS, SHADE_B_COLS
 
@@ -77,7 +78,8 @@ MISS_KEY = 0x7FFFFFFF
 N_SHADE_ATTR = 26  # B5 output rows: the 20 shade_a columns, then the 6 uv columns of shade_b
 _LOCAL_MASK = CLUSTER_SIZE - 1
 
-# Launches of each kernel since the last reset_launch_counts(); the plain
+# Launches of each kernel since the last reset_launch_counts(), counted by
+# utils.launches.count_launch (a CUDA graph's replays included); the plain
 # versions are not counted.
 LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "cluster_closest_walk": 0, "cluster_closest_walk_baked": 0,
             "cluster_any_walk": 0, "winner_attrs": 0}
@@ -422,7 +424,7 @@ def trace_closest_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits
             key0.data_ptr(), cid0.data_ptr(), n, key.data_ptr(), cid.data_ptr(),
             _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_closest")
-    LAUNCHES["cluster_closest"] += 1
+    count_launch(LAUNCHES, "cluster_closest")
     return key, cid
 
 
@@ -443,7 +445,7 @@ def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: in
             t_max.data_ptr(), n, occ.data_ptr(), _ptr(work),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any")
-    LAUNCHES["cluster_any"] += 1
+    count_launch(LAUNCHES, "cluster_any")
     return occ
 
 
@@ -465,7 +467,7 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
             sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), key0.data_ptr(), cid0.data_ptr(), n,
             key.data_ptr(), cid.data_ptr(), _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return key, cid
 
 
@@ -484,7 +486,7 @@ def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_ma
             sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(),
             _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any_walk")
-    LAUNCHES["cluster_any_walk"] += 1
+    count_launch(LAUNCHES, "cluster_any_walk")
     return occ
 
 
@@ -506,7 +508,7 @@ def fetch_winner_attrs_cuda(shade_a, shade_b, key, cid):
         err = lib.winner_attrs(shade_a.data_ptr(), shade_b.data_ptr(), key.data_ptr(), cid.data_ptr(), n,
                                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "winner_attrs")
-    LAUNCHES["winner_attrs"] += 1
+    count_launch(LAUNCHES, "winner_attrs")
     return out
 
 

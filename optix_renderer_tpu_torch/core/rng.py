@@ -47,15 +47,20 @@ def murmur_hash3_finalize(hash_: torch.Tensor) -> torch.Tensor:
     return hash_ ^ (hash_ >> 16)
 
 
-def make_rng(frame_id: int, linear_pixel_idx: torch.Tensor) -> torch.Tensor:
+def make_rng(frame_id: int | torch.Tensor, linear_pixel_idx: torch.Tensor) -> torch.Tensor:
     """Seed per-ray states (lcg_random.cuh:54-62).
 
-    frame_id: int; linear_pixel_idx: integer tensor of ``x + y * width``.
-    Returns int64 states in [0, 2^32).
+    frame_id: an int, or a 0-d integer tensor on the pixels' device (the
+    frame id that a captured CUDA graph reads, ``engine.frame_graph``): the
+    same seeds either way; linear_pixel_idx: integer tensor of
+    ``x + y * width``.  Returns int64 states in [0, 2^32).
     """
     idx = linear_pixel_idx.to(torch.int64) & _MASK
     state = murmur_hash3_mix(torch.zeros_like(idx), idx)
-    fid = torch.full_like(idx, int(frame_id) & _MASK)
+    if isinstance(frame_id, torch.Tensor):
+        fid = frame_id.to(torch.int64) & _MASK  # 0-d, broadcast against the pixels
+    else:
+        fid = torch.full_like(idx, int(frame_id) & _MASK)
     state = murmur_hash3_mix(state, fid)
     return murmur_hash3_finalize(state)
 

@@ -10,10 +10,13 @@ is a pure function too); the displayed image divides by the frame count
 last :meth:`Renderer.render` call, as in the JAX package.  PyTorch runs eagerly, so a
 frame is a plain function call on tensors of the Renderer's ``device``;
 the host issues every frame and so knows ``accum_id`` without asking the
-device.  The host syncs of :meth:`Renderer.render` are the one
-``torch.cuda.synchronize()`` at its end and, on the cluster tier, at most
-one per trace call whose cull can cut a list (the count of unresolved
-tiles, ``accel.cluster``).
+device.  In PATH and RATIO, :meth:`Renderer.render` runs the first n-1 of
+its n frames through ``engine.frame_graph`` (the JAX ``_frames_scan_impl``):
+replays of one captured CUDA graph on a card, eager steps on the CPU.  The
+host syncs of :meth:`Renderer.render` are the one
+``torch.cuda.synchronize()`` at its end, the one before a capture, and,
+on the cluster tier, at most one per trace call whose cull can cut a list
+(the count of unresolved tiles, ``accel.cluster``; rays on the CPU only).
 
 Primary rays go in square pixel blocks of up to 32 x 32 (JAX
 renderer.py:72-96): the cluster tier culls per 1024-ray tile, and a tile of
@@ -53,6 +56,7 @@ from ..core.types import Camera, GBuffers, RenderState
 from ..scene.config import Scene, SceneCamera
 from ..scene.device import DeviceScene, build_device_scene
 from . import camera as cameralib
+from .frame_graph import FrameBuffers, FrameGraph, frames_step
 from .modes import DETERMINISTIC_MODES, GBUFFER_MODES, RendererType
 from .shade import trace_closest_si
 
@@ -75,6 +79,12 @@ def pixel_order(width: int, height: int, device, row_offset: int = 0, rows: int 
     return lin.reshape(rows // bh, bh, width // bw, bw).transpose(1, 2).reshape(-1)
 
 
+def _graphs(device: torch.device) -> bool:
+    """Does a Renderer on ``device`` replay captured frames
+    (``frame_graph.FrameGraph``)?  On a CUDA device only."""
+    return device.type == "cuda"
+
+
 def _bakes(bvh: BVH) -> bool:
     """Does a Renderer of this BVH bake the shared-origin table?  On the
     cluster tier on a CUDA device only."""
@@ -90,7 +100,8 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     shard of it in the multi-device split (``parallel.sharding``).  Pixel
     ids, and so the RNG streams (deviceCode.cu:65-66), are absolute, so a
     split image is bit-identical to the whole one.  ``baked_tab``: the
-    table baked for ``camera.pos``, for the primary trace.
+    table baked for ``camera.pos``, for the primary trace.  ``accum_id``:
+    an int, or a 0-d int64 tensor on the device (``frame_graph``).
 
     Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict,
     trace stats).
@@ -213,6 +224,10 @@ class Renderer:
         self._lock = threading.Lock()
         self.state: RenderState = None  # set by set_camera
         self._baked_tab: BakedTable | None = None  # the primaries' shared-origin table (_table_for)
+        # render(n)'s first n-1 frames: (key, buffers, captured graph or None) of the current
+        # _frame_key (one graph at most), and the key of the last frame run eagerly
+        self._scan: tuple | None = None
+        self._warm_key: tuple | None = None
         self.gbuffers: GBuffers | None = None
         self.aux: dict = {}
         # honest ray accounting: primary rays + the NEE and bounce rays the
@@ -253,6 +268,41 @@ class Renderer:
             self._baked_tab = baked_tab
             if mode is not None:
                 self.mode = mode
+            if self._scan is not None and self._scan[0] != self._frame_key():
+                self._scan = None  # its graph captured another mode or table
+
+    def _frame_key(self) -> tuple:
+        """What a captured frame fixes: mode, shape, and which scene, BVH
+        and baked table it reads."""
+        return (self.mode, self.width, self.height, self.path_depth, self.ratio_samples,
+                id(self.device_scene), id(self.bvh), id(self._baked_tab))
+
+    def _scan_frames(self, n: int) -> FrameBuffers:
+        """Run the next ``n`` PATH or RATIO frames from ``self.state``
+        through ``frames_step`` (JAX ``_frames_scan_impl``); returns the
+        buffers that hold their sums.  On a card the frames are replays of
+        the graph captured for this key; the first one runs eagerly unless
+        a frame of the key already has, so that nothing is used for the
+        first time inside the capture."""
+        key = self._frame_key()
+        static = dict(mode=self.mode, width=self.width, height=self.height, path_depth=self.path_depth,
+                      ratio_samples=self.ratio_samples)
+        if self._scan is None or self._scan[0] != key:
+            self._scan = (key, FrameBuffers.for_frames(self.mode, self.width, self.height, self.path_depth,
+                                                       self.device), None)
+        _, buf, graph = self._scan
+        buf.load(self.state)
+        for _ in range(n):
+            if graph is not None:
+                graph.replay()
+            elif _graphs(self.device) and self._warm_key == key:
+                graph = FrameGraph(key, buf, self.device_scene, self.bvh, self._baked_tab, **static)
+                self._scan = (key, buf, graph)
+                graph.replay()
+            else:
+                frames_step(buf, self.device_scene, self.bvh, self._baked_tab, **static)
+                self._warm_key = key
+        return buf
 
     def set_mode(self, mode: RendererType) -> None:
         """Switch renderer mode and restart accumulation (the baked table
@@ -271,11 +321,28 @@ class Renderer:
                       self._table_for(cam.from_))
 
     def render(self, n_frames: int = 1) -> None:
-        """Advance progressive accumulation by ``n_frames`` frames."""
+        """Advance progressive accumulation by ``n_frames`` frames.
+
+        PATH and RATIO run the first n-1 frames through ``frames_step``
+        (JAX renderer.py:438-487): on a card as replays of one captured
+        CUDA graph, on the CPU eagerly.  The last frame is an ordinary
+        one, so ``gbuffers`` and ``aux`` stay populated; the deterministic
+        modes render one frame per accumulation."""
         t0 = time.perf_counter()
-        done = []  # (path_alive_counts or None, trace stats) per frame
-        ratio_sums = None  # RATIO: per-buffer sums over this call's frames
-        for _ in range(n_frames):
+        done = []  # (path_alive_counts or None, trace stats): the graph frames' sums, then one per frame
+        ratio_sums = None  # RATIO: per-buffer sums over this call's frames, in frame order
+        n_scan = max(n_frames - 1, 0) if self.mode in (RendererType.PATH, RendererType.RATIO) else 0
+        if n_scan:
+            buf = self._scan_frames(n_scan)
+            # a new state, as after n_scan ordinary frames: the buffers are overwritten by the next call
+            self.state = RenderState(accum=buf.accum.clone(), accum_id=self.state.accum_id + n_scan,
+                                     camera=self.state.camera)
+            alive = buf.sums.get("path_alive_counts")
+            done.append((None if alive is None else alive.clone(), {k: v.clone() for k, v in buf.stats.items()}))
+            if self.mode == RendererType.RATIO:
+                ratio_sums = dict(buf.sums)
+        n_done = n_scan
+        for _ in range(n_frames - n_scan):
             if self.mode in DETERMINISTIC_MODES and self.state.accum_id >= 1:
                 break  # analytic modes converge in one frame
             self.state, self.gbuffers, self.aux, stats = _frame_impl(
@@ -283,6 +350,8 @@ class Renderer:
                 height=self.height, path_depth=self.path_depth, ratio_samples=self.ratio_samples,
                 baked_tab=self._baked_tab,
             )
+            self._warm_key = self._frame_key()
+            n_done += 1
             done.append((self.aux.get("path_alive_counts"), stats))
             if self.mode == RendererType.RATIO:
                 ratio_sums = (dict(self.aux) if ratio_sums is None
@@ -291,23 +360,27 @@ class Renderer:
             # aux is the MEAN over every frame of this call, so the denoise and
             # ratio-combine stage sees n_samples * frames shadow samples per
             # pixel (the reference accumulates all buffers, deviceCode.cu:117-144)
-            self.aux = {k: v / len(done) for k, v in ratio_sums.items()}
+            self.aux = {k: v / n_done for k, v in ratio_sums.items()}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the frames are done, not just enqueued
-        self.record_frames(time.perf_counter() - t0, done)
+        self.record_frames(time.perf_counter() - t0, done, n_done)
 
-    def record_frames(self, seconds: float, frames: list) -> None:
-        """Account frames in ``metrics``: ``seconds`` of host time and one
-        (path_alive_counts or None, trace stats) per frame, the counts left
-        on the device.  :meth:`render` and :meth:`commit_step` call it, and so
-        does the multi-device split for frames it rendered itself."""
+    def record_frames(self, seconds: float, frames: list, count: int | None = None) -> None:
+        """Account frames in ``metrics``: ``seconds`` of host time and
+        ``frames``, (path_alive_counts or None, trace stats) entries left on
+        the device, each one frame's or a sum over several; ``count`` is the
+        number of frames they hold (default: one each).  The last entry of a
+        PATH call is one frame's: ``alive_per_bounce`` reads it.
+        :meth:`render` and :meth:`commit_step` call it, and so does the
+        multi-device split for frames it rendered itself."""
+        count = len(frames) if count is None else count
         for alive, stats in frames:
             self._pending_stats.append(stats)
             if alive is not None:
                 self._pending_counts.append(alive)
         self._metrics["seconds"] += seconds
-        self._metrics["frames"] += len(frames)
-        rays = len(frames) * self.width * self.height  # primary
+        self._metrics["frames"] += count
+        rays = count * self.width * self.height  # primary
         if self.mode == RendererType.RATIO:
             rays *= 1 + self.ratio_samples  # shadow visibility rays, all traced
         self._metrics["rays_traced"] += rays
@@ -337,8 +410,9 @@ class Renderer:
     def metrics(self) -> dict:
         """Observability dict; drains the device-side per-bounce counts."""
         if self._pending_counts:
-            # (frames, depth, 3): [alive lanes, shadow rays traced, bounce
-            # rays traced] per bounce (integrators.path.path_color)
+            # (entries, depth, 3): [alive lanes, shadow rays traced, bounce
+            # rays traced] per bounce (integrators.path.path_color), per frame
+            # or summed over a call's graph frames
             alive = torch.stack(self._pending_counts).cpu().numpy()
             self._pending_counts = []
             self._metrics["alive_per_bounce"] = [int(a) for a in alive[-1][:, 0]]

@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from ..core import math as cm
+from ..utils.launches import count_launch
 from . import ltc
 from .ltc import _masked_polygon_integral_c, _norm3c
 from .polygon_clip import clip_polygon_c
@@ -45,7 +46,8 @@ from .polygon_clip import clip_polygon_c
 # light row layout of the (L, 16) operand
 _L_V1, _L_V2, _L_V3, _L_N, _L_EMIT = 0, 3, 6, 9, 12
 
-# Launches of the kernel since the last reset_launch_counts(); the plain
+# Launches of the kernel since the last reset_launch_counts(), counted by
+# utils.launches.count_launch (a CUDA graph's replays included); the plain
 # version is not counted.
 LAUNCHES = {"ltc": 0}
 
@@ -279,5 +281,5 @@ def ltc_direct_cuda(origin, p, n_geom, alpha, diffuse, lights) -> torch.Tensor:
                              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ltc_direct launch failed: cudaError {err}")
-    LAUNCHES["ltc"] += 1
+    count_launch(LAUNCHES, "ltc")
     return out

@@ -44,6 +44,13 @@ device ms and calls per frame, and the ten kernels that take the most
 device time.
 A deterministic mode (NORMALS, LTC_BASELINE) renders one frame per
 accumulation, so ``set_camera`` comes before each of its frames.
+
+In PATH and RATIO the line also holds ``render_n``: the same numbers for
+one ``render(--frames)`` call, whose first frames are replays of the
+frame graph (``engine.frame_graph``; captured in a warm-up call before),
+then an ordinary frame.  The PyTorch stage ranges do not appear inside a
+replay, so there the stages' kernels count as glue; the hand-written
+kernels still count by name.
 """
 
 from __future__ import annotations
@@ -149,29 +156,42 @@ def profile_config(config: str, frames: int, smi: str) -> dict:
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
     deterministic = r.mode in DETERMINISTIC_MODES
     _render_frames(r, 1, deterministic)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _render_frames(r, frames, deterministic)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _render_frames(r, frames, deterministic)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    breakdown = device_breakdown(prof.events(), frames)
+    single = _measure(lambda: _render_frames(r, frames, deterministic), frames)
+    render_n = None
+    if not deterministic:
+        r.render(3)  # an eager frame, the frame graph's capture and a replay, an ordinary frame
+        render_n = {"note": f"render({frames}): {frames - 1} replays of the frame graph, then an ordinary frame; "
+                            "stage ranges do not appear inside a replay (their kernels count as glue there), "
+                            "hand-written kernels count by name",
+                    **_measure(lambda: r.render(frames), frames)}
     m = r.metrics
     return {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
         "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames,
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "wall_ms_per_frame": wall_ms, "profiled_wall_ms_per_frame": prof_wall_ms,
-        "idle_share": 1.0 - breakdown["device_ms_per_frame"] / prof_wall_ms, **breakdown,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **single, "render_n": render_n,
         # summed over the warm-up, timed and profiled frames
         "cull_stats": {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")},
     }
+
+
+def _measure(run, frames: int) -> dict:
+    """``run()`` (``frames`` frames, ending in a synchronize) on the host
+    clock, then again under the profiler: wall ms per frame of both, the
+    idle share and the device breakdown of the profiled run."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    breakdown = device_breakdown(prof.events(), frames)
+    return {"wall_ms_per_frame": wall_ms, "profiled_wall_ms_per_frame": prof_wall_ms,
+            "idle_share": 1.0 - breakdown["device_ms_per_frame"] / prof_wall_ms, **breakdown}
 
 
 def device_breakdown(events, frames: int) -> dict:
