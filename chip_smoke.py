@@ -74,23 +74,24 @@ raises and exits non-zero):
    5e-3);
 5. main path PATH: depth 4, ``scenes/cornell/scene.json`` at 1024^2,
    3 warm-up frames (under CUDA sync debugging: no frame may make the
-   host wait for the card; an eager frame, the capture of the frame graph
-   and one replay, then an ordinary frame) then 16 timed frames (15
-   replays and an ordinary frame), with the share of live
-   lanes (t_max > 0) in each B1 and B2 launch of the last frame;
-6. main path LTC_BASELINE: Cornell at 1024^2, 1 warm-up frame, then 16
-   single frames, each after ``set_camera`` (a deterministic mode renders
-   one frame per accumulation); in one more frame, profiled, the LTC term
-   must run B6 alone (no setup op), and the state the frame started from
-   must be left as it was;
+   host wait for the card; the key's eager frame, the capture of the frame
+   graph, then replays) then 16 timed frames (16 replays), with the share
+   of live lanes (t_max > 0) in each B1 and B2 launch of the last frame;
+6. main path LTC_BASELINE: Cornell at 1024^2, 2 warm-up frames (the
+   key's eager frame, then the capture), then 16 single frames, each
+   after ``set_camera`` (a deterministic mode renders one frame per
+   accumulation), each a replay; in one eager ``_frame_impl`` frame,
+   profiled, the LTC term must run B6 alone (no setup op), and a replayed
+   frame must leave the state it started from as it was and equal it;
 7. main path RATIO: the three-light Cornell at 1024^2 with 4 shadow
    samples per pixel, 3 warm-up frames under sync debugging, 16 timed
    frames, then denoise x2 and ratio-combine, checked for the invariants
    of tests/integration/test_ratio_render.py;
-8. main path config 5: terrain NORMALS at 1024^2, 1 warm-up frame under
-   sync debugging (no sync allowed), then 16 single frames, each after
-   ``set_camera`` to the same camera (which keeps the baked table, so no
-   bake runs inside a timed frame);
+8. main path config 5: terrain NORMALS at 1024^2, 2 warm-up frames (the
+   eager frame and the capture) under sync debugging (no sync allowed),
+   then 16 single frames (replays), each after ``set_camera`` to the same
+   camera (which keeps the baked table, so no bake runs inside a timed
+   frame);
 9. main path config 6: the gallery, PATH depth 4 at 512^2, 3 warm-up
    frames under sync debugging (no sync allowed), then 16 timed frames;
 10. main path config 5b: terrain PATH depth 4 at 1024^2, 3 warm-up frames
@@ -101,40 +102,57 @@ raises and exits non-zero):
    in a Renderer built at camera 0 must rebake its table at the
    checkpoint's origin and render through the baked walk.
 12. the multi-device split (``parallel.sharding``) over two shares of the
-   one card: Cornell PATH depth 4 at 1024^2 through the row split, 4 frames
-   bit-equal to 4 single-device frames with the same honest ray count;
-   the spp split's 2 frames in one step bit-equal to 2 sequential frames;
-   config 5's terrain NORMALS at 1024^2 through the row split, every tile's
-   primaries through the baked walk (one launch a tile), bit-equal to the
-   single frame; no implicit sync in a split frame; ms/frame of split and
+   one card, every tile a replay of its own graph (one per row range) after
+   the warm-up: Cornell PATH depth 4 at 1024^2 through the row split, 4
+   frames bit-equal to 4 single-device frames and to 4 ``_frame_impl``
+   frames with the same honest ray count and per-bounce counts; the spp
+   split's 2 frames in one step (replays of two whole-frame graphs)
+   bit-equal to 2 ``_frame_impl`` frames; config 5's terrain NORMALS at
+   1024^2 through the row split, every tile's primaries through the baked
+   walk (one launch a tile), bit-equal to the single frame and to the
+   eager frame; no implicit sync in a split frame; ms/frame of split and
    single;
 13. the live viewer (``engine.serve.ViewerServer`` on port 0) over config
    5b, terrain PATH depth 4 at 1024^2: three rounds of 10 /status requests
-   and an orbit while frames are in flight, each round from a client
-   process of its own (as a browser), every answer under a third of
+   and an orbit while a frame is in flight (the render thread is held
+   just after it enqueued that frame until the round's client process has
+   had its answers, so the orbit races the frame whatever the host's
+   timing), each round from a client process of its own (as a browser),
+   every answer under a third of
    the median committed frame; after each orbit /status reads accum_id 0,
    the next committed frame is accum_id 1, the baked table's origin is the
-   new camera's and a frame in flight was dropped; NORMALS and
-   LTC_BASELINE stop at one frame, LTC_BASELINE launches B6; back to PATH;
-   a screenshot, a recorded camera, /frame.png's latency, a finite image;
+   new camera's, a frame in flight was dropped and the frame graph was not
+   captured again (its capture, on the render thread, is timed); NORMALS
+   and LTC_BASELINE stop at one frame, LTC_BASELINE launches B6; back to
+   PATH; a screenshot, a recorded camera, /frame.png's latency, a finite
+   image;
 14. the BVH cache on the terrain: a cold build and a warm load into a
    temporary directory, every tensor equal, their host seconds; the CLI
    as a subprocess with ``--bvh-cache`` twice, the second run loading the
    entry the first wrote;
-15. several frames in one dispatch (``engine.frame_graph``): Cornell PATH
-   depth 4 at 1024^2, RATIO on the three-light Cornell at 1024^2 and
-   config 6 over 8 frames, config 5b over 3: from one state, n
-   ``_frame_impl`` frames run directly against ``render(n)`` (n-1 replays
-   of the frame graph captured in the warm-up, then an ordinary frame):
-   the accumulator and RATIO's aux bit-equal, the same honest rays and
-   per-bounce counts, the same launch counts, no implicit sync; then
-   eager frames against replays of the graph in turns (host clock and
-   CUDA events), the capture's ms, and the peak memory both ways (the
-   graph's pool, what dropping the graph gives back, beside it).
+15. one dispatch for every frame (``engine.frame_graph``): LTC_BASELINE on
+   Cornell (config 1) and config 5's NORMALS, one frame per accumulation
+   (16 of them), ``render(8)`` on Cornell PATH depth 4, RATIO on the
+   three-light Cornell and config 6, ``render(3)`` on config 5b: from one
+   state, ``_frame_impl`` frames run directly against the Renderer's
+   frames (replays of the graph captured in the warm-up): the
+   accumulator, the last frame's g-buffers and the aux bit-equal, the same
+   honest rays and per-bounce counts, the same launch counts, no implicit
+   sync; then eager frames against replays in turns (host clock and CUDA
+   events), the capture's ms, and the peak memory both ways (the graph's
+   one pool, what dropping the graph gives back, beside it); a detached
+   frame (``render_step_detached``) on a side stream, bit-equal to the
+   eager frame and leaving the renderer as it was; and, on config 6,
+   ``render(3)``, a detached frame on a side stream, ``commit_step``, a
+   rebaking ``set_camera`` and ``render(3)``, bit-equal to the same frames
+   run eagerly, with no capture after the first.  Every capture of the run
+   is timed (host clock, synchronize to synchronize), the viewer's on its
+   render thread included.
 
-In PATH and RATIO every ``render(n)`` runs its first n-1 frames as
-replays of one captured CUDA graph of a frame; its launch counts are the
-kernels that ran, replays included (``utils.launches``).
+Every frame on the card is a replay of one captured CUDA graph of its key
+(mode, shape, tile, scene, BVH, whether a baked table exists), after the
+key's one eager frame; its launch counts are the kernels that ran,
+replays included (``utils.launches``).  A camera move keeps the graph.
 
 On the cluster tier every frame's primary trace is one launch of the baked
 walk (``cluster_closest_walk_baked``); the unbaked walk
@@ -163,6 +181,7 @@ and checked in phase 3.  The last three lines are the kernels' JSON record, the 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -170,14 +189,16 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
-# 3 warm-up frames: in PATH and RATIO an eager frame, the capture of the frame graph and one replay, then an
-# ordinary frame (Renderer.render), so that no timed run captures
+# 3 warm-up frames: the key's eager frame, the capture of the frame graph, then replays (a deterministic mode:
+# two single frames), so that no timed run captures
 MAIN_RES, MAIN_DEPTH, WARMUP_FRAMES, TIMED_FRAMES = 1024, 4, 3, 16
 BOUNCE_RAYS = 1 << 20
 LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS = 1 << 20, 7
@@ -225,8 +246,9 @@ CLI_RES, CLI_SPP, CLI_CAM_FROM = 256, 2, (200.0, 320.0, -400.0)
 # phases 12-14: the split's frames (two shares of the one card), the viewer's rounds of /status requests and an
 # orbit, and a deadline for each of its waits
 SPLIT_FRAMES, SPLIT_DEVICES, VIEWER_ROUNDS, VIEWER_STATUS_REQUESTS, VIEWER_DEADLINE_S = 4, 2, 3, 10, 120.0
-# phase 15: frames through the frame graph against as many eager frames (config 5b: 3, at ~0.3 s a frame)
-GRAPH_FRAMES, GRAPH_FRAMES_5B = 8, 3
+# phase 15: frames through the frame graph against as many eager frames (config 5b: 3, at ~0.3 s a frame; the
+# deterministic modes: 16 single frames); the interleaving's render(n)
+GRAPH_FRAMES, GRAPH_FRAMES_5B, GRAPH_SINGLES, INTERLEAVE_FRAMES = 8, 3, 16, 3
 CACHE_CLI_RES = 256
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
@@ -390,7 +412,10 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
             else:
                 r.render(frames)
 
-        r.render(WARMUP_FRAMES)  # warm-up (PATH: the frame graph's capture too)
+        r.render(WARMUP_FRAMES)  # warm-up: the key's eager frame, then (PATH) the frame graph's capture
+        if mode == RendererType.NORMALS:  # one frame per accumulation: the capture comes with the second
+            r.set_camera(scene.cameras[0])
+            r.render(1)
         counts[0]()
         t0 = time.perf_counter()
         render()
@@ -738,6 +763,35 @@ print(json.dumps({"status_s": lat, "orbit": orbit, "orbit_s": orbit_s, "after": 
 """
 
 
+class _HeldFrame:
+    """Wraps a Renderer's ``render_step_detached``: once armed, the next
+    frame is enqueued and the calling thread then waits until ``release``.
+    A control op sent meanwhile lands while that frame is in flight, so the
+    viewer must drop it; without the hold an op can fall between two frames,
+    where nothing is in flight to drop."""
+
+    def __init__(self, step):
+        self.step, self.armed = step, False
+        self.holding, self.released = threading.Event(), threading.Event()
+
+    def __call__(self):
+        out = self.step()
+        if self.armed:
+            self.armed = False
+            self.holding.set()
+            _require(self.released.wait(VIEWER_DEADLINE_S), f"a held frame not released within {VIEWER_DEADLINE_S} s")
+        return out
+
+    def arm(self) -> None:
+        self.holding.clear()
+        self.released.clear()
+        self.armed = True
+
+    def release(self) -> None:
+        self.armed = False
+        self.released.set()
+
+
 def _wait_for(cond, what: str, timeout: float = VIEWER_DEADLINE_S) -> None:
     t0 = time.monotonic()
     while not cond():
@@ -780,6 +834,9 @@ def main() -> int:
     from optix_renderer_tpu_torch.utils.bench_rays import (bounce_like_rays, first_frame_primaries, ltc_frame_inputs,
                                                            random_ltc_inputs)
     from optix_renderer_tpu_torch.utils.profile_frames import device_breakdown, labeled
+    from optix_renderer_tpu_torch.engine import frame_graph as fg
+    from optix_renderer_tpu_torch.engine.modes import DETERMINISTIC_MODES
+    from optix_renderer_tpu_torch.engine.renderer import _frame_impl
 
     def reset_counts():
         bt.reset_launch_counts()
@@ -801,6 +858,68 @@ def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
     dev = torch.device("cuda", 0)
+    captures = []  # every capture of a frame graph in this run: what, on which thread, host ms
+    frame_graph = fg.FrameGraph
+
+    class TimedGraph(frame_graph):
+        """The frame slots' FrameGraph, its capture timed on the host clock."""
+
+        def __init__(self, key, buf, ds, bvh, **static):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            super().__init__(key, buf, ds, bvh, **static)
+            torch.cuda.synchronize(dev)
+            captures.append({"frame": f"{RendererType(static['mode']).name} {static['width']}x{buf.rows}"
+                                      f"+{buf.row_offset}", "thread": threading.current_thread().name,
+                             "ms": (time.perf_counter() - t0) * 1e3, "ref": weakref.ref(self)})
+
+    fg.FrameGraph = TimedGraph
+
+    def warm_up(rend, cam, frames=WARMUP_FRAMES):
+        """The key's eager frame and the capture of its graph, so that no timed frame captures: ``frames``
+        frames, or in a deterministic mode (one frame per accumulation) two single frames."""
+        if rend.mode in DETERMINISTIC_MODES:
+            rend.render(1)
+            rend.set_camera(cam)
+            rend.render(1)
+        else:
+            rend.render(frames)
+
+    def eager_frames(rend, state, n, every_gbuffer=False):
+        """n ``_frame_impl`` frames from ``state`` (the pure reference): (the last state, each frame's
+        (g-buffers, aux, trace stats)); the g-buffers of the last frame only, unless ``every_gbuffer``."""
+        frames = []
+        for i in range(n):
+            state, gb, aux, stats = _frame_impl(
+                state, rend.device_scene, rend.bvh, mode=rend.mode, width=rend.width, height=rend.height,
+                path_depth=rend.path_depth, ratio_samples=rend.ratio_samples, baked_tab=rend.baked_tab)
+            frames.append((gb if every_gbuffer or i == n - 1 else None, aux, stats))
+        return state, frames
+
+    def same_frames(label, got_state, got_gb, got_aux, want_state, frames):
+        """The Renderer's published state, g-buffers and aux against eager frames from the same state."""
+        _require(got_state.accum_id == want_state.accum_id and bool(torch.equal(got_state.accum, want_state.accum)),
+                 f"{label}: the accumulator differs from {len(frames)} eager frames")
+        for f in dataclasses.fields(got_gb):
+            _require(bool(torch.equal(getattr(got_gb, f.name), getattr(frames[-1][0], f.name))),
+                     f"{label}: g-buffer {f.name} differs from the eager frame's")
+        auxes = [a for _gb, a, _st in frames]
+        for k in auxes[0]:
+            if k == "path_alive_counts":
+                want = auxes[-1][k]
+            else:  # RATIO: the mean over the frames, summed in frame order
+                want = auxes[0][k]
+                for a in auxes[1:]:
+                    want = want + a[k]
+                want = want / len(auxes)
+            _require(bool(torch.equal(got_aux[k], want)), f"{label}: aux {k} differs from the eager frames'")
+
+    def eager_rays(rend, frames):
+        """(honest rays, alive_per_bounce of the last) of eager frames."""
+        per_frame = rend.width * rend.height * (1 + (rend.ratio_samples if rend.mode == RendererType.RATIO else 0))
+        alive = [a["path_alive_counts"] for _gb, a, _st in frames if "path_alive_counts" in a]
+        return (len(frames) * per_frame + sum(int(a[:, 1:].sum()) for a in alive),
+                [int(x) for x in alive[-1][:, 0]] if alive else None)
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"[1 device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -1188,7 +1307,7 @@ def main() -> int:
     phase_done("phase 5")
 
     # ---- 6. main path LTC_BASELINE at full size -----------------------------
-    rl.render(1)  # warm-up
+    warm_up(rl, cornell.cameras[0])  # the key's eager frame, then the capture
     reset_counts()
     secs = 0.0
     for _ in range(TIMED_FRAMES):
@@ -1202,9 +1321,10 @@ def main() -> int:
     img = rl.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"LTC_BASELINE image: shape {img.shape}, mean {img.mean()}")
-    # the LTC term of a frame is one launch of B6 and nothing else: no setup op runs on the card
-    # (one more profiled frame, the integrator in a profiler range as profile_frames puts it); the
-    # frame leaves the state it started from as it was (a pure function of the state, as in JAX)
+    # the LTC term of a frame is one launch of B6 and nothing else: no setup op runs on the card (one eager
+    # _frame_impl frame, the frame the graph captured, profiled with the integrator in a profiler range as
+    # profile_frames puts it: ranges do not show inside a replay); a replayed frame leaves the state it
+    # started from as it was (a pure function of the state, as in JAX) and equals the eager frame
     rl.set_camera(cornell.cameras[0])
     state0 = rl.state
     accum0 = state0.accum.clone()
@@ -1213,21 +1333,23 @@ def main() -> int:
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            rl.render(1)
+            want_state, _frames = eager_frames(rl, state0, 1)
             torch.cuda.synchronize()
     finally:
         ltd.ltc_direct = ltc_direct
+    rl.render(1)
     _require(rl.state.accum is not state0.accum and bool(torch.equal(state0.accum, accum0))
              and state0.accum_id == 0 and rl.state.accum_id == 1, "the LTC frame changed the state it started from")
+    _require(bool(torch.equal(rl.state.accum, want_state.accum)), "the replayed LTC frame differs from the eager one")
     ltc_stages = device_breakdown(prof.events(), 1)["stages"]
     _require(ltc_stages["ltc"]["calls_per_frame"] == 1 and ltc_stages["B6"]["calls_per_frame"] == 1
              and ltc_stages["ltc"]["device_ms_per_frame"] == 0.0,
              f"the LTC term of a frame: {ltc_stages['ltc']} outside B6 ({ltc_stages['B6']}), expected B6 alone")
-    print(f"[6 main path] LTC_BASELINE Cornell {MAIN_RES}^2, {TIMED_FRAMES} single frames after 1 warm-up: "
+    print(f"[6 main path] LTC_BASELINE Cornell {MAIN_RES}^2, {TIMED_FRAMES} single frames (replays) after 2 warm-up: "
           f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {TIMED_FRAMES * n_px / secs / 1e6:.3f} Mrays/s "
-          f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}; a profiled frame's LTC term: "
-          f"B6 {ltc_stages['B6']['device_ms_per_frame']:.4f} ms, no other kernel; its input state unchanged, "
-          f"on {smi}", flush=True)
+          f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}; an eager frame's LTC term, "
+          f"profiled: B6 {ltc_stages['B6']['device_ms_per_frame']:.4f} ms, no other kernel; a replayed frame "
+          f"equal to it, its input state unchanged, on {smi}", flush=True)
     del rl, ltc_l2
     phase_done("phase 6")
 
@@ -1272,7 +1394,11 @@ def main() -> int:
     def stats_of(m):
         return {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")}
 
-    syncs = _no_implicit_syncs(torch, lambda: rt.render(1))  # warm-up
+    # warm-up: the key's eager frame, then (after set_camera, whose host-to-card copies of the camera are not a
+    # frame's) the capture and a replay
+    syncs = _no_implicit_syncs(torch, lambda: rt.render(1))
+    rt.set_camera(terrain.cameras[0])
+    syncs += _no_implicit_syncs(torch, lambda: rt.render(1))
     _require(not syncs, f"the terrain NORMALS frame synchronizes with the card at {syncs}")
     m0 = dict(rt.metrics)
     reset_counts()
@@ -1292,9 +1418,9 @@ def main() -> int:
              and float(np.abs(img).mean()) > 0.0,  # normals: signed components
              f"terrain NORMALS image: shape {img.shape}, mean |value| {np.abs(img).mean()}")
     print(f"[8 main path] config 5: terrain NORMALS {TERRAIN_RES}^2 ({tb.num_tris} triangles), {TERRAIN_FRAMES} "
-          f"single frames after 1 warm-up: {secs / TERRAIN_FRAMES * 1e3:.3f} ms/frame, "
+          f"single frames (replays) after 2 warm-up: {secs / TERRAIN_FRAMES * 1e3:.3f} ms/frame, "
           f"{TERRAIN_FRAMES * n_t / secs / 1e6:.3f} Mrays/s (primary rays), image mean {img.mean():.5f}, "
-          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frame: {len(syncs)}, "
+          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frames: {len(syncs)}, "
           f"on {smi}", flush=True)
     phase_done("phase 8")
 
@@ -1409,13 +1535,19 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as surf:  # the terrain's files for the viewer's record op and the CLI
         # ---- 12. the multi-device split on the card: SPLIT_DEVICES shares of the one card ----------
+        # every tile a replay of its own graph (one per row range) once the warm-up captured them
         pair = [dev] * SPLIT_DEVICES
         one, split = (Renderer(cornell, width=MAIN_RES, height=MAIN_RES, mode=RendererType.PATH,
                                path_depth=MAIN_DEPTH, device=dev) for _ in range(2))
-        one.render(WARMUP_FRAMES)  # warm-up, the same frames on both sides (and the single side's frame graph)
+        one.render(WARMUP_FRAMES)  # warm-up, the same frames on both sides (and their graphs' captures)
+        n_cap = len(captures)
         syncs = _no_implicit_syncs(torch, lambda: sharding.render_rows(split, pair, WARMUP_FRAMES))
         _require(not syncs, f"a row-split PATH frame synchronizes with the card at {syncs}")
+        _require(len(captures) == n_cap + SPLIT_DEVICES, f"the row split captured {len(captures) - n_cap} graphs")
         m0 = {"one": dict(one.metrics), "split": dict(split.metrics)}
+        reset_counts()
+        want_split, frames = eager_frames(split, split.state, SPLIT_FRAMES)
+        launches_eager = launch_counts()
         reset_counts()
         one.render(SPLIT_FRAMES)
         reset_counts()
@@ -1424,34 +1556,51 @@ def main() -> int:
         m1 = {"one": dict(one.metrics), "split": dict(split.metrics)}
         want = expected(brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
                         brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH)
-        _require(launches_split == want, f"row-split PATH launch counts {launches_split}, expected {want}")
+        _require(launches_split == want and {k: v * SPLIT_DEVICES for k, v in launches_eager.items()} == want,
+                 f"row-split PATH launch counts {launches_split}, eager {launches_eager}, expected {want}")
         _require(split.state.accum_id == one.state.accum_id == SPLIT_FRAMES + WARMUP_FRAMES
                  and bool(torch.equal(split.state.accum, one.state.accum)),
                  "the row-split PATH frames differ from the single-device frames")
+        same_frames("row-split PATH", split.state, split.gbuffers, split.aux, want_split, frames)
+        rays_e, alive_e = eager_rays(split, frames)
         _require(m1["split"]["rays_traced"] == m1["one"]["rays_traced"]
-                 and m1["split"]["alive_per_bounce"] == m1["one"]["alive_per_bounce"],
-                 f"honest rays: split {m1['split']['rays_traced']}, single {m1['one']['rays_traced']}")
+                 and m1["split"]["rays_traced"] - m0["split"]["rays_traced"] == rays_e
+                 and m1["split"]["alive_per_bounce"] == m1["one"]["alive_per_bounce"] == alive_e,
+                 f"honest rays: split {m1['split']['rays_traced']}, single {m1['one']['rays_traced']}, "
+                 f"eager {rays_e} more")
+        _require(len(captures) == n_cap + SPLIT_DEVICES, "the row split captured again")
         ms_path = {k: (m1[k]["seconds"] - m0[k]["seconds"]) / SPLIT_FRAMES * 1e3 for k in m1}
-        del one, split
-        # the spp split: SPLIT_DEVICES frames in one step, against as many sequential frames
+        del one, split, frames, want_split
+        # the spp split: SPLIT_DEVICES frames in one step (a whole-frame graph a share), against as many eager
+        # frames; the first step runs each share's eager frame, the second captures, the third only replays
         rs = Renderer(cornell, width=MAIN_RES, height=MAIN_RES, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
                       device=dev)
         step = sharding.make_spp_sharded_frame_fn(pair, RendererType.PATH, MAIN_RES, MAIN_RES, path_depth=MAIN_DEPTH)
         reps = [sharding.replicate(x, pair) for x in (rs.device_scene, rs.bvh, rs.baked_tab)]
+        step(rs.state, *reps)
+        step(rs.state, *reps)
+        reset_counts()
+        want_spp, frames = eager_frames(rs, rs.state, SPLIT_DEVICES, every_gbuffer=True)
+        launches_eager = launch_counts()
         out = []
         reset_counts()
         syncs_spp = _no_implicit_syncs(torch, lambda: out.append(step(rs.state, *reps)))
         torch.cuda.synchronize(dev)
         launches_spp = launch_counts()
         _require(not syncs_spp, f"the spp split synchronizes with the card at {syncs_spp}")
-        rs.render(SPLIT_DEVICES)
-        _require(out[0][0].accum_id == SPLIT_DEVICES and bool(torch.equal(out[0][0].accum, rs.state.accum)),
+        _require(launches_spp == launches_eager, f"spp split launches {launches_spp}, eager {launches_eager}")
+        _require(out[0][0].accum_id == SPLIT_DEVICES and bool(torch.equal(out[0][0].accum, want_spp.accum)),
                  "the spp split differs from the sequential frames")
-        del rs, out, reps
+        for (gb, aux, _st), g, a in zip(frames, out[0][1], out[0][2]):
+            _require(all(bool(torch.equal(getattr(g, f.name), getattr(gb, f.name))) for f in dataclasses.fields(gb))
+                     and bool(torch.equal(a["path_alive_counts"], aux["path_alive_counts"])),
+                     "an spp share's g-buffers or per-bounce counts differ from its eager frame's")
+        del rs, out, reps, step, frames, want_spp
         # config 5's terrain NORMALS through the row split: every tile's primaries through the baked walk
         terrain_json = write_terrain_scene(surf, grid=TERRAIN_GRID, width=TERRAIN_RES, height=TERRAIN_RES)
         rv = Renderer(terrain, width=TERRAIN_RES, height=TERRAIN_RES, mode=RendererType.NORMALS,
                       path_depth=MAIN_DEPTH, device=dev)
+        warm_up(rv, terrain.cameras[0])
         secs_t = {"one": [], "split": []}
         for _ in range(SPLIT_FRAMES):
             rv.set_camera(terrain.cameras[0])  # a deterministic mode renders one frame per accumulation
@@ -1460,9 +1609,16 @@ def main() -> int:
             secs_t["one"].append(rv.metrics["seconds"] - s0)
         single_t = rv.state.accum
         rv.set_camera(terrain.cameras[0])
-        syncs_t = _no_implicit_syncs(torch, lambda: sharding.render_rows(rv, pair, 1))
+        want_t, _frames = eager_frames(rv, rv.state, 1)
+        _require(bool(torch.equal(single_t, want_t.accum)), "the terrain frame differs from the eager frame")
+        whole = weakref.ref(rv._frames.slots[0].graph)  # the whole frame's graph, captured by the warm-up
+        syncs_t = _no_implicit_syncs(torch, lambda: sharding.render_rows(rv, pair, 1))  # each tile's eager frame
+        gc.collect()
+        _require(whole() is None, "the row split left the renderer's whole-frame graph alive beside its tiles'")
         _require(not syncs_t, f"a row-split terrain frame synchronizes with the card at {syncs_t}")
         _require(bool(torch.equal(rv.state.accum, single_t)), "the row-split terrain frame differs from the single")
+        rv.set_camera(terrain.cameras[0])
+        sharding.render_rows(rv, pair, 1)  # the tiles' captures
         reset_counts()
         for _ in range(SPLIT_FRAMES):
             rv.set_camera(terrain.cameras[0])
@@ -1475,14 +1631,16 @@ def main() -> int:
                         winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES)
         _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
         ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
-        print(f"[12 split] {SPLIT_DEVICES} shares of {dev}: Cornell PATH depth {MAIN_DEPTH} {MAIN_RES}^2, "
-              f"{SPLIT_FRAMES} frames after {WARMUP_FRAMES} warm-up, bit-equal to one device with the same honest rays "
+        print(f"[12 split] {SPLIT_DEVICES} shares of {dev}, each tile a replay of its own graph: Cornell PATH depth "
+              f"{MAIN_DEPTH} {MAIN_RES}^2, {SPLIT_FRAMES} frames after {WARMUP_FRAMES} warm-up, bit-equal to one "
+              f"device and to {SPLIT_FRAMES} eager frames with the same honest rays "
               f"({m1['split']['rays_traced']}): split {ms_path['split']:.3f} ms/frame, single "
-              f"{ms_path['one']:.3f}, launches {launches_split}; spp split of {SPLIT_DEVICES} frames in one step "
-              f"bit-equal to {SPLIT_DEVICES} sequential frames, launches {launches_spp}; config 5 terrain NORMALS "
-              f"{TERRAIN_RES}^2 ({rv.bvh.num_tris} triangles), {SPLIT_FRAMES} split frames bit-equal to the "
-              f"single frame: split {ms_t['split']:.3f} ms/frame, single {ms_t['one']:.3f}, launches "
-              f"{launches_split_t}; implicit syncs in a split frame: {len(syncs)} (PATH), {len(syncs_t)} "
+              f"{ms_path['one']:.3f} ({ms_path['split'] / ms_path['one']:.3f}x), launches {launches_split}; spp split "
+              f"of {SPLIT_DEVICES} frames in one step bit-equal to {SPLIT_DEVICES} eager frames, launches "
+              f"{launches_spp}; config 5 terrain NORMALS {TERRAIN_RES}^2 ({rv.bvh.num_tris} triangles), "
+              f"{SPLIT_FRAMES} split frames bit-equal to the single and the eager frame: split "
+              f"{ms_t['split']:.3f} ms/frame, single {ms_t['one']:.3f} ({ms_t['split'] / ms_t['one']:.3f}x), "
+              f"launches {launches_split_t}; implicit syncs in a split frame: {len(syncs)} (PATH), {len(syncs_t)} "
               f"(terrain), {len(syncs_spp)} (spp); on {smi}", flush=True)
         phase_done("phase 12")
 
@@ -1491,17 +1649,28 @@ def main() -> int:
         shots = os.path.join(surf, "shots")
         os.makedirs(shots)
         server = ViewerServer(rv, scene_path=terrain_json, port=0, out_dir=shots)
+        held = rv.render_step_detached = _HeldFrame(rv.render_step_detached)
         reset_counts()
         server.start()
         try:
             port = server.port
             _wait_for(lambda: len(server.commits) >= 2, "the viewer's first two frames")
+            # the first frame of the PATH key ran eagerly, the second captured its graph on the render thread
+            viewer_caps = [c for c in captures if c["thread"] == "viewer-render"]
+            _require(len(viewer_caps) == 1, f"captures on the viewer's render thread: {viewer_caps}")
+            n_cap = len(captures)
             lat_status, lat_orbit, firsts = [], [], []
             c0, t_rounds = len(server.commits), time.perf_counter()
             for k in range(VIEWER_ROUNDS):
                 d0 = server.discarded
-                proc = subprocess.run([sys.executable, "-c", _VIEWER_CLIENT, str(port), str(VIEWER_STATUS_REQUESTS)],
-                                      capture_output=True, text=True, timeout=VIEWER_DEADLINE_S)
+                held.arm()
+                _wait_for(held.holding.is_set, f"a frame in flight before orbit {k}")
+                try:
+                    proc = subprocess.run([sys.executable, "-c", _VIEWER_CLIENT, str(port),
+                                           str(VIEWER_STATUS_REQUESTS)],
+                                          capture_output=True, text=True, timeout=VIEWER_DEADLINE_S)
+                finally:
+                    held.release()
                 _require(proc.returncode == 0, f"viewer client round {k}: {proc.stderr[-2000:]}")
                 got = json.loads(proc.stdout.strip().splitlines()[-1])
                 lat_status += got["status_s"]
@@ -1518,6 +1687,7 @@ def main() -> int:
                 _require(bool(np.array_equal(rv.baked_tab.origin, moved)),
                          f"orbit {k}: the table's origin {rv.baked_tab.origin} is not the camera's {moved}")
                 _require(server.discarded > d0, f"orbit {k}: no frame in flight was dropped")
+                _require(len(captures) == n_cap, f"orbit {k}: the frame graph was captured again ({captures[n_cap:]})")
             fps = (len(server.commits) - c0) / (time.perf_counter() - t_rounds)
             frame_ms = statistics.median(c[2] for c in server.commits) * 1e3
             worst = max(lat_status + lat_orbit) * 1e3
@@ -1551,7 +1721,9 @@ def main() -> int:
             png, png_s = _http(port, "/frame.png")  # a frame not encoded yet: the copy and the encode
             _require(png[:8] == b"\x89PNG\r\n\x1a\n", "/frame.png is not a PNG")
         finally:
+            held.release()
             server.shutdown()
+        del rv.render_step_detached
         launches_viewer = launch_counts()
         _require(server.error is None and not any(t.is_alive() for t in server._threads),
                  f"the viewer's render loop failed: {server.error!r}")
@@ -1568,7 +1740,8 @@ def main() -> int:
               f"{max(lat_status) * 1e3:.3f} max ({len(lat_status)} requests), orbit in "
               f"{[round(x * 1e3, 3) for x in lat_orbit]} ms (bound a third of a frame, {frame_ms / 3:.3f} ms); "
               f"{server.discarded} frames dropped, each orbit's first frame accum_id 1 from a table rebaked at its "
-              f"origin; NORMALS and LTC_BASELINE stopped at {stops} frame(s); /frame.png in {png_s * 1e3:.3f} ms; "
+              f"origin, no capture after an orbit (the PATH graph captured on the render thread in "
+              f"{viewer_caps[0]['ms']:.3f} ms); NORMALS and LTC_BASELINE stopped at {stops} frame(s); /frame.png in {png_s * 1e3:.3f} ms; "
               f"{len(server.commits)} frames committed, image mean {img.mean():.5f}, launches {launches_viewer}, "
               f"on {smi}", flush=True)
         del server, rv
@@ -1618,32 +1791,7 @@ def main() -> int:
         del tv, bvh_kw
         phase_done("phase 14")
 
-    # ---- 15. several frames in one dispatch: render(n) replays a captured CUDA graph of one frame -----
-    from optix_renderer_tpu_torch.engine import renderer as renderer_mod
-
-    captures = []  # host ms of each capture in this phase
-    frame_graph = renderer_mod.FrameGraph
-
-    class TimedGraph(frame_graph):
-        """The Renderer's FrameGraph, its capture timed on the host clock."""
-
-        def __init__(self, *args, **kwargs):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            super().__init__(*args, **kwargs)
-            torch.cuda.synchronize(dev)
-            captures.append((time.perf_counter() - t0) * 1e3)
-
-    def eager_frames(rend, state, n):
-        """n ``_frame_impl`` frames from ``state``: (the last state, each frame's aux)."""
-        auxes = []
-        for _ in range(n):
-            state, _gb, aux, _stats = renderer_mod._frame_impl(
-                state, rend.device_scene, rend.bvh, mode=rend.mode, width=rend.width, height=rend.height,
-                path_depth=rend.path_depth, ratio_samples=rend.ratio_samples, baked_tab=rend.baked_tab)
-            auxes.append(aux)
-        return state, auxes
-
+    # ---- 15. one dispatch for every frame: every frame a replay of its key's captured graph -------------
     def per_frame_ms(fn, n):
         """(host-clock ms, CUDA-event ms) per frame of ``fn``, which runs n frames."""
         torch.cuda.synchronize(dev)
@@ -1655,96 +1803,252 @@ def main() -> int:
         end.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n, start.elapsed_time(end) / n
 
-    def graph_vs_eager(label, rend, n):
-        captures.clear()
-        rend.render(WARMUP_FRAMES)  # an eager frame, the capture and a replay, then an ordinary frame
-        graph = rend._scan[2] if rend._scan is not None else None
-        _require(len(captures) == 1 and isinstance(graph, TimedGraph), f"{label}: the warm-up captured {captures}")
+    def detached_on_side_stream(rend):
+        """``rend.render_step_detached()`` on a stream of its own, as the viewer's render thread runs it:
+        (the frame, where it synchronized), the frame done."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        out = []
+        with torch.cuda.stream(side):
+            syncs = _no_implicit_syncs(torch, lambda: out.append(rend.render_step_detached()))
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        return out[0], syncs
+
+    def tensor_bytes(*trees):
+        """Bytes of the distinct storages of the tensors in ``trees`` (dataclasses, dicts, tuples)."""
+        seen = {}
+
+        def walk(x):
+            if isinstance(x, torch.Tensor):
+                seen[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+            elif isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, (tuple, list)):
+                for v in x:
+                    walk(v)
+            elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+                for f in dataclasses.fields(x):
+                    walk(getattr(x, f.name))
+
+        walk(trees)
+        return sum(seen.values())
+
+    def pool_bytes(pool_id):
+        """(reserved, allocated) bytes of the private memory pool ``pool_id``, from the allocator's segments;
+        None where the snapshot does not name the segments' pools."""
+        segments = torch.cuda.memory_snapshot()
+        if not segments or "segment_pool_id" not in segments[0]:
+            return None
+        mine = [sg for sg in segments if tuple(sg["segment_pool_id"]) == tuple(pool_id)]
+        return sum(sg["total_size"] for sg in mine), sum(sg["allocated_size"] for sg in mine)
+
+    def settle_memory():
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def eager_frame_memory(rend, state):
+        """One eager frame from ``state`` with no slot alive, its allocations in a fresh private pool as a
+        capture's are: (allocated bytes before it, its allocated peak above them, the pool's reserved bytes;
+        None where this torch has no ``use_mem_pool``)."""
+        base = settle_memory()
+        if not hasattr(torch.cuda, "use_mem_pool"):
+            eager_frames(rend, state, 1)
+            torch.cuda.synchronize(dev)
+            return base, torch.cuda.max_memory_allocated(dev) - base, None
+        mp = torch.cuda.MemPool()
+        with torch.cuda.use_mem_pool(mp):
+            out = eager_frames(rend, state, 1)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        pool = pool_bytes(mp.id)
+        del out, mp
+        settle_memory()
+        return base, peak, None if pool is None else pool[0]
+
+    def graph_vs_eager(label, rend, cam, n):
+        """``rend``'s frames through its graph against ``_frame_impl`` frames from one state: ``render(n)``
+        (a deterministic mode: ``set_camera`` and one frame), a detached frame on a side stream, the
+        eager frames and the replays in turns (a deterministic mode: n single frames each way), the
+        capture's ms; then, the graph dropped, the eager frames themselves.  Memory, each side measured
+        once: the graph's footprint is the allocated peak of ``render(n)`` with the graph alive (its
+        outputs, the pool's allocated blocks, counted there once) plus its pool's reserved-but-free bytes;
+        the eager side's, one eager frame's allocated peak with no slot alive, that frame's allocations made
+        in a fresh private pool as the capture's were, so that the two pools' reserved bytes compare."""
+        det = rend.mode in DETERMINISTIC_MODES
+        n_cap = len(captures)
+        warm_up(rend, cam)  # the key's eager frame, then the capture
+        slot = rend._frames.slots[0]
+        graph = slot.graph
+        _require(len(captures) == n_cap + 1 and isinstance(graph, TimedGraph),
+                 f"{label}: the warm-up captured {captures[n_cap:]}")
+        if det:
+            rend.set_camera(cam)  # a new accumulation: one frame
+        n_run = 1 if det else n
         state0 = rend.state
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        want, auxes = eager_frames(rend, state0, n)
-        torch.cuda.synchronize(dev)
-        l_eager = launch_counts()
-        peak_eager = torch.cuda.max_memory_allocated(dev) / 2**30
         m0 = dict(rend.metrics)
-        torch.cuda.reset_peak_memory_stats(dev)
+        base_graph = settle_memory()
         reset_counts()
-        syncs = _no_implicit_syncs(torch, lambda: rend.render(n))
+        syncs = _no_implicit_syncs(torch, lambda: rend.render(n_run))
         l_graph = launch_counts()
-        peak_graph = torch.cuda.max_memory_allocated(dev) / 2**30
+        peak_graph = torch.cuda.max_memory_allocated(dev)
+        pool = pool_bytes(graph.graph.pool())
+        static_bytes = tensor_bytes(slot.buf)  # the slot's buffers: accumulator, camera, table copy, sums
+        out_bytes = tensor_bytes(graph.outputs)  # the graph's static outputs, in its pool
         m1 = dict(rend.metrics)
-        _require(not syncs, f"{label}: render({n}) with the frame graph synchronizes with the card at {syncs}")
-        _require(len(captures) == 1 and rend._scan[2] is graph, f"{label}: render({n}) captured again")
-        _require(rend.state.accum_id == state0.accum_id + n and bool(torch.equal(rend.state.accum, want.accum)),
-                 f"{label}: {n} frames through the graph differ from {n} eager frames")
-        if rend.mode == RendererType.RATIO:
-            for k in auxes[0]:
-                total = auxes[0][k]
-                for a in auxes[1:]:
-                    total = total + a[k]
-                _require(bool(torch.equal(rend.aux[k], total / n)), f"{label}: aux {k} differs from the eager mean")
-        _require(l_graph == l_eager and any(l_graph.values()),
-                 f"{label}: launches through the graph {l_graph}, eager {l_eager}")
-        alive = [a["path_alive_counts"] for a in auxes if "path_alive_counts" in a]
-        per_frame = rend.width * rend.height * (1 + (rend.ratio_samples if rend.mode == RendererType.RATIO else 0))
-        rays = n * per_frame + sum(int(a[:, 1:].sum()) for a in alive)
-        _require(m1["rays_traced"] - m0["rays_traced"] == rays and m1["frames"] - m0["frames"] == n,
-                 f"{label}: honest rays {m1['rays_traced'] - m0['rays_traced']} through the graph, {rays} eager")
-        _require(not alive or m1["alive_per_bounce"] == [int(x) for x in alive[-1][:, 0]],
-                 f"{label}: alive_per_bounce {m1['alive_per_bounce']}")
-        render_ms = (m1["seconds"] - m0["seconds"]) * 1e3 / n
-
-        def replays():
-            for _ in range(n):
-                graph.replay()
-
+        _require(not syncs, f"{label}: render({n_run}) through the frame graph synchronizes with the card at {syncs}")
+        _require(len(captures) == n_cap + 1 and rend._frames.slots[0].graph is graph,
+                 f"{label}: render({n_run}) captured again")
+        render_ms = (m1["seconds"] - m0["seconds"]) * 1e3 / n_run
+        # a detached frame on a side stream: the eager frame from the published state, which stays as it was
+        published = rend.state
+        accum_before = published.accum.clone()
+        want_d, frames_d = eager_frames(rend, published, 1)
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        frame_d, syncs_d = detached_on_side_stream(rend)
+        l_detached = launch_counts()
+        _require(not syncs_d, f"{label}: the detached frame synchronizes with the card at {syncs_d}")
+        same_frames(f"{label} detached", frame_d[0], frame_d[1], frame_d[2], want_d, frames_d)
+        _require(rend.state is published and bool(torch.equal(published.accum, accum_before))
+                 and {k: v * n_run for k, v in l_detached.items()} == l_graph,
+                 f"{label}: the detached frame changed the renderer, or launched {l_detached}")
+        del frame_d, frames_d, want_d, accum_before
+        if det:  # one frame per accumulation: k single frames each way, from the same state
+            k = GRAPH_SINGLES
+            run_graph = lambda: [slot.frames(state0, rend.baked_tab, 1) for _ in range(k)]  # noqa: E731
+            run_eager = lambda: [eager_frames(rend, state0, 1) for _ in range(k)]  # noqa: E731
+        else:
+            k = n
+            run_graph = lambda: slot.frames(state0, rend.baked_tab, k)  # noqa: E731
+            run_eager = lambda: eager_frames(rend, state0, k)  # noqa: E731
         turns = {"eager": [], "graph": []}
         reset_counts()
         for side in ("eager", "graph", "graph", "eager"):
-            turns[side].append(per_frame_ms(replays if side == "graph" else lambda: eager_frames(rend, want, n), n))
-        reset_counts()  # the timed turns are not a main path's run
-        # the graph's own pool: what dropping the graph gives back
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        rend._scan = None
-        del graph
-        torch.cuda.empty_cache()
-        pool_gib = (reserved - torch.cuda.memory_reserved(dev)) / 2**30
-        out = {"frames": n, "render_ms_per_frame": render_ms, "capture_ms": captures[0],
+            turns[side].append(per_frame_ms(run_graph if side == "graph" else run_eager, k))
+        # with no slot or graph alive: one eager frame's memory, then the eager frames from the same state
+        rend._frames = None
+        del slot, graph, run_graph, run_eager
+        base_eager, frame_eager, frame_pool = eager_frame_memory(rend, state0)
+        reset_counts()
+        want, frames = eager_frames(rend, state0, n_run)
+        torch.cuda.synchronize(dev)
+        l_eager = launch_counts()
+        same_frames(label, rend.state, rend.gbuffers, rend.aux, want, frames)
+        _require(l_graph == l_eager and any(l_graph.values()),
+                 f"{label}: launches through the graph {l_graph}, eager {l_eager}")
+        rays, alive = eager_rays(rend, frames)
+        _require(m1["rays_traced"] - m0["rays_traced"] == rays and m1["frames"] - m0["frames"] == len(frames),
+                 f"{label}: honest rays {m1['rays_traced'] - m0['rays_traced']} through the graph, {rays} eager")
+        _require(alive is None or m1["alive_per_bounce"] == alive, f"{label}: alive_per_bounce {m1['alive_per_bounce']}")
+        reset_counts()  # the timed turns and the reference frames are not a main path's run
+        cap_ms = captures[n_cap]["ms"]
+        gib = 2.0 ** -30
+        pool_free = None if pool is None else pool[0] - pool[1]
+        mem = {"eager": (base_eager + frame_eager) * gib, "eager_base": base_eager * gib,
+               "eager_frame": frame_eager * gib,
+               "eager_frame_pool": None if frame_pool is None else frame_pool * gib,
+               "graph": None if pool is None else (peak_graph + pool_free) * gib,
+               "graph_allocated": peak_graph * gib, "graph_base": base_graph * gib,
+               "pool_reserved": None if pool is None else pool[0] * gib,
+               "pool_allocated": None if pool is None else pool[1] * gib,
+               "pool_free": None if pool is None else pool_free * gib,
+               "static_buffers": static_bytes * gib, "outputs": out_bytes * gib}
+        if pool is not None:  # what the graph holds beyond one eager frame and the slot's buffers
+            mem["gap"] = mem["graph"] - mem["eager"]
+            mem["beyond_static"] = mem["gap"] - mem["static_buffers"]
+            mem["pool_beyond_eager_frame"] = mem["pool_reserved"] - mem["eager_frame"]
+            if frame_pool is not None:  # the allocator's rounding, and what a capture reserves beyond it
+                mem["eager_pool_rounding"] = mem["eager_frame_pool"] - mem["eager_frame"]
+                mem["capture_beyond_eager_pool"] = mem["pool_reserved"] - mem["eager_frame_pool"]
+        out = {"frames": len(frames), "render_ms_per_frame": render_ms, "capture_ms": cap_ms,
                "eager_ms_per_frame": {"host": [t[0] for t in turns["eager"]], "events": [t[1] for t in turns["eager"]]},
                "graph_ms_per_frame": {"host": [t[0] for t in turns["graph"]], "events": [t[1] for t in turns["graph"]]},
-               "peak_gib": {"eager": peak_eager, "graph": peak_graph + pool_gib, "graph_pool": pool_gib},
-               "rays": rays, "launches": l_graph}
-        print(f"  {label}: {n} frames bit-equal eager vs graph (accum{', aux' if rend.mode == RendererType.RATIO else ''}), "
-              f"honest rays "
-              f"{rays}, launches {l_graph}, 0 implicit syncs; render({n}) {render_ms:.3f} ms/frame; in turns "
-              f"eager, graph, graph, eager ms/frame host {out['eager_ms_per_frame']['host'][0]:.3f}, "
-              f"{out['graph_ms_per_frame']['host'][0]:.3f}, {out['graph_ms_per_frame']['host'][1]:.3f}, "
-              f"{out['eager_ms_per_frame']['host'][1]:.3f}, CUDA events {out['eager_ms_per_frame']['events'][0]:.3f}, "
-              f"{out['graph_ms_per_frame']['events'][0]:.3f}, {out['graph_ms_per_frame']['events'][1]:.3f}, "
-              f"{out['eager_ms_per_frame']['events'][1]:.3f}; capture {captures[0]:.3f} ms; peak GiB eager "
-              f"{peak_eager:.3f}, graph {peak_graph + pool_gib:.3f} (its pool {pool_gib:.3f})", flush=True)
-        return out, l_graph
+               "memory_gib": mem, "rays": rays, "launches": l_graph}
+        e, g = out["eager_ms_per_frame"], out["graph_ms_per_frame"]
+        print(f"  {label}: {len(frames)} frame(s) bit-equal eager vs graph (accum, g-buffers, aux), honest rays "
+              f"{rays}, launches {l_graph}, 0 implicit syncs; a detached frame on a side stream bit-equal, "
+              f"the renderer unchanged; {'set_camera + render(1)' if det else f'render({n})'} {render_ms:.3f} "
+              f"ms/frame; in turns of {k} frames eager, graph, graph, eager ms/frame host {e['host'][0]:.3f}, "
+              f"{g['host'][0]:.3f}, {g['host'][1]:.3f}, {e['host'][1]:.3f}, CUDA events {e['events'][0]:.3f}, "
+              f"{g['events'][0]:.3f}, {g['events'][1]:.3f}, {e['events'][1]:.3f}; capture {cap_ms:.3f} ms; memory GiB "
+              + json.dumps({k: (None if v is None else round(v, 6)) for k, v in mem.items()}), flush=True)
+        return out, [l_graph, l_detached]
 
-    renderer_mod.FrameGraph = TimedGraph
-    try:
-        graphs, launches_graphs = {}, []
-        for label, scene, mode, res, n, kw in (
-                ("Cornell PATH", cornell, RendererType.PATH, MAIN_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
-                ("RATIO Cornell-3", cornell3, RendererType.RATIO, MAIN_RES, GRAPH_FRAMES,
-                 {"ratio_samples": RATIO_SAMPLES}),
-                ("config 6", gallery, RendererType.PATH, GALLERY_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
-                ("config 5b", terrain, RendererType.PATH, TERRAIN_RES, GRAPH_FRAMES_5B, {"path_depth": MAIN_DEPTH})):
+    graphs, launches_graphs = {}, []
+    rt15 = None  # the terrain's Renderer, built for the last two, which share it
+    for label, scene, mode, res, n, kw in (
+            ("LTC_BASELINE Cornell (config 1)", cornell, RendererType.LTC_BASELINE, MAIN_RES, GRAPH_SINGLES, {}),
+            ("Cornell PATH", cornell, RendererType.PATH, MAIN_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
+            ("RATIO Cornell-3", cornell3, RendererType.RATIO, MAIN_RES, GRAPH_FRAMES, {"ratio_samples": RATIO_SAMPLES}),
+            ("config 6", gallery, RendererType.PATH, GALLERY_RES, GRAPH_FRAMES, {"path_depth": MAIN_DEPTH}),
+            ("config 5", terrain, RendererType.NORMALS, TERRAIN_RES, GRAPH_SINGLES, None),
+            ("config 5b", terrain, RendererType.PATH, TERRAIN_RES, GRAPH_FRAMES_5B, None)):
+        if kw is None:
+            if rt15 is None:
+                rt15 = Renderer(terrain, width=TERRAIN_RES, height=TERRAIN_RES, mode=mode, path_depth=MAIN_DEPTH,
+                                device=dev)
+            rt15.set_mode(mode)
+            rend = rt15
+        else:
             rend = Renderer(scene, width=res, height=res, mode=mode, device=dev, **kw)
-            graphs[label], got = graph_vs_eager(label, rend, n)
-            launches_graphs.append(got)
-            del rend
-    finally:
-        renderer_mod.FrameGraph = frame_graph
-    print(f"[15 frame graph] render(n) replays one captured frame: bit-equal to eager frames in "
-          f"{', '.join(graphs)}; on {smi}", flush=True)
+        graphs[label], got = graph_vs_eager(label, rend, scene.cameras[0], n)
+        launches_graphs += got
+        del rend
+    del rt15
+    # interleaving on config 6: render(3), a detached frame on a side stream and its commit, a rebaking
+    # set_camera, render(3): each step the same frames, and the same launches, as the eager frames from its
+    # state (the reference's launches counted apart), and one capture in all
+    ri = Renderer(gallery, width=GALLERY_RES, height=GALLERY_RES, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
+                  device=dev)
+    warm_up(ri, gallery.cameras[0])
+    n_cap, graph = len(captures), ri._frames.slots[0].graph
+    launches_interleave = []
+
+    def interleaved(label, n, run):
+        reset_counts()
+        want, frames = eager_frames(ri, ri.state, n)
+        l_eager = launch_counts()
+        reset_counts()
+        run()
+        l_run = launch_counts()
+        reset_counts()
+        same_frames(f"interleaving {label}", ri.state, ri.gbuffers, ri.aux, want, frames)
+        _require(l_run == l_eager and any(l_run.values()),
+                 f"interleaving {label}: launches {l_run}, the eager frames' {l_eager}")
+        launches_interleave.append(l_run)
+
+    def detached_and_commit():
+        frame, syncs_i = detached_on_side_stream(ri)
+        _require(not syncs_i, f"interleaving: the detached frame synchronizes with the card at {syncs_i}")
+        ri.commit_step(*frame, 0.0)
+
+    interleaved(f"render({INTERLEAVE_FRAMES})", INTERLEAVE_FRAMES, lambda: ri.render(INTERLEAVE_FRAMES))
+    interleaved("detached + commit", 1, detached_and_commit)
+    origin0 = ri.baked_tab.origin.copy()
+    g0 = gallery.cameras[0]
+    ri.set_camera(SceneCamera(from_=np.float32(CLI_CAM_FROM), at=g0.at, up=g0.up, cos_fovy=g0.cos_fovy))
+    _require(not np.array_equal(ri.baked_tab.origin, origin0), "interleaving: set_camera did not rebake")
+    interleaved(f"render({INTERLEAVE_FRAMES}) after the rebake", INTERLEAVE_FRAMES,
+                lambda: ri.render(INTERLEAVE_FRAMES))
+    _require(len(captures) == n_cap and ri._frames.slots[0].graph is graph,
+             f"interleaving: captured again ({captures[n_cap:]})")
+    del ri, graph
+    launches_graphs += launches_interleave
+    print(f"  interleaving on config 6: render({INTERLEAVE_FRAMES}), a detached frame on a side stream and its "
+          f"commit, a rebaking set_camera, render({INTERLEAVE_FRAMES}): bit-equal to the same frames run eagerly, "
+          f"launches {launches_interleave} (each step's equal to its eager frames'), no capture after the first, "
+          f"0 implicit syncs in the detached frame", flush=True)
+    print(f"  captures (host ms, synchronize to synchronize), every key of the run: "
+          + "; ".join(f"{c['frame']} on {c['thread']} {c['ms']:.3f}" for c in captures), flush=True)
+    print(f"[15 frame graph] every frame a replay of its key's graph: bit-equal to eager frames in "
+          f"{', '.join(graphs)}, detached frames, the interleaving; {len(captures)} captures in the run, "
+          f"on {smi}", flush=True)
     phase_done("phase 15")
 
     launches = {k: sum(c[k] for c in (launches_path, launches_ltc, launches_ratio, launches_c5, launches_c6,

@@ -17,6 +17,10 @@ to the scene JSON) and screenshot.  What differs is who touches the device:
   the lock unless a control op changed the epoch meanwhile; a stale frame is
   dropped, and since a frame leaves its input state as it was, the renderer
   stays valid (the JAX viewer's donated state does not: ROADMAP.md C).
+  On a card each frame is a replay of the renderer's frame graph, captured
+  on this thread when a mode switch makes a new key; a camera move keeps
+  it.  The frame is a clone of the graph's outputs, and the renderer's
+  frame slot orders this stream against any other user of its buffers.
 * ``/status`` reads host figures only: the committed ``accum_id``, the
   frame rate and the honest Mrays/s the render thread reads after each
   commit, when its frame is done; while the viewer runs, the interpreter

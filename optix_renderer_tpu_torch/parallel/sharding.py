@@ -22,9 +22,17 @@ one card or on the CPU.
   bit-equal to n sequential frames (the JAX ``psum`` matches them only up
   to summation order).
 
+Each share renders through a ``engine.frame_graph.FrameSlot`` of its own
+(``FrameSlots`` finds or makes it): on a card, replays of one captured
+graph per (device, row range) after the share's first eager frame, so a
+tile costs the host one replay.  Two shares of one card are two graphs
+with two pools, each holding its share's temporaries.
+
 ``render_rows`` runs frames of a ``Renderer`` through the row split and
 leaves the renderer as ``Renderer.render`` would: state, g-buffers, aux and
-the honest ray count (the tiles' ``path_alive_counts`` summed).
+the honest ray count (the tiles' ``path_alive_counts`` summed).  Its tiles
+(and so their graphs) are the renderer's one layout of slots until the
+renderer renders a whole frame or changes its key.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ import torch
 
 from ..accel.cluster import merge_trace_stats
 from ..core.types import Camera, RenderState
-from ..engine.modes import DETERMINISTIC_MODES, RendererType
-from ..engine.renderer import render_tile
+from ..engine.frame_graph import FrameSlots
+from ..engine.modes import RendererType
+from ..engine.renderer import frames_to_run
 
 
 def check_devices(devices, height: int | None = None) -> list[torch.device]:
@@ -128,30 +137,33 @@ def _merge_stats(stats: list, device) -> dict:
     return out
 
 
+def _row_frames(shares: FrameSlots, state: ShardedState, ds: list, bvh: list, baked_tab: list, n: int):
+    """``n`` frames of every row tile, each tile's back to back:
+    ``(state', gbuffers, aux, stats, alive)`` as ``FrameSlot.frames`` gives
+    them, per tile, with the stats summed on the first device."""
+    outs = [shares.slot(i, ds[i], bvh[i], baked_tab[i]).frames(
+                RenderState(accum=state.accum[i], accum_id=state.accum_id, camera=state.camera[i]), baked_tab[i], n)
+            for i in range(len(shares.devices))]
+    new = ShardedState(accum=[o[0].accum for o in outs], accum_id=state.accum_id + n, camera=state.camera)
+    return (new, [o[1] for o in outs], [o[2] for o in outs], _merge_stats([o[3] for o in outs], shares.devices[0]),
+            [o[4] for o in outs])
+
+
 def make_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
                           ratio_samples: int = 4):
     """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
-    one frame, device i rendering row tile i.  ``state`` is a
-    ``ShardedState``; ``ds``, ``bvh`` and ``baked_tab`` are ``replicate``
-    lists; ``gbuffers`` and ``aux`` are per-tile lists (``gather_rows``,
-    ``merge_aux``); ``stats`` are the trace statistics summed on
-    ``devices[0]``."""
+    one frame, device i rendering row tile i through a ``FrameSlot`` of its
+    own (on a card a replay of the tile's graph, after its first eager
+    frame).  ``state`` is a ``ShardedState``; ``ds``, ``bvh`` and
+    ``baked_tab`` are ``replicate`` lists; ``gbuffers`` and ``aux`` are
+    per-tile lists (``gather_rows``, ``merge_aux``); ``stats`` are the
+    trace statistics summed on ``devices[0]``."""
     devices = check_devices(devices, height)
-    rows = height // len(devices)
+    shares = FrameSlots((), devices, height // len(devices), mode=mode, width=width, height=height,
+                        path_depth=path_depth, ratio_samples=ratio_samples)
 
     def frame(state: ShardedState, ds: list, bvh: list, baked_tab: list):
-        accum, gbs, auxs, stats = [], [], [], []
-        for i in range(len(devices)):
-            color, gb, aux, st = render_tile(
-                state.camera[i], state.accum_id, ds[i], bvh[i], mode=mode, width=width, height=height,
-                path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab[i],
-                row_offset=i * rows, rows=rows)
-            accum.append(state.accum[i] + color.reshape(rows, width, 3))
-            gbs.append(gb)
-            auxs.append(aux)
-            stats.append(st)
-        new = ShardedState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera)
-        return new, gbs, auxs, _merge_stats(stats, devices[0])
+        return _row_frames(shares, state, ds, bvh, baked_tab, 1)[:4]
 
     return frame
 
@@ -160,28 +172,26 @@ def make_spp_sharded_frame_fn(devices, mode: RendererType, width: int, height: i
                               ratio_samples: int = 4):
     """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
     ``len(devices)`` frames in one step, device i rendering the whole frame
-    for ``state.accum_id + i``.  ``state`` is a ``RenderState`` on
-    ``devices[0]``; its accumulator takes the colors in frame order, so the
-    step is bit-equal to as many sequential frames.  ``gbuffers`` and
-    ``aux`` are per-frame lists."""
+    for ``state.accum_id + i`` through a ``FrameSlot`` of its own onto a
+    zero accumulator.  ``state`` is a ``RenderState`` on ``devices[0]``; its
+    accumulator takes the colors in frame order, so the step is bit-equal
+    to as many sequential frames.  ``gbuffers`` and ``aux`` are per-frame
+    lists."""
     devices = check_devices(devices)
     dev0 = devices[0]
+    shares = FrameSlots((), devices, None, mode=mode, width=width, height=height, path_depth=path_depth,
+                        ratio_samples=ratio_samples)
+    zeros = [torch.zeros((height, width, 3), dtype=torch.float32, device=d) for d in devices]
 
     def frame(state: RenderState, ds: list, bvh: list, baked_tab: list):
-        colors, gbs, auxs, stats = [], [], [], []
-        for i, d in enumerate(devices):  # every device's frame is enqueued before any sum
-            color, gb, aux, st = render_tile(
-                _to(state.camera, d), state.accum_id + i, ds[i], bvh[i], mode=mode, width=width,
-                height=height, path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab[i])
-            colors.append(color)
-            gbs.append(gb)
-            auxs.append(aux)
-            stats.append(st)
+        outs = [shares.slot(i, ds[i], bvh[i], baked_tab[i]).frames(  # every frame enqueued before any sum
+                    RenderState(accum=zeros[i], accum_id=state.accum_id + i, camera=state.camera), baked_tab[i], 1)
+                for i in range(len(devices))]
         accum = state.accum
-        for color in colors:
-            accum = accum + color.to(dev0).reshape(height, width, 3)
+        for o in outs:  # 0 + color: the frame's color
+            accum = accum + o[0].accum.to(dev0)
         new = RenderState(accum=accum, accum_id=state.accum_id + len(devices), camera=state.camera)
-        return new, gbs, auxs, _merge_stats(stats, dev0)
+        return new, [o[1] for o in outs], [o[2] for o in outs], _merge_stats([o[3] for o in outs], dev0)
 
     return frame
 
@@ -196,27 +206,28 @@ def render_rows(r, devices, n_frames: int = 1) -> None:
     """``r.render(n_frames)`` through the row split over ``devices``: the
     same image, bit for bit.  Afterwards ``r.state`` (on ``r.device``),
     ``r.gbuffers``, ``r.aux`` (RATIO: the mean over this call's frames) and
-    ``r.metrics`` are what ``r.render`` leaves."""
+    ``r.metrics`` are what ``r.render`` leaves.  The tiles' slots (and so
+    their graphs) and the scene and BVH replicas are ``r``'s one layout
+    (``Renderer._layout``): they stay for the next call over the same
+    devices, until the renderer's key changes or it renders a whole frame,
+    which drops them."""
     devices = check_devices(devices, r.height)
-    frame = make_sharded_frame_fn(devices, r.mode, r.width, r.height, r.path_depth, r.ratio_samples)
-    ds, bvh, baked = (replicate(x, devices) for x in (r.device_scene, r.bvh, r.baked_tab))
+    with r._lock:  # the renderer's one layout: these tiles' slots replace its other slots and graphs
+        shares = r._layout(devices, lambda: (replicate(r.device_scene, devices), replicate(r.bvh, devices)))
+        state, mode, baked_tab = r.state, r.mode, r.baked_tab
+    ds, bvh = shares.inputs
     t0 = time.perf_counter()
-    state = shard_render_state(r.state, devices)
-    done = []  # (path_alive_counts or None, trace stats) per frame
-    auxs = ratio_sums = None
-    for _ in range(n_frames):
-        if r.mode in DETERMINISTIC_MODES and state.accum_id >= 1:
-            break  # analytic modes converge in one frame
-        state, gbs, auxs, stats = frame(state, ds, bvh, baked)
-        counts = [a["path_alive_counts"] for a in auxs if "path_alive_counts" in a]
-        done.append((sum(c.to(r.device) for c in counts) if counts else None, stats))
-        if r.mode == RendererType.RATIO:
-            ratio_sums = (auxs if ratio_sums is None
-                          else [{k: s[k] + a[k] for k in s} for s, a in zip(ratio_sums, auxs)])
-    if done:
-        r.state = gather_state(state, r.device)
+    n = frames_to_run(mode, state.accum_id, n_frames)
+    stats = alive = None
+    if n:
+        # the table on r's device: each tile copies it in when its origin moves
+        state, gbs, auxs, stats, alives = _row_frames(shares, shard_render_state(state, devices), ds, bvh,
+                                                      [baked_tab] * len(devices), n)
+        with r._lock:
+            r.state = gather_state(state, r.device)
         r.gbuffers = gather_rows(gbs, r.device)
-        r.aux = merge_aux(auxs if ratio_sums is None else
-                          [{k: v / len(done) for k, v in s.items()} for s in ratio_sums], r.device)
+        r.aux = merge_aux(auxs, r.device)
+        if alives[0] is not None:
+            alive = (sum(a.to(r.device) for a in alives), r.aux["path_alive_counts"])
     _synchronize(devices)
-    r.record_frames(time.perf_counter() - t0, done)
+    r.record_frames(time.perf_counter() - t0, n, stats, alive)

@@ -45,12 +45,13 @@ device time.
 A deterministic mode (NORMALS, LTC_BASELINE) renders one frame per
 accumulation, so ``set_camera`` comes before each of its frames.
 
-In PATH and RATIO the line also holds ``render_n``: the same numbers for
-one ``render(--frames)`` call, whose first frames are replays of the
-frame graph (``engine.frame_graph``; captured in a warm-up call before),
-then an ordinary frame.  The PyTorch stage ranges do not appear inside a
-replay, so there the stages' kernels count as glue; the hand-written
-kernels still count by name.
+The line also holds ``render_n``: the same numbers for the frames the
+Renderer really renders, ``--frames`` replays of its frame graph
+(``engine.frame_graph``; captured in a warm-up before): one
+``render(--frames)`` call in PATH and RATIO, ``--frames`` times
+``set_camera`` and ``render(1)`` in a deterministic mode.  The PyTorch
+stage ranges do not appear inside a replay, so there the stages' kernels
+count as glue; the hand-written kernels still count by name.
 """
 
 from __future__ import annotations
@@ -113,10 +114,24 @@ def _instrument() -> None:
     ltc_direct.ltc_direct = ratio.ltc_direct = labeled(ltc_direct.ltc_direct, "ltc")  # ratio holds its own name
 
 
-def _render_frames(r, n: int, deterministic: bool) -> None:
+def _eager_frames(r, n: int) -> None:
+    """n ``_frame_impl`` frames from ``r.state``, op by op; r is left as it was."""
+    from ..engine.renderer import _frame_impl
+
+    state = r.state
     for _ in range(n):
-        if deterministic:
-            r.set_camera(r.scene.cameras[0])
+        state = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
+                            path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)[0]
+    torch.cuda.synchronize()
+
+
+def _replayed_frames(r, n: int, deterministic: bool) -> None:
+    """n frames as the Renderer renders them: replays of its frame graph."""
+    if not deterministic:
+        r.render(n)
+        return
+    for _ in range(n):
+        r.set_camera(r.scene.cameras[0])  # one frame per accumulation
         r.render(1)
 
 
@@ -155,15 +170,14 @@ def profile_config(config: str, frames: int, smi: str) -> dict:
             scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
     deterministic = r.mode in DETERMINISTIC_MODES
-    _render_frames(r, 1, deterministic)  # warm-up
-    single = _measure(lambda: _render_frames(r, frames, deterministic), frames)
-    render_n = None
-    if not deterministic:
-        r.render(3)  # an eager frame, the frame graph's capture and a replay, an ordinary frame
-        render_n = {"note": f"render({frames}): {frames - 1} replays of the frame graph, then an ordinary frame; "
-                            "stage ranges do not appear inside a replay (their kernels count as glue there), "
-                            "hand-written kernels count by name",
-                    **_measure(lambda: r.render(frames), frames)}
+    _eager_frames(r, 1)  # warm-up
+    single = _measure(lambda: _eager_frames(r, frames), frames)
+    _replayed_frames(r, 2, deterministic)  # the key's eager frame, then the frame graph's capture and a replay
+    render_n = {"note": f"{frames} replays of the frame graph ("
+                        + ("set_camera and render(1) each" if deterministic else f"render({frames})")
+                        + "); stage ranges do not appear inside a replay (their kernels count as glue there), "
+                          "hand-written kernels count by name",
+                **_measure(lambda: _replayed_frames(r, frames, deterministic), frames)}
     m = r.metrics
     return {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,

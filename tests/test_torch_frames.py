@@ -3,9 +3,10 @@ counterpart of the JAX ``_frames_scan_impl``, on the CPU.
 
 * ``make_rng`` with the frame id as a 0-d tensor: bit-equal to the int form
   and to the JAX ``core/rng.make_rng``;
-* n-1 eager ``frames_step`` calls and one ``_frame_impl`` frame: bit-equal
-  to n ``_frame_impl`` frames in PATH and RATIO (accumulator, RATIO's sums,
-  PATH's per-bounce counts), on Cornell and the three-light Cornell;
+* n eager ``frames_step`` calls: bit-equal to n ``_frame_impl`` frames in
+  PATH and RATIO (accumulator, RATIO's sums, PATH's per-bounce counts, the
+  last frame's own g-buffers, aux and stats), on Cornell and the
+  three-light Cornell;
 * ``Renderer.render(4)`` of the port against the JAX ``Renderer.render(4)``,
   which takes ``_frames_scan_jit`` (the port's versions of JAX's
   ``test_multiframe_scan_matches_stepwise`` and of the RATIO scan test):
@@ -17,12 +18,13 @@ counterpart of the JAX ``_frames_scan_impl``, on the CPU.
 * ``render(4)`` bit-equal to 4 x ``render(1)`` with equal ``metrics``; the
   input state left as it was;
 * the Renderer's graph, through a stand-in ``FrameGraph`` on the CPU:
-  captured once after an eager frame, dropped when ``set_mode``, a
-  rebaking ``set_camera`` or ``load_checkpoint`` changes its key, and a
-  failing capture raising;
+  captured once after an eager frame, kept by a rebaking ``set_camera`` or
+  ``load_checkpoint`` (the buffers take the new table), dropped when
+  ``set_mode`` changes its key, and a failing capture raising;
 * ``FrameGraph`` itself, against a stand-in ``torch.cuda`` graph: the
-  capture's launches counted on every replay and not for the capture; CPU
-  buffers refused without touching CUDA.
+  capture's launches counted on every replay and not for the capture, the
+  capture's outputs returned by every replay; CPU buffers refused without
+  touching CUDA.
 """
 
 import os
@@ -103,25 +105,24 @@ def test_frames_step_matches_frame_impl(scenes, scene_name, mode):
     n = 3
     state, frames = r.state, []
     for _ in range(n):
-        state, _gb, aux, stats = _frame_impl(state, r.device_scene, r.bvh, **kw)
+        state, gb, aux, stats = _frame_impl(state, r.device_scene, r.bvh, **kw)
         frames.append((aux, stats))
 
     buf = fg.FrameBuffers.for_frames(r.mode, r.width, r.height, r.path_depth, r.device)
     buf.load(r.state)
-    for _ in range(n - 1):
-        fg.frames_step(buf, r.device_scene, r.bvh, None, **kw)
-    assert int(buf.frame_id) == n - 1
-    last, _gb, aux, _ = _frame_impl(
-        type(r.state)(accum=buf.accum, accum_id=int(buf.frame_id), camera=r.state.camera),
-        r.device_scene, r.bvh, **kw)
-    assert torch.equal(last.accum, state.accum)
-    assert sorted(buf.sums) == sorted(frames[0][0])
-    for k, total in buf.sums.items():  # the first n-1 frames' sum, in frame order
+    for _ in range(n):
+        got_gb, got_aux, got_stats = fg.frames_step(buf, r.device_scene, r.bvh, **kw)
+    assert int(buf.frame_id) == n
+    assert torch.equal(buf.accum, state.accum)
+    for f in ("position", "normal", "albedo", "alpha", "uv", "material_id"):  # the last frame's own outputs
+        assert torch.equal(getattr(got_gb, f), getattr(gb, f)), f
+    assert sorted(buf.sums) == sorted(frames[0][0]) == sorted(got_aux)
+    for k, total in buf.sums.items():  # the n frames' sum, in frame order
         assert total.dtype == frames[0][0][k].dtype
-        assert torch.equal(total, frames[0][0][k] + frames[1][0][k]), k
-        assert torch.equal(aux[k], frames[2][0][k]), k
-    assert {k: int(v) for k, v in buf.stats.items()} == {
-        k: int(frames[0][1][k]) + int(frames[1][1][k]) for k in buf.stats}
+        assert torch.equal(total, (frames[0][0][k] + frames[1][0][k]) + frames[2][0][k]), k
+        assert torch.equal(got_aux[k], frames[2][0][k]), k
+    assert {k: int(v) for k, v in buf.stats.items()} == {k: sum(int(f[1][k]) for f in frames) for k in buf.stats}
+    assert {k: int(v) for k, v in got_stats.items()} == {k: int(frames[2][1][k]) for k in got_stats}
     assert r.state.accum_id == 0 and float(r.state.accum.abs().sum()) == 0.0  # load() copied, left it
 
 
@@ -130,7 +131,7 @@ def test_frame_buffers_load_resets_the_sums(scenes):
     buf = fg.FrameBuffers.for_frames(r.mode, 16, 16, r.path_depth, r.device)
     kw = dict(mode=r.mode, width=16, height=16, path_depth=r.path_depth, ratio_samples=r.ratio_samples)
     buf.load(r.state)
-    fg.frames_step(buf, r.device_scene, r.bvh, None, **kw)
+    fg.frames_step(buf, r.device_scene, r.bvh, **kw)
     assert int(buf.frame_id) == 1 and all(float(t.abs().sum()) > 0 for t in buf.sums.values())
     r.render(2)
     buf.load(r.state)
@@ -139,6 +140,8 @@ def test_frame_buffers_load_resets_the_sums(scenes):
     for name in ("pos", "dir_00", "dir_du", "dir_dv"):
         assert torch.equal(getattr(buf.camera, name), getattr(r.state.camera, name))
         assert getattr(buf.camera, name) is not getattr(r.state.camera, name)
+    with pytest.raises(ValueError, match="without a baked primary table"):
+        buf.load(r.state, types.SimpleNamespace(tab=None, origin=np.zeros(3, np.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -210,27 +213,36 @@ def test_render_n_matches_n_single_frames(scenes, scene_name, mode):
 
 class _StandInGraph:
     """Takes FrameGraph's place: records its capture, replays by calling
-    frames_step eagerly on the buffers."""
+    frames_step eagerly on the buffers and copying its outputs into the
+    first replay's, as a graph's static outputs."""
 
     made = []
 
-    def __init__(self, key, buf, ds, bvh, baked_tab, **static):
-        self.key, self.replays = key, 0
-        self._args = (buf, ds, bvh, baked_tab)
+    def __init__(self, key, buf, ds, bvh, **static):
+        self.key, self.replays, self.outputs = key, 0, None
+        self._args = (buf, ds, bvh)
         self._static = static
         _StandInGraph.made.append(self)
 
     def replay(self):
         self.replays += 1
-        fg.frames_step(*self._args, **self._static)
+        gb, aux, stats = fg.frames_step(*self._args, **self._static)
+        if self.outputs is None:
+            self.outputs = (gb, aux, stats)
+        else:
+            for f in ("position", "normal", "albedo", "alpha", "uv", "material_id"):
+                getattr(self.outputs[0], f).copy_(getattr(gb, f))
+            for k, v in aux.items():
+                self.outputs[1][k].copy_(v)
+        return self.outputs
 
 
 @pytest.fixture
 def graphed(monkeypatch):
     """Renderers replay stand-in graphs on the CPU, and bake there too."""
     _StandInGraph.made = []
-    monkeypatch.setattr(renderer_mod, "_graphs", lambda device: True)
-    monkeypatch.setattr(renderer_mod, "FrameGraph", _StandInGraph)
+    monkeypatch.setattr(fg, "_graphs", lambda device: True)
+    monkeypatch.setattr(fg, "FrameGraph", _StandInGraph)
     monkeypatch.setattr(renderer_mod, "_bakes", lambda bvh: bvh.clustered)
     return _StandInGraph.made
 
@@ -238,18 +250,19 @@ def graphed(monkeypatch):
 def test_graph_captured_after_an_eager_frame(scenes, graphed):
     r = _renderer(scenes, "cornell", RendererType.PATH, res=8)
     ref = _renderer(scenes, "cornell", RendererType.PATH, res=8)
-    r.render(4)  # one eager step (nothing of this key has run), capture, 2 replays, one ordinary frame
-    assert len(graphed) == 1 and graphed[0].replays == 2
-    r.render(3)  # the same graph: 2 replays
-    assert len(graphed) == 1 and graphed[0].replays == 4
+    r.render(4)  # one eager frame (nothing of this key has run), the capture, 3 replays
+    assert len(graphed) == 1 and graphed[0].replays == 3
+    r.render(3)  # the same graph: 3 replays
+    assert len(graphed) == 1 and graphed[0].replays == 6
     for _ in range(7):
         ref.render(1)
     assert torch.equal(r.state.accum, ref.state.accum) and r.state.accum_id == 7
     assert r.metrics["rays_traced"] == ref.metrics["rays_traced"]
     w = _renderer(scenes, "cornell", RendererType.PATH, res=8)
-    w.render(1)  # an ordinary frame of the key: the next call captures at once
+    w.render(1)  # the key's eager frame: the next call captures at once
+    assert len(graphed) == 2 and w._frames.slots[0].graph is None
     w.render(3)
-    assert len(graphed) == 2 and graphed[1].replays == 2
+    assert len(graphed) == 3 and w._frames.slots[0].graph is graphed[2] and graphed[2].replays == 3
 
 
 def _moved(cam: SceneCamera) -> SceneCamera:
@@ -264,27 +277,29 @@ def test_graph_dropped_when_its_key_changes(graphed, tmp_path):
 
     def captured():
         r.render(3)
-        assert r._scan is not None and r._scan[2] is graphed[-1]
+        assert r._frames is not None and r._frames.slots[0].graph is graphed[-1]
         return graphed[-1]
 
     first = captured()
     r.set_camera(r.scene.cameras[0])  # the same origin: the table and the graph stay
-    assert r._scan[2] is first
+    assert r._frames.slots[0].graph is first
     r.render(3)
-    assert len(graphed) == 1 and first.replays == 3  # 1 after the eager step and the capture, then 2
+    assert len(graphed) == 1 and first.replays == 5  # 2 after the eager frame and the capture, then 3
+    r.save_checkpoint(str(tmp_path / "here.npz"))
+    r.set_camera(_moved(r.scene.cameras[0]))  # rebakes: another table, the same key
+    buf = r._frames.slots[0].buf
+    assert r._frames.slots[0].graph is first and not np.array_equal(buf.baked.origin, r.baked_tab.origin)
+    r.render(1)  # the buffers take the new table
+    assert np.array_equal(buf.baked.origin, r.baked_tab.origin)
+    assert torch.equal(buf.baked.tab, r.baked_tab.tab)
+    r.load_checkpoint(str(tmp_path / "here.npz"))  # back at camera 0's origin: rebaked again, the same key
+    r.render(1)
+    assert r._frames.slots[0].graph is first and first.replays == 7
     r.set_mode(RendererType.RATIO)  # another mode
-    assert r._scan is None
+    assert r._frames is None
     r.set_mode(RendererType.PATH)
     second = captured()
-    assert second is not first
-    r.save_checkpoint(str(tmp_path / "here.npz"))
-    r.set_camera(_moved(r.scene.cameras[0]))  # rebakes: another table
-    assert r._scan is None
-    third = captured()
-    r.load_checkpoint(str(tmp_path / "here.npz"))  # back at camera 0's origin: rebaked again
-    assert r._scan is None
-    fourth = captured()
-    assert len({id(g) for g in (first, second, third, fourth)}) == 4 and len(graphed) == 4
+    assert second is not first and len(graphed) == 2
 
 
 def test_failing_capture_raises(scenes, monkeypatch):
@@ -292,8 +307,8 @@ def test_failing_capture_raises(scenes, monkeypatch):
         def __init__(self, *args, **kwargs):
             raise RuntimeError("operation not permitted when stream is capturing")
 
-    monkeypatch.setattr(renderer_mod, "_graphs", lambda device: True)
-    monkeypatch.setattr(renderer_mod, "FrameGraph", Failing)
+    monkeypatch.setattr(fg, "_graphs", lambda device: True)
+    monkeypatch.setattr(fg, "FrameGraph", Failing)
     r = _renderer(scenes, "cornell", RendererType.PATH, res=8)
     r.render(1)
     with pytest.raises(RuntimeError, match="capturing"):
@@ -328,22 +343,23 @@ def test_replays_count_the_captured_launches(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubCudaGraph)
     monkeypatch.setattr(torch.cuda, "graph", _StubCapture)
 
-    def step(buf, ds, bvh, baked_tab, **static):  # what a PATH frame of depth 2 on the brute tier launches
+    def step(buf, ds, bvh, **static):  # what a PATH frame of depth 2 on the brute tier launches
         for _ in range(3):
             launches.count_launch(bt.LAUNCHES, "brute_closest")
         for _ in range(2):
             launches.count_launch(bt.LAUNCHES, "brute_any")
         launches.count_launch(lk.LAUNCHES, "ltc")
+        return "gbuffers", "aux", "stats"
 
     monkeypatch.setattr(fg, "frames_step", step)
     for mod in (bt, ct, lk):
         mod.reset_launch_counts()
     buf = types.SimpleNamespace(accum=types.SimpleNamespace(device=torch.device("cuda", 0)))
-    graph = fg.FrameGraph(("key",), buf, None, None, None)
+    graph = fg.FrameGraph(("key",), buf, None, None)
     assert bt.LAUNCHES == {"brute_closest": 0, "brute_any": 0} and lk.LAUNCHES["ltc"] == 0  # capture ran nothing
     assert not any(ct.LAUNCHES.values())
     for _ in range(5):
-        graph.replay()
+        assert graph.replay() == ("gbuffers", "aux", "stats")  # the static outputs of the capture
     assert graph.graph.replays == 5
     assert bt.LAUNCHES == {"brute_closest": 15, "brute_any": 10} and lk.LAUNCHES["ltc"] == 5
     assert not any(ct.LAUNCHES.values())
@@ -379,6 +395,6 @@ def test_frame_graph_refuses_cpu_buffers_without_touching_cuda(scenes, monkeypat
     r = _renderer(scenes, "cornell", RendererType.PATH, res=8)
     buf = fg.FrameBuffers.for_frames(r.mode, 8, 8, r.path_depth, r.device)
     with pytest.raises(ValueError, match="FrameGraph captures CUDA work"):
-        fg.FrameGraph(r._frame_key(), buf, r.device_scene, r.bvh, None, mode=r.mode, width=8, height=8,
+        fg.FrameGraph(r._frame_key(), buf, r.device_scene, r.bvh, mode=r.mode, width=8, height=8,
                       path_depth=r.path_depth, ratio_samples=r.ratio_samples)
     assert not torch.cuda.is_initialized()
