@@ -11,9 +11,10 @@ raises and exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
-   one nvcc per library (brute_trace, ltc, cluster_trace), all started
-   together, with ptxas' register and spill report (B1/B2 may not spill)
-   and B1/B2's rays a thread, chunk rows and shared memory a block;
+   one nvcc per library (brute_trace, ltc, cluster_trace, path_bounce,
+   brute_shade), all started together, with ptxas' register and spill
+   report (B1/B2 may not spill) and B1/B2's rays a thread, chunk rows and
+   shared memory a block;
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
    turns (plain, kernel, kernel, plain): B1 (closest hit) and B2
    (occlusion) on the Cornell table (1024^2 primary rays, which B1 traces
@@ -26,7 +27,19 @@ raises and exits non-zero):
    on the edges of their blocking, B1 with and without the vote (one
    ray, a ragged batch, every ray
    dead, every ray live, NaN and negative t_max, a table of 8 rows, every
-   ray occluded in the first chunk), each equal to the plain version; the
+   ray occluded in the first chunk), each equal to the plain version; K1
+   (``path_sample``), K2 (``path_combine``) and K3 (``brute_shade``), the
+   path bounce around its traces and the brute tier's shading, against
+   their plain versions on the inputs an eager Cornell PATH frame at 1024^2
+   gave them (every bounce and every trace, recorded from the wrappers)
+   and on seeded edge lanes (dead lanes, singular shading frames, grazing
+   wo, light samples with a zero solid-angle pdf, black and white base
+   colours at alpha 0.01 and 1, zero throughputs; occlusion and misses
+   flipped; misses, light triangles and u + v = 1 hits), bit-equal on
+   every lane (a differing lane is printed with its inputs), each timed in
+   turns with its plain version at the frame's 1M lanes; then one such
+   frame through K1-K3 bit-equal to one through their plain versions from
+   the same state, with the same per-bounce counts and honest rays; the
    crossover between the tiers: NORMALS and PATH depth 4 at 1024^2 on the
    terrain at grid 46 (brute tier) and at grid 47 (4,244 triangles,
    cluster tier), same camera, ms/frame on the host clock and the
@@ -158,6 +171,9 @@ On the cluster tier every frame's primary trace is one launch of the baked
 walk (``cluster_closest_walk_baked``); the unbaked walk
 (``cluster_closest_walk``) serves the bounce rays, and none in NORMALS.
 
+Every brute-tier trace of a frame launches K3 after B1; every PATH bounce
+launches K1 before its two traces and K2 after them, on both tiers.
+
 Each main path runs with every launch count set to 0 just before it and
 reads the counts just after; the kernels' ``launches`` are the sums of
 those reads: phases 5-10, the row split's two paths and the spp split of
@@ -172,6 +188,10 @@ spent on them: the lane utilisation); the walk forms count, whatever the
 kernel did, the tests any walk needs that ends at the lanes' final bounds
 (over every ray; B3's kernel may not have run fewer; the baked walk
 counts its tests at BAKED_MT_OPS each).
+K1-K3 move bytes: their bounds count each input and output once (K1 159
+bytes a lane and 64 a light, K2 258, K3 82 and 140 a distinct table row)
+against the f32 operations counted in their sources (``path_kernel.
+OPS_SAMPLE``, ``OPS_COMBINE``, ``shade_kernel.OPS_SHADE``).
 B3's and B4's ``launches`` add both forms; every main path on the card
 launches the walk forms, and the list forms go on being built, launched
 and checked in phase 3.  The last three lines are the kernels' JSON record, the nvidia-smi line and
@@ -252,6 +272,13 @@ GRAPH_FRAMES, GRAPH_FRAMES_5B, GRAPH_SINGLES, INTERLEAVE_FRAMES = 8, 3, 16, 3
 CACHE_CLI_RES = 256
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
+# K1-K3: bytes a lane, each input read once and each output written once.  K1 reads p, nrm, v, diffuse, tp
+# (5 x 12), alpha, alive and rng (73) and writes the BounceSample (86); K2 reads color, the state but alive (76),
+# what K1 wrote for it (46), occluded and the bounce hit (59) and writes color and the state (77); K3 reads
+# tri_id, u, v (12) and writes the SurfaceInteraction (70), and each distinct packed row it reads once (140) --
+# a light's table row is 64 bytes
+K1_BYTES, K2_BYTES, K3_BYTES, PACK_ROW_BYTES, LIGHT_BYTES = 73 + 86, 181 + 77, 12 + 70, 35 * 4, 64
+EDGE_LANES = 1 << 16  # the seeded edge lanes of K1 and K3
 
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -342,6 +369,244 @@ def _check_any(torch, bt, tab, o, d, tm, label: str) -> float:
 def _same(a, b):
     """Equal, both NaN, or within RTOL/ATOL."""
     return (a == b) | (a.isnan() & b.isnan()) | _close(a, b)
+
+
+def _fields(x) -> dict:
+    """The tensors of a dataclass, or of a tuple of tensors and dataclasses, by name."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    out = {}
+    for i, part in enumerate(x):
+        out.update({f"{i}.{k}": v for k, v in _fields(part).items()} if dataclasses.is_dataclass(part)
+                   else {str(i): part})
+    return out
+
+
+def _check_bits(torch, label: str, got, want, inputs: dict) -> float:
+    """Every output of a kernel (``got``) bit-equal to its plain version's
+    (``want``), NaN included; the lanes that differ are printed with their
+    inputs (``inputs``: name -> lane-major tensor).  Returns the max abs error."""
+    got, want = _fields(got), _fields(want)
+    torch.cuda.synchronize()
+    err, bad = 0.0, {}
+    for name, w in want.items():
+        g = got[name]
+        _require(g.dtype == w.dtype and g.shape == w.shape, f"{label} {name}: {g.dtype} {tuple(g.shape)} from the "
+                                                            f"kernel, {w.dtype} {tuple(w.shape)} from the plain version")
+        if g.dtype == torch.float32:
+            diff = g.view(torch.int32) != w.view(torch.int32)
+            err = max(err, (g - w).nan_to_num(nan=0.0).abs().max().item() if g.numel() else 0.0)
+        else:
+            diff = g != w
+        lanes = diff.reshape(diff.shape[0], -1).any(dim=1) if diff.dim() else diff
+        if bool(lanes.any()):
+            bad[name] = lanes.nonzero().flatten()
+    for name, lanes in bad.items():
+        print(f"  {label}: {name} differs on {lanes.numel()} lanes", flush=True)
+        for i in lanes[:8].tolist():
+            print(f"    lane {i}: kernel {got[name][i].tolist()}, plain {want[name][i].tolist()}; inputs "
+                  + ", ".join(f"{k} {v[i].tolist()}" for k, v in inputs.items()), flush=True)
+    _require(not bad, f"{label}: {sorted(bad)} not bit-equal to the plain version")
+    return err
+
+
+def _record_bounce_inputs(pk, sk, r, frame_impl) -> dict:
+    """One eager ``_frame_impl`` frame of ``r`` on the card with the wrappers of K1, K2 and K3 recording
+    their arguments: {"sample": [(ds, state, rng)] a bounce, "combine": [...] a bounce, "shade": [(ds, hit)]
+    a trace}.  Every argument is a tensor the frame made and no later step writes."""
+    rec = {"sample": [], "combine": [], "shade": []}
+    orig = (pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda)
+
+    def recorder(key, fn):
+        def run(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return run
+
+    pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = (
+        recorder("sample", orig[0]), recorder("combine", orig[1]), recorder("shade", orig[2]))
+    try:
+        frame_impl(r.state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
+                   path_depth=r.path_depth, ratio_samples=r.ratio_samples)
+    finally:
+        pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = orig
+    _require(len(rec["sample"]) == len(rec["combine"]) == r.path_depth and len(rec["shade"]) == 1 + r.path_depth,
+             f"a PATH frame launched K1 {len(rec['sample'])}, K2 {len(rec['combine'])}, K3 {len(rec['shade'])} times")
+    return rec
+
+
+def _k1_edge_lanes(torch, pk, ds, s, rng):
+    """EDGE_LANES lanes of a real bounce's state (``s``, ``rng``), seeded, in eight groups: dead lanes; shading
+    normals in the frame's singular branch (n.z < -0.999999) and just outside it; grazing wo (v at 0, +-1e-7 and
+    1e-4 off the tangent plane); lanes whose light sample has a zero solid-angle pdf (a vertex far out in the
+    light's plane, |cos| < 1e-8 at the light); black, white and random base colours at alpha 0.01, 1 and between;
+    random throughputs, zeros among them; and two groups of real lanes.  Returns (state, rng, {group: lanes})."""
+    dev = s.p.device
+    n = EDGE_LANES
+    k = n // 8
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    st = pk.PathState(**{f.name: getattr(s, f.name)[:n].clone() for f in dataclasses.fields(pk.PathState)})
+    rnd = lambda *shape: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+
+    def unit(a):
+        return a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+
+    groups = {name: slice(i * k, (i + 1) * k) for i, name in enumerate(
+        ("dead", "singular frame", "grazing wo", "zero light pdf", "base colour and alpha", "throughput"))}
+    st.alive[groups["dead"]] = False
+    for name in list(groups)[1:]:
+        st.alive[groups[name]] = True
+    sl = groups["singular frame"]
+    tilt = torch.tensor([0.0, 1e-4, 1.5e-3], device=dev).repeat_interleave(k // 3 + 1)[:k]  # n.z -1, -1 + 5e-9, -1 + 1.1e-6
+    st.nrm[sl] = unit(torch.stack([tilt, torch.zeros_like(tilt), -torch.ones_like(tilt)], dim=-1))
+    st.v[sl] = unit(st.nrm[sl] + 0.5 * (rnd(k, 3) - 0.5))
+    sl = groups["grazing wo"]
+    tangent = unit(torch.linalg.cross(st.nrm[sl], unit(rnd(k, 3) - 0.5)))
+    off = torch.tensor([0.0, 1e-7, -1e-7, 1e-4], device=dev).repeat(k // 4 + 1)[:k, None]
+    st.v[sl] = unit(tangent + off * st.nrm[sl])
+    sl = groups["zero light pdf"]
+    light_y = ds.light_v1[0, 1]
+    st.p[sl] = torch.stack([torch.full((k,), -1e6, device=dev), light_y.expand(k), -1e6 + 1e5 * rnd(k)], dim=-1)
+    st.nrm[sl] = torch.tensor([1.0, 0.0, 0.0], device=dev)  # the origin keeps the vertex's y exactly
+    st.v[sl] = unit(torch.tensor([1.0, 0.1, 0.0], device=dev) + 0.1 * rnd(k, 3))
+    sl = groups["base colour and alpha"]
+    third = k // 3
+    st.diffuse[sl] = rnd(k, 3)
+    st.diffuse[sl][:third] = 0.0
+    st.diffuse[sl][third:2 * third] = 1.0
+    st.alpha[sl] = torch.tensor([0.01, 1.0], device=dev).repeat(k // 2 + 1)[:k]
+    st.alpha[sl][:third] = 0.01 + 0.99 * rnd(third)
+    sl = groups["throughput"]
+    st.tp[sl] = 2.0 * rnd(k, 3)
+    st.tp[sl][::5] = 0.0
+    return st, rng[:n].clone(), groups
+
+
+def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi) -> dict:
+    """K1, K2 and K3 against their plain versions on the card (bit-equal on every lane), on the inputs an
+    eager Cornell PATH frame gave them (every bounce, every trace) and on seeded edge lanes; each timed in turns
+    with its plain version at the frame's 1M lanes (K1 and K2 at its second bounce, K3 at its primaries and
+    that bounce), with its bound; then one whole frame through the kernels against one through the plain
+    versions, from one state."""
+    ds = r.device_scene
+    rec = _record_bounce_inputs(pk, sk, r, frame_impl)
+    out = {}
+
+    def k1_inputs(st, rng):
+        return {**{f.name: getattr(st, f.name) for f in dataclasses.fields(pk.PathState)}, "rng": rng}
+
+    # K1: every bounce of the frame, then the edge lanes
+    err1 = 0.0
+    for d, (_ds, st, rng) in enumerate(rec["sample"]):
+        err1 = max(err1, _check_bits(torch, f"K1 bounce {d}", pk.path_sample_cuda(ds, st, rng),
+                                     pk.path_sample_plain(ds, st, rng), k1_inputs(st, rng)))
+    est, erng, groups = _k1_edge_lanes(torch, pk, ds, rec["sample"][1][1], rec["sample"][1][2])
+    want = pk.path_sample_plain(ds, est, erng)
+    err1 = max(err1, _check_bits(torch, "K1 edge lanes", pk.path_sample_cuda(ds, est, erng), want,
+                                 k1_inputs(est, erng)))
+    zero_pdf = groups["zero light pdf"]
+    _require(not bool(want.shadow_needed[zero_pdf].any()) and bool((want.nee[zero_pdf] == 0).all()),
+             "K1 edge lanes: a light sample in the light's plane kept a nonzero NEE pdf")
+    print(f"  K1 path_sample: {len(rec['sample'])} bounces of an eager Cornell PATH frame ({rec['sample'][0][2].numel()} "
+          f"lanes each) and {EDGE_LANES} edge lanes ({', '.join(groups)}, real lanes; the edge lanes "
+          f"{int(want.shadow_needed.sum())} shadow rays, {int(want.sample_ok.sum())} bounce rays): bit-equal on "
+          "every lane", flush=True)
+
+    # K2: every bounce, then the second bounce's inputs with seeded occlusion, misses and colours
+    err2, light_hits, misses = 0.0, 0, 0
+    for d, (n_l, color, st, b, occ, bsi) in enumerate(rec["combine"]):
+        inputs = {"color": color, "tp": st.tp, "nee": b.nee, "shadow_needed": b.shadow_needed, "occluded": occ,
+                  "sample_ok": b.sample_ok, "brdf": b.brdf, "cos_over_pdf": b.cos_over_pdf, "bsdf_pdf": b.bsdf_pdf,
+                  "dir": b.bounce_dir, "hit": bsi.hit, "is_light": bsi.is_light, "b.p": bsi.p, "b.n": bsi.n_geom,
+                  "b.area": bsi.area}
+        err2 = max(err2, _check_bits(torch, f"K2 bounce {d}", pk.path_combine_cuda(n_l, color, st, b, occ, bsi),
+                                     pk.path_combine_plain(n_l, color, st, b, occ, bsi), inputs))
+        light_hits += int((b.sample_ok & bsi.hit & bsi.is_light).sum())
+        misses += int((b.sample_ok & ~bsi.hit).sum())
+    _require(light_hits > 0 and misses > 0, f"K2's inputs held {light_hits} light hits and {misses} misses")
+    n_l, color, st, b, occ, bsi = rec["combine"][1]
+    g = torch.Generator(device=color.device).manual_seed(SEED + 2)
+    n = color.shape[0]
+    occ_e = torch.rand(n, generator=g, device=color.device) < 0.5
+    bsi_e = dataclasses.replace(bsi, hit=bsi.hit & (torch.rand(n, generator=g, device=color.device) < 0.75))
+    color_e = torch.rand((n, 3), generator=g, device=color.device)
+    err2 = max(err2, _check_bits(torch, "K2 edge lanes", pk.path_combine_cuda(n_l, color_e, st, b, occ_e, bsi_e),
+                                 pk.path_combine_plain(n_l, color_e, st, b, occ_e, bsi_e),
+                                 {"occluded": occ_e, "hit": bsi_e.hit, "is_light": bsi_e.is_light}))
+    print(f"  K2 path_combine: {len(rec['combine'])} bounces ({light_hits} lanes whose bounce hit a light, {misses} "
+          f"whose bounce missed) and the second bounce with seeded occlusion, misses and colours: bit-equal on "
+          "every lane", flush=True)
+
+    # K3: every trace of the frame, then seeded hits with misses, light triangles and u + v = 1
+    err3 = 0.0
+    for d, (_ds, hit) in enumerate(rec["shade"]):
+        err3 = max(err3, _check_bits(torch, f"K3 trace {d}", sk.brute_shade_cuda(ds, hit),
+                                     shade.build_surface_interaction(ds, None, hit),
+                                     {"tri_id": hit.tri_id, "u": hit.bary_u, "v": hit.bary_v}))
+    from optix_renderer_tpu_torch.scene.device import PACK_SLICES
+
+    T = ds.tri_pack.shape[0]
+    lights = torch.nonzero(ds.tri_pack[:, PACK_SLICES["is_light"][0]] > 0.5).flatten()
+    tri = torch.randint(-1, T, (EDGE_LANES,), generator=g, device=color.device, dtype=torch.int32)
+    tri[::4] = lights[torch.randint(0, lights.numel(), (EDGE_LANES // 4,), generator=g, device=color.device)].int()
+    u = torch.rand(EDGE_LANES, generator=g, device=color.device)
+    v = torch.rand(EDGE_LANES, generator=g, device=color.device) * (1.0 - u)
+    v[::3] = 1.0 - u[::3]
+    hit_e = Hit(t=torch.ones_like(u), tri_id=tri, bary_u=u, bary_v=v)
+    err3 = max(err3, _check_bits(torch, "K3 edge lanes", sk.brute_shade_cuda(ds, hit_e),
+                                 shade.build_surface_interaction(ds, None, hit_e), {"tri_id": tri, "u": u, "v": v}))
+    print(f"  K3 brute_shade: {len(rec['shade'])} traces of the frame and {EDGE_LANES} seeded hits (misses, light "
+          "triangles, u + v = 1): bit-equal on every lane", flush=True)
+
+    # times in turns and bounds, at the frame's 1M lanes
+    a1 = (ds, *rec["sample"][1][1:])
+    a2 = rec["combine"][1]
+    ms1, plain1 = _in_turns(torch, lambda: pk.path_sample_plain(*a1), lambda: pk.path_sample_cuda(*a1), 3, 30)
+    ms2, plain2 = _in_turns(torch, lambda: pk.path_combine_plain(*a2), lambda: pk.path_combine_cuda(*a2), 3, 30)
+    n = a1[2].numel()
+    n_lights = ds.num_lights
+    bound1 = _bound(n * K1_BYTES + n_lights * LIGHT_BYTES, n * pk.OPS_SAMPLE)
+    bound2 = _bound(n * K2_BYTES, n * pk.OPS_COMBINE)
+    shade_t = {}
+    for label, (_ds, hit) in (("primary", rec["shade"][0]), ("bounce 1", rec["shade"][2])):
+        ms3, plain3 = _in_turns(torch, lambda: shade.build_surface_interaction(ds, None, hit),
+                                lambda: sk.brute_shade_cuda(ds, hit), 5, 50)
+        hits = hit.tri_id >= 0
+        rows = torch.unique(hit.tri_id[hits]).numel()
+        shade_t[label] = {"ms": ms3, "plain_ms": plain3, "hits": int(hits.sum()), "distinct_rows": rows,
+                          "bound": _bound(hit.tri_id.numel() * K3_BYTES + rows * PACK_ROW_BYTES,
+                                          int(hits.sum()) * (sk.OPS_SHADE + sk.OPS_TEXTURE * ds.has_textures))}
+    out["path_sample"] = {"max_abs_err": err1, "ms": ms1, "plain_ms": plain1, "bound": bound1, "lanes": n}
+    out["path_combine"] = {"max_abs_err": err2, "ms": ms2, "plain_ms": plain2, "bound": bound2, "lanes": n}
+    out["brute_shade"] = {"max_abs_err": err3, **shade_t["primary"], "bound": shade_t["primary"]["bound"],
+                          "bounce 1": shade_t["bounce 1"]}
+    print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain), {n} lanes: K1 {ms1:.4f} ms vs plain "
+          f"{plain1:.4f} ms (bound {bound1[0]:.4f} ms, {bound1[1]}); K2 {ms2:.4f} ms vs plain {plain2:.4f} ms (bound "
+          f"{bound2[0]:.4f} ms, {bound2[1]}); K3 "
+          + "; ".join(f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms (bound {v['bound'][0]:.4f} ms, "
+                      f"{v['bound'][1]}; {v['hits']} hits, {v['distinct_rows']} rows)" for k, v in shade_t.items()),
+          flush=True)
+    del rec, a1, a2
+
+    # one whole frame through the kernels against one through the plain versions, from one state
+    kw = dict(mode=r.mode, width=r.width, height=r.height, path_depth=r.path_depth, ratio_samples=r.ratio_samples)
+    got = frame_impl(r.state, ds, r.bvh, **kw)
+    want = frame_impl(r.state, ds, r.bvh, plain=True, **kw)
+    torch.cuda.synchronize()
+    _require(bool(torch.equal(got[0].accum.view(torch.int32), want[0].accum.view(torch.int32))),
+             f"the {r.width}^2 PATH frame through K1-K3 differs from the plain frame on "
+             f"{int((got[0].accum != want[0].accum).any(dim=-1).sum())} pixels")
+    for f in dataclasses.fields(got[1]):
+        _require(bool(torch.equal(getattr(got[1], f.name), getattr(want[1], f.name))),
+                 f"the PATH frame's g-buffer {f.name} differs from the plain frame's")
+    counts_k, counts_p = got[2]["path_alive_counts"], want[2]["path_alive_counts"]
+    _require(bool(torch.equal(counts_k, counts_p)), f"per-bounce counts {counts_k.tolist()} vs {counts_p.tolist()}")
+    honest = r.width * r.height + int(counts_k[:, 1:].sum())
+    out["frame"] = {"honest_rays": honest, "alive_per_bounce": counts_k.tolist(), "image_mean": got[0].accum.mean().item()}
+    print(f"  one {r.width}^2 Cornell PATH depth {r.path_depth} frame through K1-K3 bit-equal to the frame through "
+          f"their plain versions from the same state (accum, g-buffers), the same per-bounce counts "
+          f"{counts_k.tolist()} and honest rays ({honest})", flush=True)
+    return out
 
 
 def _check_edges(torch, bt, bounce_like_rays, small, cap, dev) -> int:
@@ -821,11 +1086,14 @@ def main() -> int:
     from optix_renderer_tpu_torch.accel import cluster_trace as ct
     from optix_renderer_tpu_torch.core import math as cm
     from optix_renderer_tpu_torch.engine import RendererType
-    from optix_renderer_tpu_torch.core.types import Ray
+    from optix_renderer_tpu_torch.core.types import Hit, Ray
+    from optix_renderer_tpu_torch.engine import shade
+    from optix_renderer_tpu_torch.engine import shade_kernel as sk
     from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
     from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused
     from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
+    from optix_renderer_tpu_torch.integrators import path_kernel as pk
     from optix_renderer_tpu_torch.integrators.path import RAY_EPS
     from optix_renderer_tpu_torch.scene import SceneCamera, parse_scene, write_cornell_scene, write_terrain_scene
     from optix_renderer_tpu_torch.shading import bsdf
@@ -839,12 +1107,11 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine.renderer import _frame_impl
 
     def reset_counts():
-        bt.reset_launch_counts()
-        lk.reset_launch_counts()
-        ct.reset_launch_counts()
+        for mod in (bt, lk, ct, pk, sk):
+            mod.reset_launch_counts()
 
     def launch_counts():
-        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES}
+        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES, **pk.LAUNCHES, **sk.LAUNCHES}
 
     def expected(**launched):
         return {**{k: 0 for k in launch_counts()}, **launched}
@@ -927,15 +1194,15 @@ def main() -> int:
     phase_done("phase 1")
 
     # ---- 2. build: one nvcc per library, all started together --------------
-    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES}
+    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES, "path_bounce": pk.SOURCES,
+            "brute_shade": sk.SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(cuda_build.build_library, name, srcs) for name, srcs in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
     build_wall = time.perf_counter() - t0
-    bt.kernel_library()
-    lk.kernel_library()
-    ct.kernel_library()
+    for mod in (bt, lk, ct, pk, sk):
+        mod.kernel_library()
     print(f"[2 build] {len(libs)} libraries in {build_wall:.2f} s wall", flush=True)
     for name, (lib_path, build_s) in built.items():
         with open(lib_path + ".log") as f:
@@ -981,6 +1248,7 @@ def main() -> int:
           f"B1 primary 1024^2 {ms_c:.4f} ms vs plain {plain_c:.4f} ms; "
           f"B1 bounce 1M {ms_cb:.4f} ms vs plain {plain_cb:.4f} ms; "
           f"B2 shadow 1M {ms_a:.4f} ms vs plain {plain_a:.4f} ms", flush=True)
+    bounce_k = _check_bounce_kernels(torch, pk, sk, shade, Hit, r, _frame_impl, smi)
     ltc_l2, ltc_l6 = ltc_frame_inputs(rl), ltc_frame_inputs(rr)
     ltc_rand = random_ltc_inputs(LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, SEED, dev)
     err_l = max(_check_ltc(torch, lk, ltc_l2, "Cornell LTC frame 1024^2"),
@@ -1286,7 +1554,9 @@ def main() -> int:
     _require(img.shape == (MAIN_RES, MAIN_RES, 3), f"image shape {img.shape}")
     _require(bool(np.isfinite(img).all()), "image has non-finite values")
     _require(float(img.mean()) > 0.0, "image is black")
-    want = expected(brute_closest=TIMED_FRAMES * (1 + MAIN_DEPTH), brute_any=TIMED_FRAMES * MAIN_DEPTH)
+    want = expected(brute_closest=TIMED_FRAMES * (1 + MAIN_DEPTH), brute_any=TIMED_FRAMES * MAIN_DEPTH,
+                    brute_shade=TIMED_FRAMES * (1 + MAIN_DEPTH), path_sample=TIMED_FRAMES * MAIN_DEPTH,
+                    path_combine=TIMED_FRAMES * MAIN_DEPTH)
     _require(launches_path == want, f"PATH launch counts {launches_path}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -1316,7 +1586,7 @@ def main() -> int:
         rl.render(1)
         secs += rl.metrics["seconds"] - s0
     launches_ltc = launch_counts()
-    want = expected(brute_closest=TIMED_FRAMES, ltc=TIMED_FRAMES)
+    want = expected(brute_closest=TIMED_FRAMES, ltc=TIMED_FRAMES, brute_shade=TIMED_FRAMES)
     _require(launches_ltc == want, f"LTC_BASELINE launch counts {launches_ltc}, expected {want}")
     img = rl.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
@@ -1361,7 +1631,7 @@ def main() -> int:
     rr.render(TIMED_FRAMES)
     launches_ratio = launch_counts()
     m1 = dict(rr.metrics)
-    want = expected(brute_closest=TIMED_FRAMES, brute_any=TIMED_FRAMES, ltc=TIMED_FRAMES)
+    want = expected(brute_closest=TIMED_FRAMES, brute_any=TIMED_FRAMES, ltc=TIMED_FRAMES, brute_shade=TIMED_FRAMES)
     _require(launches_ratio == want, f"RATIO launch counts {launches_ratio}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -1436,7 +1706,8 @@ def main() -> int:
     m1 = dict(rg.metrics)
     traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
     want = expected(cluster_closest_walk_baked=TIMED_FRAMES, cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
-                    cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces)
+                    cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces,
+                    path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH)
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
     st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
     _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
@@ -1469,7 +1740,8 @@ def main() -> int:
     st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
     n_fr = TERRAIN_PATH_FRAMES
     want = expected(cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
-                    cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH))
+                    cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH),
+                    path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH)
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
     _require(not any(st5b.values()), f"config 5b: trace statistics {st5b} from traces that list nothing")
     img = rt.image()
@@ -1555,7 +1827,10 @@ def main() -> int:
         launches_split = launch_counts()
         m1 = {"one": dict(one.metrics), "split": dict(split.metrics)}
         want = expected(brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
-                        brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH)
+                        brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH,
+                        brute_shade=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
+                        path_sample=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH,
+                        path_combine=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH)
         _require(launches_split == want and {k: v * SPLIT_DEVICES for k, v in launches_eager.items()} == want,
                  f"row-split PATH launch counts {launches_split}, eager {launches_eager}, expected {want}")
         _require(split.state.accum_id == one.state.accum_id == SPLIT_FRAMES + WARMUP_FRAMES
@@ -1727,7 +2002,8 @@ def main() -> int:
         launches_viewer = launch_counts()
         _require(server.error is None and not any(t.is_alive() for t in server._threads),
                  f"the viewer's render loop failed: {server.error!r}")
-        for name in ("cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk", "winner_attrs", "ltc"):
+        for name in ("cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk", "winner_attrs", "ltc",
+                     "path_sample", "path_combine"):
             _require(launches_viewer[name] > 0, f"the viewer never launched {name}: {launches_viewer}")
         img = rv.image()
         _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0,
@@ -2119,6 +2395,18 @@ def main() -> int:
          "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None,
          "by_lights": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": ltc_bounds[k][0],
                            "bound_by": ltc_bounds[k][1], "ops": ltc_ops[k]} for k, v in ltc_times.items()}},
+        # K1-K3: hand kernels with no Pallas counterpart (the JAX package leaves this code to XLA's fusions);
+        # ms, plain_ms and bound_ms at an eager Cornell PATH frame's 1M lanes (K1, K2 its second bounce, K3 its
+        # primaries; `bounce 1` K3 at that bounce)
+        *({"name": name, "route": "cuda", "source": f"optix_renderer_tpu_torch/csrc/{src_file}", "replaces": rep_at,
+           "launches": launches[name], "max_abs_err": bounce_k[name]["max_abs_err"], "ms": bounce_k[name]["ms"],
+           "plain_ms": bounce_k[name]["plain_ms"], "bound_ms": bounce_k[name]["bound"][0],
+           "bound_by": bounce_k[name]["bound"][1], "library_ms": None,
+           **{k: v for k, v in bounce_k[name].items() if k not in ("max_abs_err", "ms", "plain_ms", "bound")}}
+          for name, src_file, rep_at in (
+              ("path_sample", "path_bounce.cu", "optix_renderer_tpu/integrators/path.py:127"),
+              ("path_combine", "path_bounce.cu", "optix_renderer_tpu/integrators/path.py:204"),
+              ("brute_shade", "brute_shade.cu", "optix_renderer_tpu/engine/shade.py:100"))),
     ]}
     _require(all(k["launches"] > 0 for k in record["kernels"]), f"a kernel never ran on a main path: {launches}")
     _require(all(math.isfinite(k[f]) for k in record["kernels"]

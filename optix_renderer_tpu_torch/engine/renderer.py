@@ -99,7 +99,8 @@ def _bakes(bvh: BVH) -> bool:
 
 def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
                 mode: RendererType, width: int, height: int, path_depth: int, ratio_samples: int,
-                baked_tab: BakedTable | None = None, row_offset: int = 0, rows: int | None = None):
+                baked_tab: BakedTable | None = None, row_offset: int = 0, rows: int | None = None,
+                plain: bool = False):
     """Render the tile of ``rows`` image rows (default: all ``height``)
     starting at ``row_offset`` of the width x height frame (JAX
     renderer.py:43-57): one tile is the whole frame on one device, and a row
@@ -108,6 +109,10 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     split image is bit-identical to the whole one.  ``baked_tab``: the
     table baked for ``camera.pos``, for the primary trace.  ``accum_id``:
     an int, or a 0-d int64 tensor on the device (``frame_graph``).
+    ``plain``: on the card too, the brute tier's shading and the path
+    bounce take their plain PyTorch versions instead of kernels K1-K3 (the
+    trace kernels still run): the reference that ``chip_smoke.py`` and
+    ``utils.profile_frames --plain`` hold the kernels' frames against.
 
     Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict,
     trace stats).
@@ -133,7 +138,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     rstate, ju = rnglib.lcg_randomf(rstate)
     rstate, jv = rnglib.lcg_randomf(rstate)
     rays = cameralib.primary_rays(camera, width, height, ju, jv, lin=lin)
-    si, stats = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab)
+    si, stats = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab, plain=plain)
 
     aux: dict = {}
     if mode in GBUFFER_MODES:
@@ -141,7 +146,8 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     elif mode == RendererType.LTC_BASELINE:
         color = ltc_baseline_color(ds, rays, si)
     elif mode == RendererType.PATH:
-        color, rstate, alive_counts, pstats = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth)
+        color, rstate, alive_counts, pstats = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth,
+                                                         plain=plain)
         aux["path_alive_counts"] = alive_counts
         stats = merge_trace_stats(stats, pstats)
     else:  # RendererType.RATIO
@@ -162,14 +168,14 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
 
 def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
                 width: int, height: int, path_depth: int, ratio_samples: int,
-                baked_tab: BakedTable | None = None):
+                baked_tab: BakedTable | None = None, plain: bool = False):
     """One frame over the whole image: ``(state', gbuffers, aux, trace
     stats)``.  The pure reference (JAX ``_frame_impl``): the Renderer's
     frames run through ``frame_graph.FrameSlot`` and must equal it bit for
-    bit."""
+    bit.  ``plain``: see ``render_tile``."""
     color, gb, aux, stats = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
                                         height=height, path_depth=path_depth, ratio_samples=ratio_samples,
-                                        baked_tab=baked_tab)
+                                        baked_tab=baked_tab, plain=plain)
     accum = state.accum + color.reshape(height, width, 3)  # a new buffer: the input state stays as it was
     return RenderState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux, stats
 

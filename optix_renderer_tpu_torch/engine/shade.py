@@ -5,7 +5,9 @@ programs, cuda_include/hit_miss.cuh:14-63).
 Small scenes (brute tier): after traversal returns (tri_id, bary), one
 index gather ``tri_pack[tid]`` fetches every per-triangle attribute; the
 JAX package does the same fetch as a one-hot matmul at Precision.HIGHEST,
-which returns the same values.
+which returns the same values.  On the card the whole of it, gather,
+interpolation, texture sample and miss fill, is one launch of kernel K3
+(``shade_kernel``); ``build_surface_interaction`` is its plain version.
 
 Big scenes (cluster tier): the trace returns the packed winner (key, cid)
 per lane, kernel B5 fetches the winning triangle's 26 shade columns, and
@@ -26,6 +28,7 @@ from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
 from ..scene.device import ONEHOT_MAX_TRIS, PACK_SLICES, DeviceScene
 from ..scene.textures import sample_bilinear
+from . import shade_kernel
 
 
 def _finalize(ds: DeviceScene, hit: Hit, parts: dict) -> SurfaceInteraction:
@@ -143,19 +146,35 @@ def build_surface_interaction_fused(ds: DeviceScene, rays: Ray, cid: torch.Tenso
     )
 
 
+def _brute_shade(dev: torch.device, plain: bool):
+    """The brute tier's Hit -> SurfaceInteraction for lanes on ``dev``:
+    kernel K3 on a CUDA device (its plain version only when the caller
+    asks, ``plain=True``), the plain version on the CPU; any other device
+    raises."""
+    if dev.type == "cuda" and not plain:
+        return lambda ds, rays, hit: shade_kernel.brute_shade_cuda(ds, hit)
+    if dev.type in ("cuda", "cpu"):
+        return build_surface_interaction
+    raise ValueError(f"no shading for device {dev}")
+
+
 def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | None = None,
-                     coherent: bool = True, baked_tab=None):
+                     coherent: bool = True, baked_tab=None, t_max: torch.Tensor | None = None,
+                     plain: bool = False):
     """Trace + shade in one step.  Returns (SurfaceInteraction, trace stats).
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
     the others return a miss.  On the brute tier they trace with t_max = 0,
-    which the kernel skips; on the cluster tier
-    ``accel.traverse.trace_closest_winners`` rewrites them to an up-ray
-    above the scene.  ``coherent`` picks that function's cull and ray order
-    and, on the brute tier, whether kernel B1's warps vote to leave a test
-    (primary rays True, bounce rays False); the closest hit is the same
-    either way.  The tier decides the shading: the brute tier's Hit reads
-    the packed rows, the cluster tier's winners their B5 columns.
+    which the kernel skips (``t_max``: that per-lane bound,
+    ``where(active, INF, 0)``, when the caller already has it); on the
+    cluster tier ``accel.traverse.trace_closest_winners`` rewrites them to
+    an up-ray above the scene.  ``coherent`` picks that function's cull and
+    ray order and, on the brute tier, whether kernel B1's warps vote to
+    leave a test (primary rays True, bounce rays False); the closest hit is
+    the same either way.  The tier decides the shading: the brute tier's
+    Hit reads the packed rows (kernel K3 on a CUDA tensor; ``plain=True``
+    takes its plain version there too), the cluster tier's winners their
+    B5 columns.
 
     ``baked_tab`` (cluster tier, ``accel.cluster.BakedTable``): the rays
     share its origin and take the baked walk; B5 and the shading still read
@@ -164,9 +183,10 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
     if baked_tab is not None and not bvh.clustered:
         raise ValueError(f"baked tables belong to the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
     if not bvh.clustered:
-        t_max = _INF if active is None else torch.where(active, _INF, 0.0)
+        if t_max is None:
+            t_max = _INF if active is None else torch.where(active, _INF, 0.0)
         hit = trace_closest(bvh, rays, t_max=t_max, coherent=coherent)
-        return build_surface_interaction(ds, rays, hit), zero_trace_stats()
+        return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit), zero_trace_stats()
     key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent,
                                                     baked_tab=baked_tab)
     cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)

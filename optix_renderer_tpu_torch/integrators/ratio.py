@@ -42,7 +42,7 @@ from ..core.types import Ray, SurfaceInteraction
 from ..scene.device import DeviceScene
 from ..shading import ltc, material
 from .ltc_direct import ltc_direct
-from .path import RAY_EPS, _clamp_dot, gather_light_attrs, pdf_area_to_solid_angle
+from .path_kernel import RAY_EPS, _clamp_dot, gather_light_attrs, pdf_area_to_solid_angle
 
 
 def _stochastic_direct_sample(ds: DeviceScene, si: SurfaceInteraction, shadow_origin, wo_local, to_local, rng):

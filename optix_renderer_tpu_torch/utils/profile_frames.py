@@ -1,7 +1,7 @@
 """Where a frame's device time goes, on one CUDA card.
 
     python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap [--frames 2]
-        [--out prof.jsonl]
+        [--plain] [--out prof.jsonl]
 
 Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
 (999,710 triangles, grid 708), ``5b`` the same terrain in PATH depth 4,
@@ -16,14 +16,24 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 
 * ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_baked``
   (the baked walk of the primaries), ``B3_walk``, ``B4_walk`` (walk form),
-  ``B5``, ``B6`` (LTC): the hand-written kernels, found by their names in
-  the device trace (the first stage whose name matches);
+  ``B5``, ``B6`` (LTC), ``K1``, ``K2`` (the path bounce before and after
+  its traces), ``K3`` (the brute tier's shading): the hand-written
+  kernels, found by their names in the device trace (the first stage
+  whose name matches);
 * ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
 * ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
   a list-form per-lane trace, which rays on the card no longer take);
 * ``fallback_cull``: the checked fallback's single-level re-culls;
-* ``shade``: the fused surface interaction from B5's columns;
+* ``camera_rng``: the primary rays (pixel order, camera) and every LCG
+  seed and draw (``core.rng.make_rng``, ``lcg_randomf``);
+* ``shade``: the fused surface interaction from B5's columns, and the
+  brute tier's plain shade gather (``build_surface_interaction``);
+* ``nee``, ``bsdf``, ``combine``: the plain path bounce
+  (``integrators.path_kernel``): the light sample and NEE, the shading
+  frame with the BSDF sample and evaluation, and the MIS weights,
+  throughput and accumulation after the traces (in a kernel frame these
+  are K1 and K2);
 * ``ltc``: the LTC term (``integrators.ltc_direct.ltc_direct``) outside
   B6, that is its setup: 0 where B6 takes the hits themselves;
 * ``glue``: all other device time (integrator, camera, accumulation).
@@ -31,7 +41,11 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 The PyTorch stages are wrapped in a ``record_function`` range once, at
 the start, for every run (the library itself carries no profiling code);
 such a range shows up on the device as a span over the kernels its ops
-launched, and a kernel belongs to the span that holds it.  (The
+launched, and a kernel belongs to the span that holds it.  A stage called
+inside another stage's range opens none of its own (the bounce's LCG
+draws inside K1's plain version are ``camera_rng`` because that version's
+draws sit outside its ``nee`` and ``bsdf`` pieces), so no range holds
+another.  (The
 profiler's link from a kernel to its launching op is not used: it can
 attach one kernel to two host events.)
 
@@ -44,6 +58,9 @@ device ms and calls per frame, and the ten kernels that take the most
 device time.
 A deterministic mode (NORMALS, LTC_BASELINE) renders one frame per
 accumulation, so ``set_camera`` comes before each of its frames.
+``--plain``: the eager frames take the plain versions of K1-K3 on the card
+(``_frame_impl(..., plain=True)``), the glue as it ran before those
+kernels, split into the stages above; the replays still launch them.
 
 The line also holds ``render_n``: the same numbers for the frames the
 Renderer really renders, ``--frames`` replays of its frame graph
@@ -63,6 +80,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -78,22 +96,36 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 }
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
-STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade", "ltc")  # record_function ranges
-# the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu and csrc/ltc.cu, the
-# first match decides (the baked walk is closest_walk_kernel over BakedTri rows)
+STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade", "ltc",  # record_function ranges
+          "camera_rng", "nee", "bsdf", "combine")
+# the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu, csrc/ltc.cu,
+# csrc/path_bounce.cu and csrc/brute_shade.cu, the first match decides (the baked walk is
+# closest_walk_kernel over BakedTri rows)
 KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
                  "B4": "any_cluster_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
-                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel"}
+                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel",
+                 "K1": "path_sample_kernel", "K2": "path_combine_kernel", "K3": "brute_shade_kernel"}
 TOP_KERNELS = 10
 
 
+_open = threading.local()  # .depth: stage ranges open on this thread
+
+
 def labeled(fn, label):
-    """``fn`` inside a profiler range named ``label`` (or ``label(kwargs)``)."""
+    """``fn`` inside a profiler range named ``label`` (or ``label(kwargs)``),
+    unless it runs inside another such range."""
 
     def wrapper(*args, **kwargs):
-        name = label(kwargs) if callable(label) else label
-        with torch.profiler.record_function(name):
+        depth = getattr(_open, "depth", 0)
+        if depth:
             return fn(*args, **kwargs)
+        name = label(kwargs) if callable(label) else label
+        _open.depth = 1
+        try:
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        finally:
+            _open.depth = 0
 
     return wrapper
 
@@ -101,8 +133,9 @@ def labeled(fn, label):
 def _instrument() -> None:
     """Wrap each PyTorch stage's entry point in a named profiler range."""
     from ..accel import cluster
-    from ..engine import shade
-    from ..integrators import ltc_direct, ratio
+    from ..core import rng
+    from ..engine import camera, renderer, shade
+    from ..integrators import ltc_direct, path_kernel, ratio
 
     for name in ("ray_t_bounds", "corridor_keys_and_t_bounds"):
         setattr(cluster, name, labeled(getattr(cluster, name), "sweep"))
@@ -111,17 +144,25 @@ def _instrument() -> None:
                                         lambda kw: "fallback_cull" if kw.get("single_level") else "cull"))
     torch.argsort = labeled(torch.argsort, "sort")
     shade.build_surface_interaction_fused = labeled(shade.build_surface_interaction_fused, "shade")
+    shade.build_surface_interaction = labeled(shade.build_surface_interaction, "shade")
+    for mod, name in ((rng, "make_rng"), (rng, "lcg_randomf"), (camera, "primary_rays"), (renderer, "pixel_order")):
+        setattr(mod, name, labeled(getattr(mod, name), "camera_rng"))
+    path_kernel._nee_plain = labeled(path_kernel._nee_plain, "nee")
+    path_kernel._local_frame = labeled(path_kernel._local_frame, "bsdf")
+    path_kernel._bsdf_plain = labeled(path_kernel._bsdf_plain, "bsdf")
+    path_kernel.path_combine_plain = labeled(path_kernel.path_combine_plain, "combine")
     ltc_direct.ltc_direct = ratio.ltc_direct = labeled(ltc_direct.ltc_direct, "ltc")  # ratio holds its own name
 
 
-def _eager_frames(r, n: int) -> None:
+def _eager_frames(r, n: int, plain: bool) -> None:
     """n ``_frame_impl`` frames from ``r.state``, op by op; r is left as it was."""
     from ..engine.renderer import _frame_impl
 
     state = r.state
     for _ in range(n):
         state = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
-                            path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)[0]
+                            path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab,
+                            plain=plain)[0]
     torch.cuda.synchronize()
 
 
@@ -139,6 +180,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), nargs="+", required=True)
     ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--plain", action="store_true",
+                    help="eager frames through the plain versions of K1-K3 (the glue before those kernels)")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -147,7 +190,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     _instrument()
-    lines = [json.dumps(profile_config(config, args.frames, smi)) for config in args.config]
+    lines = [json.dumps(profile_config(config, args.frames, smi, args.plain)) for config in args.config]
     for line in lines:
         print(line)
     if args.out:
@@ -156,7 +199,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def profile_config(config: str, frames: int, smi: str) -> dict:
+def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> dict:
     from ..engine.modes import DETERMINISTIC_MODES, RendererType
     from ..engine.renderer import Renderer
     from ..scene import parse_scene, write_terrain_scene
@@ -170,8 +213,8 @@ def profile_config(config: str, frames: int, smi: str) -> dict:
             scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
     deterministic = r.mode in DETERMINISTIC_MODES
-    _eager_frames(r, 1)  # warm-up
-    single = _measure(lambda: _eager_frames(r, frames), frames)
+    _eager_frames(r, 1, plain)  # warm-up
+    single = _measure(lambda: _eager_frames(r, frames, plain), frames)
     _replayed_frames(r, 2, deterministic)  # the key's eager frame, then the frame graph's capture and a replay
     render_n = {"note": f"{frames} replays of the frame graph ("
                         + ("set_camera and render(1) each" if deterministic else f"render({frames})")
@@ -181,7 +224,7 @@ def profile_config(config: str, frames: int, smi: str) -> dict:
     m = r.metrics
     return {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
-        "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames,
+        "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames, "plain_eager": plain,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **single, "render_n": render_n,
         # summed over the warm-up, timed and profiled frames
         "cull_stats": {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")},
