@@ -14,7 +14,9 @@ raises and exits non-zero):
    one nvcc per library (brute_trace, ltc, cluster_trace, path_bounce,
    brute_shade), all started together, with ptxas' register and spill
    report (B1/B2 may not spill) and B1/B2's rays a thread, chunk rows and
-   shared memory a block;
+   shared memory a block, and the SASS instructions on a lane's
+   straight-line path of K1, K2 and K3 (``cuobjdump -sass``,
+   ``utils.brute_bench.sass_path``);
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
    turns (plain, kernel, kernel, plain): B1 (closest hit) and B2
    (occlusion) on the Cornell table (1024^2 primary rays, which B1 traces
@@ -27,7 +29,11 @@ raises and exits non-zero):
    on the edges of their blocking, B1 with and without the vote (one
    ray, a ragged batch, every ray
    dead, every ray live, NaN and negative t_max, a table of 8 rows, every
-   ray occluded in the first chunk), each equal to the plain version; K1
+   ray occluded in the first chunk), each equal to the plain version; K3
+   on 1M seeded hits on the cap terrain's 4,062 triangles (its padded table at its
+   largest), bit-equal on every lane, timed; |fmod(x, 1)| against
+   |x - trunc(x)| (the plain version's uv wrap against K3's) on all 2^32
+   float32 bit patterns on the card, equal as int32 bits (NaN as NaN); K1
    (``path_sample``), K2 (``path_combine``) and K3 (``brute_shade``), the
    path bounce around its traces and the brute tier's shading, against
    their plain versions on the inputs an eager Cornell PATH frame at 1024^2
@@ -37,7 +43,12 @@ raises and exits non-zero):
    colours at alpha 0.01 and 1, zero throughputs; occlusion and misses
    flipped; misses, light triangles and u + v = 1 hits), bit-equal on
    every lane (a differing lane is printed with its inputs), each timed in
-   turns with its plain version at the frame's 1M lanes; then one such
+   turns with its plain version at the frame's 1M lanes, and again as 30
+   launches in one CUDA graph, replayed (``graph_ms``, the device time
+   without the wrapper's host time), beside its byte bound and its issue
+   floor (the straight-line SASS instructions a lane over 132 SMs x 4
+   schedulers x 32 lanes an instruction a clock, at the SM clock read
+   after the timed launches); then one such
    frame through K1-K3 bit-equal to one through their plain versions from
    the same state, with the same per-bounce counts and honest rays; the
    crossover between the tiers: NORMALS and PATH depth 4 at 1024^2 on the
@@ -188,10 +199,11 @@ spent on them: the lane utilisation); the walk forms count, whatever the
 kernel did, the tests any walk needs that ends at the lanes' final bounds
 (over every ray; B3's kernel may not have run fewer; the baked walk
 counts its tests at BAKED_MT_OPS each).
-K1-K3 move bytes: their bounds count each input and output once (K1 159
-bytes a lane and 64 a light, K2 258, K3 82 and 140 a distinct table row)
-against the f32 operations counted in their sources (``path_kernel.
-OPS_SAMPLE``, ``OPS_COMBINE``, ``shade_kernel.OPS_SHADE``).
+K1-K3's bounds count each input and output once (K1 159 bytes a lane and
+64 a light, K2 258, K3 82 and 140 a distinct table row) against the f32
+operations counted in their sources (``path_kernel.OPS_SAMPLE``,
+``OPS_COMBINE``, ``shade_kernel.OPS_SHADE``); beside the bound their record
+holds the issue floor from their SASS (``issue_floor_ms``).
 B3's and B4's ``launches`` add both forms; every main path on the card
 launches the walk forms, and the list forms go on being built, launched
 and checked in phase 3.  The last three lines are the kernels' JSON record, the nvidia-smi line and
@@ -272,12 +284,6 @@ GRAPH_FRAMES, GRAPH_FRAMES_5B, GRAPH_SINGLES, INTERLEAVE_FRAMES = 8, 3, 16, 3
 CACHE_CLI_RES = 256
 SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
-# K1-K3: bytes a lane, each input read once and each output written once.  K1 reads p, nrm, v, diffuse, tp
-# (5 x 12), alpha, alive and rng (73) and writes the BounceSample (86); K2 reads color, the state but alive (76),
-# what K1 wrote for it (46), occluded and the bounce hit (59) and writes color and the state (77); K3 reads
-# tri_id, u, v (12) and writes the SurfaceInteraction (70), and each distinct packed row it reads once (140) --
-# a light's table row is 64 bytes
-K1_BYTES, K2_BYTES, K3_BYTES, PACK_ROW_BYTES, LIGHT_BYTES = 73 + 86, 181 + 77, 12 + 70, 35 * 4, 64
 EDGE_LANES = 1 << 16  # the seeded edge lanes of K1 and K3
 
 
@@ -410,26 +416,11 @@ def _check_bits(torch, label: str, got, want, inputs: dict) -> float:
     return err
 
 
-def _record_bounce_inputs(pk, sk, r, frame_impl) -> dict:
-    """One eager ``_frame_impl`` frame of ``r`` on the card with the wrappers of K1, K2 and K3 recording
-    their arguments: {"sample": [(ds, state, rng)] a bounce, "combine": [...] a bounce, "shade": [(ds, hit)]
-    a trace}.  Every argument is a tensor the frame made and no later step writes."""
-    rec = {"sample": [], "combine": [], "shade": []}
-    orig = (pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda)
+def _record_bounce_inputs(r) -> dict:
+    """``bench_rays.record_bounce_inputs`` of one eager frame of ``r``: each kernel's arguments, a call each."""
+    from optix_renderer_tpu_torch.utils.bench_rays import record_bounce_inputs
 
-    def recorder(key, fn):
-        def run(*args):
-            rec[key].append(args)
-            return fn(*args)
-        return run
-
-    pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = (
-        recorder("sample", orig[0]), recorder("combine", orig[1]), recorder("shade", orig[2]))
-    try:
-        frame_impl(r.state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
-                   path_depth=r.path_depth, ratio_samples=r.ratio_samples)
-    finally:
-        pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = orig
+    rec = record_bounce_inputs(r)
     _require(len(rec["sample"]) == len(rec["combine"]) == r.path_depth and len(rec["shade"]) == 1 + r.path_depth,
              f"a PATH frame launched K1 {len(rec['sample'])}, K2 {len(rec['combine'])}, K3 {len(rec['shade'])} times")
     return rec
@@ -482,14 +473,40 @@ def _k1_edge_lanes(torch, pk, ds, s, rng):
     return st, rng[:n].clone(), groups
 
 
-def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi) -> dict:
+def _bounce_sass(built: dict) -> dict:
+    """{kernel: SASS instructions on a lane's straight-line path} of the built K1-K3
+    (``utils.brute_bench.sass_path`` over ``cuobjdump -sass``): the count the issue floors take."""
+    from optix_renderer_tpu_torch.utils.brute_bench import BOUNCE_KERNELS, bounce_paths, cuobjdump_sass
+
+    out = {k: v["instructions"] for lib in ("path_bounce", "brute_shade")
+           for k, v in bounce_paths(cuobjdump_sass(built[lib][0])).items()}
+    _require(sorted(out) == sorted(BOUNCE_KERNELS), f"SASS of K1-K3: found {sorted(out)}")
+    return out
+
+
+def _check_fmod_identity(torch, dev) -> int:
+    """Bit patterns x on which |fmod(x, 1)| (the plain version's uv wrap) and |x - trunc(x)| (K3's) differ,
+    over all 2^32 float32 patterns, in chunks of 2^28, computed on the card by the plain version's own
+    operations (torch.fmod, torch.trunc) and compared as int32 bits, a NaN matching any NaN."""
+    chunk, differ = 1 << 28, 0
+    for c in range(16):
+        bits = torch.arange(chunk, dtype=torch.int32, device=dev) + (-(1 << 31) + c * chunk)
+        x = bits.view(torch.float32)
+        a, b = torch.fmod(x, 1.0).abs(), (x - torch.trunc(x)).abs()
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        differ += int((~same).sum().item())
+        del bits, x, a, b, same
+    return differ
+
+
+def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi, sass) -> dict:
     """K1, K2 and K3 against their plain versions on the card (bit-equal on every lane), on the inputs an
     eager Cornell PATH frame gave them (every bounce, every trace) and on seeded edge lanes; each timed in turns
     with its plain version at the frame's 1M lanes (K1 and K2 at its second bounce, K3 at its primaries and
     that bounce), with its bound; then one whole frame through the kernels against one through the plain
     versions, from one state."""
     ds = r.device_scene
-    rec = _record_bounce_inputs(pk, sk, r, frame_impl)
+    rec = _record_bounce_inputs(r)
     out = {}
 
     def k1_inputs(st, rng):
@@ -565,8 +582,8 @@ def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi) -> dict
     ms2, plain2 = _in_turns(torch, lambda: pk.path_combine_plain(*a2), lambda: pk.path_combine_cuda(*a2), 3, 30)
     n = a1[2].numel()
     n_lights = ds.num_lights
-    bound1 = _bound(n * K1_BYTES + n_lights * LIGHT_BYTES, n * pk.OPS_SAMPLE)
-    bound2 = _bound(n * K2_BYTES, n * pk.OPS_COMBINE)
+    bound1 = _bound(n * pk.BYTES_SAMPLE + n_lights * pk.BYTES_LIGHT, n * pk.OPS_SAMPLE)
+    bound2 = _bound(n * pk.BYTES_COMBINE, n * pk.OPS_COMBINE)
     shade_t = {}
     for label, (_ds, hit) in (("primary", rec["shade"][0]), ("bounce 1", rec["shade"][2])):
         ms3, plain3 = _in_turns(torch, lambda: shade.build_surface_interaction(ds, None, hit),
@@ -574,17 +591,43 @@ def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi) -> dict
         hits = hit.tri_id >= 0
         rows = torch.unique(hit.tri_id[hits]).numel()
         shade_t[label] = {"ms": ms3, "plain_ms": plain3, "hits": int(hits.sum()), "distinct_rows": rows,
-                          "bound": _bound(hit.tri_id.numel() * K3_BYTES + rows * PACK_ROW_BYTES,
+                          "lanes": hit.tri_id.numel(),
+                          "bound": _bound(hit.tri_id.numel() * sk.BYTES_SHADE + rows * sk.BYTES_ROW,
                                           int(hits.sum()) * (sk.OPS_SHADE + sk.OPS_TEXTURE * ds.has_textures))}
-    out["path_sample"] = {"max_abs_err": err1, "ms": ms1, "plain_ms": plain1, "bound": bound1, "lanes": n}
-    out["path_combine"] = {"max_abs_err": err2, "ms": ms2, "plain_ms": plain2, "bound": bound2, "lanes": n}
+    # the kernels' device time without the wrappers' host time: 30 launches in one CUDA graph, replayed, as in a
+    # replayed frame; then the issue floors: a lane's straight-line SASS instructions at the SM clock read after
+    # the timed launches
+    from optix_renderer_tpu_torch.utils.brute_bench import graph_ms, issue_floor_ms
+
+    graph1, graph2 = graph_ms(lambda: pk.path_sample_cuda(*a1), 30), graph_ms(lambda: pk.path_combine_cuda(*a2), 30)
+    for label, (_ds, hit) in (("primary", rec["shade"][0]), ("bounce 1", rec["shade"][2])):
+        shade_t[label]["graph_ms"] = graph_ms(lambda: sk.brute_shade_cuda(ds, hit), 30)
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+    def floor(kernel, lanes):
+        return {"sass_instructions": sass[kernel], "sm_clock_mhz": mhz,
+                "issue_floor_ms": issue_floor_ms(lanes, sass[kernel], mhz)}
+
+    for v in shade_t.values():
+        v.update(floor("brute_shade_kernel", v["lanes"]))
+    out["path_sample"] = {"max_abs_err": err1, "ms": ms1, "graph_ms": graph1, "plain_ms": plain1, "bound": bound1,
+                          "lanes": n, **floor("path_sample_kernel", n)}
+    out["path_combine"] = {"max_abs_err": err2, "ms": ms2, "graph_ms": graph2, "plain_ms": plain2, "bound": bound2,
+                           "lanes": n, **floor("path_combine_kernel", n)}
     out["brute_shade"] = {"max_abs_err": err3, **shade_t["primary"], "bound": shade_t["primary"]["bound"],
                           "bounce 1": shade_t["bounce 1"]}
-    print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain), {n} lanes: K1 {ms1:.4f} ms vs plain "
-          f"{plain1:.4f} ms (bound {bound1[0]:.4f} ms, {bound1[1]}); K2 {ms2:.4f} ms vs plain {plain2:.4f} ms (bound "
-          f"{bound2[0]:.4f} ms, {bound2[1]}); K3 "
-          + "; ".join(f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms (bound {v['bound'][0]:.4f} ms, "
-                      f"{v['bound'][1]}; {v['hits']} hits, {v['distinct_rows']} rows)" for k, v in shade_t.items()),
+
+    def line(v):
+        return (f"{v['ms']:.4f} ms ({v['graph_ms']:.4f} replayed in a graph) vs plain {v['plain_ms']:.4f} ms "
+                f"(bound {v['bound'][0]:.4f} ms, {v['bound'][1]}; "
+                f"issue floor {v['issue_floor_ms']:.4f} ms, {v['sass_instructions']} SASS instructions a lane at "
+                f"{v['sm_clock_mhz']:.0f} MHz")
+
+    print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain), {n} lanes: K1 {line(out['path_sample'])}); "
+          f"K2 {line(out['path_combine'])}); K3 "
+          + "; ".join(f"{k} {line(v)}; {v['hits']} hits, {v['distinct_rows']} rows)" for k, v in shade_t.items()),
           flush=True)
     del rec, a1, a2
 
@@ -1100,7 +1143,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.shading import ltc_kernel as lk
     from optix_renderer_tpu_torch.utils import cuda_build
     from optix_renderer_tpu_torch.utils.bench_rays import (bounce_like_rays, first_frame_primaries, ltc_frame_inputs,
-                                                           random_ltc_inputs)
+                                                           random_ltc_inputs, random_shade_hits)
     from optix_renderer_tpu_torch.utils.profile_frames import device_breakdown, labeled
     from optix_renderer_tpu_torch.engine import frame_graph as fg
     from optix_renderer_tpu_torch.engine.modes import DETERMINISTIC_MODES
@@ -1216,6 +1259,9 @@ def main() -> int:
     print(f"  B1/B2: 256 threads a block, {brute_res['rays_per_thread']} rays a thread, chunks of "
           f"{brute_res['chunk_rows']} table rows, {brute_res['shared_bytes_per_block']} bytes of static shared "
           "memory a block; registers a thread in the ptxas lines above", flush=True)
+    bounce_sass = _bounce_sass(built)
+    print("  K1-K3, SASS instructions on a lane's straight-line path (brute_bench.sass_path): "
+          + ", ".join(f"{k} {v}" for k, v in bounce_sass.items()), flush=True)
     phase_done("phase 2")
 
     # ---- 3. kernels vs plain at the main paths' shapes --------------------
@@ -1248,7 +1294,11 @@ def main() -> int:
           f"B1 primary 1024^2 {ms_c:.4f} ms vs plain {plain_c:.4f} ms; "
           f"B1 bounce 1M {ms_cb:.4f} ms vs plain {plain_cb:.4f} ms; "
           f"B2 shadow 1M {ms_a:.4f} ms vs plain {plain_a:.4f} ms", flush=True)
-    bounce_k = _check_bounce_kernels(torch, pk, sk, shade, Hit, r, _frame_impl, smi)
+    bad_fmod = _check_fmod_identity(torch, dev)
+    print(f"  |fmod(x, 1)| and |x - trunc(x)| (K3's uv wrap) on all 2^32 float32 bit patterns on the card: "
+          f"{bad_fmod} differ", flush=True)
+    _require(bad_fmod == 0, f"|fmod(x, 1)| and |x - trunc(x)| differ on {bad_fmod} float32 bit patterns")
+    bounce_k = _check_bounce_kernels(torch, pk, sk, shade, Hit, r, _frame_impl, smi, bounce_sass)
     ltc_l2, ltc_l6 = ltc_frame_inputs(rl), ltc_frame_inputs(rr)
     ltc_rand = random_ltc_inputs(LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, SEED, dev)
     err_l = max(_check_ltc(torch, lk, ltc_l2, "Cornell LTC frame 1024^2"),
@@ -1304,6 +1354,32 @@ def main() -> int:
           f"{cap_bound_c[1]}); B1 bounce 1M {cap_cb:.4f} ms vs plain {cap_plain_cb:.4f} ms (bound "
           f"{cap_bound_cb[0]:.4f} ms, {cap_bound_cb[1]}); B2 shadow 1M {cap_a:.4f} ms vs plain {cap_plain_a:.4f} ms "
           f"(bound {cap_bound_a[0]:.4f} ms, {cap_bound_a[1]})", flush=True)
+    # K3 at the cap: seeded hits on the largest brute-tier table, through the padded copy at its largest
+    ds_c = rc.device_scene
+    hit_c = random_shade_hits(ds_c, BOUNCE_RAYS, SEED + 3, dev)
+    err_k3c = _check_bits(torch, "K3 cap hits", sk.brute_shade_cuda(ds_c, hit_c),
+                          shade.build_surface_interaction(ds_c, None, hit_c),
+                          {"tri_id": hit_c.tri_id, "u": hit_c.bary_u, "v": hit_c.bary_v})
+    ms_k3c, plain_k3c = _in_turns(torch, lambda: shade.build_surface_interaction(ds_c, None, hit_c),
+                                  lambda: sk.brute_shade_cuda(ds_c, hit_c), 3, 30)
+    from optix_renderer_tpu_torch.utils.brute_bench import graph_ms, issue_floor_ms
+
+    graph_k3c = graph_ms(lambda: sk.brute_shade_cuda(ds_c, hit_c), 30)
+    hits_c = int((hit_c.tri_id >= 0).sum())
+    bound_k3c = _bound(BOUNCE_RAYS * sk.BYTES_SHADE + torch.unique(hit_c.tri_id[hit_c.tri_id >= 0]).numel()
+                       * sk.BYTES_ROW, hits_c * sk.OPS_SHADE)
+    k3_floor = issue_floor_ms(BOUNCE_RAYS, bounce_sass["brute_shade_kernel"],
+                              bounce_k["path_sample"]["sm_clock_mhz"])
+    bounce_k["brute_shade"]["cap"] = {
+        "rows": ds_c.tri_pack.shape[0], "padded_row_bytes": sk.padded_pack(ds_c.tri_pack).stride(0) * 4,
+        "lanes": BOUNCE_RAYS, "hits": hits_c, "max_abs_err": err_k3c, "ms": ms_k3c, "graph_ms": graph_k3c,
+        "plain_ms": plain_k3c,
+        "bound_ms": bound_k3c[0], "bound_by": bound_k3c[1], "issue_floor_ms": k3_floor}
+    print(f"  K3 at the cap: {BOUNCE_RAYS} seeded hits ({hits_c} hits) on the grid-{CAP_GRID} terrain's "
+          f"{ds_c.tri_pack.shape[0]} rows (padded copy {sk.padded_pack(ds_c.tri_pack).numel() * 4} bytes): "
+          f"bit-equal on every lane; {ms_k3c:.4f} ms ({graph_k3c:.4f} replayed in a graph) vs plain "
+          f"{plain_k3c:.4f} ms (bound {bound_k3c[0]:.4f} ms, "
+          f"{bound_k3c[1]}; issue floor {k3_floor:.4f} ms) on {smi}", flush=True)
     n_edges = _check_edges(torch, bt, bounce_like_rays, r.bvh, capb, dev)
     del rc, prim_c, po_c, pd_c, co, cd, ctm_c, ctm_a
     cross = [_crossover_frames(torch, np, Renderer, RendererType, sc, dev, smi, (reset_counts, launch_counts))

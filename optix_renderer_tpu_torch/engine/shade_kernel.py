@@ -5,7 +5,8 @@ Counterpart of what XLA fuses of ``optix_renderer_tpu/engine/shade.py:
 no Pallas kernel there, so this replaces XLA's fusion, not a TPU kernel.
 Per lane, from the brute tier's Hit (tri_id, u, v), the kernel of
 ``csrc/brute_shade.cu`` gathers the triangle's packed row
-(``scene.device.tri_pack``, 35 floats, at most 4,096 rows), interpolates
+(``scene.device.tri_pack``, 35 floats, at most 4,096 rows; the kernel reads
+``padded_pack``'s copy, 36 floats a row, as nine 16-byte words), interpolates
 p, the shading normal and uv, wraps uv with ``abs(fmod(uv, 1))``, takes
 the bilinear atlas sample where the scene has textures, clamps alpha and
 writes the miss program's fill: the ``SurfaceInteraction`` of
@@ -21,6 +22,7 @@ so on the card the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -39,9 +41,18 @@ LAUNCHES = {"brute_shade": 0}
 # the material id 1; a textured lane's bilinear sample 42 more.  A miss
 # lane writes its fill and computes nothing.
 OPS_SHADE, OPS_TEXTURE = 57, 42
+# bytes, each input read once and each output written once, for the bound:
+# tri_id, u, v (12) and the SurfaceInteraction (70) a lane, and each
+# distinct row of tri_pack it reads (140)
+BYTES_SHADE, BYTES_ROW = 12 + 70, PACK_K * 4
 
 SOURCES = ["brute_shade.cu"]  # under csrc/
 _lib = None
+PADDED_K = 36  # the kernel's row: PACK_K floats and one of zeros, 144 bytes
+# id(tri_pack) -> (its version, the padded copy), an entry for as long as its
+# tri_pack lives: a frame graph replays K3 on the copy it captured, so a
+# copy must outlive every graph of its scene, whatever other scenes shade
+_padded_packs: dict[int, tuple[int, torch.Tensor]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +77,27 @@ def kernel_library() -> ctypes.CDLL:
 
         _lib = bind_library(load_library("brute_shade", SOURCES))
     return _lib
+
+
+def padded_pack(tri_pack: torch.Tensor) -> torch.Tensor:
+    """``tri_pack`` (T, PACK_K) padded with zeros to (T, PADDED_K), so that
+    each row starts on a 16-byte boundary; made once a tensor: the same
+    tensor, unchanged since, gets the same copy back for as long as it
+    lives.  A copy is made eagerly: inside a CUDA graph's capture it would
+    hold nothing until the first replay, so a capture must find it made."""
+    key = id(tri_pack)
+    entry = _padded_packs.get(key)
+    if entry is not None and entry[0] == tri_pack._version:
+        return entry[1]
+    if tri_pack.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("padded_pack: the scene's table is padded outside a CUDA graph's capture "
+                           "(its eager frame comes first)")
+    if entry is None:
+        weakref.finalize(tri_pack, _padded_packs.pop, key, None)
+    padded = torch.zeros((tri_pack.shape[0], PADDED_K), dtype=tri_pack.dtype, device=tri_pack.device)
+    padded[:, :PACK_K] = tri_pack
+    _padded_packs[key] = (tri_pack._version, padded)
+    return padded
 
 
 def brute_shade_cuda(ds: DeviceScene, hit: Hit) -> SurfaceInteraction:
@@ -103,10 +135,11 @@ def brute_shade_cuda(ds: DeviceScene, hit: Hit) -> SurfaceInteraction:
     if n == 0:  # a grid of 0 blocks is an invalid launch
         return si
     lib = kernel_library()
+    pack = padded_pack(ds.tri_pack)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.brute_shade(
-            n, hit.tri_id.data_ptr(), hit.bary_u.data_ptr(), hit.bary_v.data_ptr(), ds.tri_pack.data_ptr(),
+            n, hit.tri_id.data_ptr(), hit.bary_u.data_ptr(), hit.bary_v.data_ptr(), pack.data_ptr(),
             int(ds.has_textures), atlas.pixels.data_ptr(), atlas.offset.data_ptr(),
             atlas.width.data_ptr(), atlas.height.data_ptr(), ds.miss_color.data_ptr(),
             si.hit.data_ptr(), si.p.data_ptr(), si.uv.data_ptr(), si.n_geom.data_ptr(), si.diffuse.data_ptr(),

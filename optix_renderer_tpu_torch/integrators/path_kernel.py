@@ -68,6 +68,12 @@ LAUNCHES = {"path_sample": 0, "path_combine": 0}
 # BSDF sample 199, its value 94, the world direction 25 and 2 more; K2 50.
 # Every lane computes all of them.
 OPS_SAMPLE, OPS_COMBINE = 642, 50
+# bytes a lane, each input read once and each output written once, for the
+# kernels' bounds: K1 reads p, nrm, v, diffuse, tp (5 x 12), alpha, alive
+# and rng (73) and writes the BounceSample (86), and each light's row (64)
+# once; K2 reads color, the state but alive (76), what K1 wrote for it (46),
+# occluded and the bounce hit (59) and writes color and the state (77)
+BYTES_SAMPLE, BYTES_LIGHT, BYTES_COMBINE = 73 + 86, 64, 181 + 77
 
 SOURCES = ["path_bounce.cu"]  # under csrc/
 _lib = None

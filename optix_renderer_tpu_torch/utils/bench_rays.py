@@ -126,3 +126,44 @@ def random_ltc_inputs(n: int, n_lights: int, seed: int, device) -> tuple:
     h = {k: torch.as_tensor(v, device=device) for k, v in random_ltc_hits(n, n_lights, seed).items()}
     return (h["origin"], h["p"], h["n_geom"], h["alpha"], h["diffuse"],
             pack_lights(h["v1"], h["v2"], h["v3"], h["normal"], h["emit"]))
+
+
+def record_bounce_inputs(renderer) -> dict:
+    """One eager ``_frame_impl`` frame of a PATH ``renderer`` on the card with the wrappers of K1, K2 and K3
+    recording their arguments: {"sample": [(ds, state, rng)] a bounce, "combine": [...] a bounce, "shade":
+    [(ds, hit)] a trace}.  Every argument is a tensor the frame made and no later step writes."""
+    from ..engine import shade_kernel as sk
+    from ..engine.renderer import _frame_impl
+    from ..integrators import path_kernel as pk
+
+    rec = {"sample": [], "combine": [], "shade": []}
+    orig = (pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda)
+
+    def recorder(key, fn):
+        def run(*args):
+            rec[key].append(args)
+            return fn(*args)
+        return run
+
+    pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = (
+        recorder("sample", orig[0]), recorder("combine", orig[1]), recorder("shade", orig[2]))
+    try:
+        r = renderer
+        _frame_impl(r.state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
+                    path_depth=r.path_depth, ratio_samples=r.ratio_samples)
+    finally:
+        pk.path_sample_cuda, pk.path_combine_cuda, sk.brute_shade_cuda = orig
+    return rec
+
+
+def random_shade_hits(ds, n: int, seed: int, device):
+    """``n`` seeded brute-tier hits on ``ds``'s triangles for K3: about a tenth of them misses, the rest a
+    uniform triangle id and barycentrics with u + v <= 1."""
+    from ..core.types import Hit
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    tri = torch.randint(0, ds.tri_pack.shape[0], (n,), generator=g, device=device, dtype=torch.int32)
+    tri = torch.where(torch.rand(n, generator=g, device=device) < 0.1, -1, tri)
+    u = torch.rand(n, generator=g, device=device)
+    v = torch.rand(n, generator=g, device=device) * (1.0 - u)
+    return Hit(t=torch.ones_like(u), tri_id=tri, bary_u=u, bary_v=v)
