@@ -738,7 +738,7 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
         with torch.profiler.profile(activities=acts) as prof:
             render()
             torch.cuda.synchronize()
-        b = device_breakdown(prof.events(), frames)
+        b = device_breakdown(prof, frames, r.frame_stages())
         img = r.image()
         _require(bool(np.isfinite(img).all()) and float(np.abs(img).mean()) > 0.0, f"crossover {mode.name}: bad image")
         kernels = {k: v["device_ms_per_frame"] for k, v in b["stages"].items() if k in KERNEL_STAGES and v["calls_per_frame"]}
@@ -1134,7 +1134,6 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine import shade_kernel as sk
     from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
     from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused
-    from optix_renderer_tpu_torch.integrators import ltc_direct as ltd
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
     from optix_renderer_tpu_torch.integrators import path_kernel as pk
     from optix_renderer_tpu_torch.integrators.path import RAY_EPS
@@ -1144,7 +1143,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.utils import cuda_build
     from optix_renderer_tpu_torch.utils.bench_rays import (bounce_like_rays, first_frame_primaries, ltc_frame_inputs,
                                                            random_ltc_inputs, random_shade_hits)
-    from optix_renderer_tpu_torch.utils.profile_frames import device_breakdown, labeled
+    from optix_renderer_tpu_torch.utils.profile_frames import device_breakdown
     from optix_renderer_tpu_torch.engine import frame_graph as fg
     from optix_renderer_tpu_torch.engine.modes import DETERMINISTIC_MODES
     from optix_renderer_tpu_torch.engine.renderer import _frame_impl
@@ -1668,26 +1667,21 @@ def main() -> int:
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"LTC_BASELINE image: shape {img.shape}, mean {img.mean()}")
     # the LTC term of a frame is one launch of B6 and nothing else: no setup op runs on the card (one eager
-    # _frame_impl frame, the frame the graph captured, profiled with the integrator in a profiler range as
-    # profile_frames puts it: ranges do not show inside a replay); a replayed frame leaves the state it
-    # started from as it was (a pure function of the state, as in JAX) and equals the eager frame
+    # _frame_impl frame, the frame the graph captured, profiled: the integrator's span ltc.direct is
+    # profile_frames' stage ltc); a replayed frame leaves the state it started from as it was (a pure
+    # function of the state, as in JAX) and equals the eager frame
     rl.set_camera(cornell.cameras[0])
     state0 = rl.state
     accum0 = state0.accum.clone()
-    ltc_direct = ltd.ltc_direct
-    ltd.ltc_direct = labeled(ltc_direct, "ltc")
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            want_state, _frames = eager_frames(rl, state0, 1)
-            torch.cuda.synchronize()
-    finally:
-        ltd.ltc_direct = ltc_direct
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        want_state, _frames = eager_frames(rl, state0, 1)
+        torch.cuda.synchronize()
     rl.render(1)
     _require(rl.state.accum is not state0.accum and bool(torch.equal(state0.accum, accum0))
              and state0.accum_id == 0 and rl.state.accum_id == 1, "the LTC frame changed the state it started from")
     _require(bool(torch.equal(rl.state.accum, want_state.accum)), "the replayed LTC frame differs from the eager one")
-    ltc_stages = device_breakdown(prof.events(), 1)["stages"]
+    ltc_stages = device_breakdown(prof, 1)["stages"]
     _require(ltc_stages["ltc"]["calls_per_frame"] == 1 and ltc_stages["B6"]["calls_per_frame"] == 1
              and ltc_stages["ltc"]["device_ms_per_frame"] == 0.0,
              f"the LTC term of a frame: {ltc_stages['ltc']} outside B6 ({ltc_stages['B6']}), expected B6 alone")

@@ -199,7 +199,7 @@ def trace_closest_cuda(tri_tab, origin, direction, t_max, coherent: bool = False
             t_max.data_ptr(), n, t.data_ptr(), tri_id.data_ptr(), u.data_ptr(), v.data_ptr(), int(coherent), stream,
         )
     _raise_on(err, "brute_closest")
-    count_launch(LAUNCHES, "brute_closest")
+    count_launch(LAUNCHES, "brute_closest", "closest_kernel")
     return t, tri_id, u, v
 
 
@@ -217,5 +217,5 @@ def trace_any_cuda(tri_tab, origin, direction, t_max):
             t_max.data_ptr(), n, occ.data_ptr(), stream,
         )
     _raise_on(err, "brute_any")
-    count_launch(LAUNCHES, "brute_any")
+    count_launch(LAUNCHES, "brute_any", "any_kernel")
     return occ

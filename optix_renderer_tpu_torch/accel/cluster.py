@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from ..core.types import Hit, Ray
+from ..utils.launches import span
 from . import cluster_trace
 from .brute_trace import moller_trumbore
 from .build import CLUSTER_SIZE, SC_GROUP, BVH
@@ -162,8 +163,9 @@ def _t_bound_from_sweep(far, hit, t_max, n, like):
 def ray_t_bounds(cluster_min, cluster_max, rays: Ray, t_max):
     """Per-ray upper bound on any hit distance: the farthest exit of the
     superclusters the ray overlaps, 0 where it overlaps none."""
-    _near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
-    return _t_bound_from_sweep(far, hit, t_max, rays.origin.shape[0], rays.origin)
+    with span("trace.sweep"):
+        _near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
+        return _t_bound_from_sweep(far, hit, t_max, rays.origin.shape[0], rays.origin)
 
 
 def corridor_keys_and_t_bounds(cluster_min, cluster_max, rays: Ray, t_max=_INF):
@@ -172,28 +174,29 @@ def corridor_keys_and_t_bounds(cluster_min, cluster_max, rays: Ray, t_max=_INF):
     middle and last overlapped supercluster along the ray, so rays sorted
     together traverse near-identical cluster sets; rays overlapping nothing
     get INT32_MAX and sort last, together."""
-    near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
-    n = rays.origin.shape[0]
-    t_eff = _t_bound_from_sweep(far, hit, t_max, n, rays.origin)
+    with span("trace.sweep"):
+        near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
+        n = rays.origin.shape[0]
+        t_eff = _t_bound_from_sweep(far, hit, t_max, n, rays.origin)
 
-    S = near.shape[1]
-    near_c = torch.where(hit, torch.clamp(near, min=0.0), _INF)
-    entry_t, first = near_c.min(dim=-1)
-    last_n = torch.where(hit, torch.clamp(near, min=0.0), -_INF)
-    exit_t, last = last_n.max(dim=-1)
-    any_hit = hit.any(dim=-1)
-    mid_t = torch.where(any_hit, 0.5 * (entry_t + exit_t), 0.0)
-    mid = (near_c - mid_t[:, None]).abs().argmin(dim=-1)
-    first, mid, last = (a.to(torch.int32) for a in (first, mid, last))
+        S = near.shape[1]
+        near_c = torch.where(hit, torch.clamp(near, min=0.0), _INF)
+        entry_t, first = near_c.min(dim=-1)
+        last_n = torch.where(hit, torch.clamp(near, min=0.0), -_INF)
+        exit_t, last = last_n.max(dim=-1)
+        any_hit = hit.any(dim=-1)
+        mid_t = torch.where(any_hit, 0.5 * (entry_t + exit_t), 0.0)
+        mid = (near_c - mid_t[:, None]).abs().argmin(dim=-1)
+        first, mid, last = (a.to(torch.int32) for a in (first, mid, last))
 
-    sb = _cid_bits(S)
-    if 3 * sb <= 31:
-        key = (first << (2 * sb)) | (mid << sb) | last
-    elif 2 * sb <= 31:
-        key = (first << sb) | last
-    else:
-        key = first
-    return torch.where(any_hit, key, 0x7FFFFFFF), t_eff
+        sb = _cid_bits(S)
+        if 3 * sb <= 31:
+            key = (first << (2 * sb)) | (mid << sb) | last
+        elif 2 * sb <= 31:
+            key = (first << sb) | last
+        else:
+            key = first
+        return torch.where(any_hit, key, 0x7FFFFFFF), t_eff
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +478,8 @@ def _first_pass_lists(bvh: BVH, rays: Ray, t_eff, n_pad: int, refine: bool):
     else:
         maxv = _pad128(min(DEFAULT_MAX_VISITS, C))
         cull = cull_clusters
-    return maxv, cull(bvh.cluster_min, bvh.cluster_max, rays, t_eff, n_pad, maxv)
+    with span("trace.cull"):
+        return maxv, cull(bvh.cluster_min, bvh.cluster_max, rays, t_eff, n_pad, maxv)
 
 
 def _tiles_of(a: torch.Tensor, n_pad: int, grid_n: int) -> torch.Tensor:
@@ -487,7 +491,8 @@ def _fallback_batches(unresolved: torch.Tensor, n_un: int, grid_n: int):
     unresolved tiles, unresolved first in index order; a tail batch is
     clamped to end at grid_n, and its entries past n_un are not live."""
     fb = min(grid_n, _FB_TILES)
-    order = torch.argsort(torch.where(unresolved, 0, 1).to(torch.int32), stable=True)
+    with span("trace.sort"):
+        order = torch.argsort(torch.where(unresolved, 0, 1).to(torch.int32), stable=True)
     ar = torch.arange(fb, device=unresolved.device)
     for i in range(-(-n_un // fb)):
         start = min(i * fb, grid_n - fb)
@@ -576,8 +581,9 @@ def trace_closest_lists(bvh: BVH, rays: Ray, t_eff: torch.Tensor, refine: bool):
             fb = sel.shape[0]
             rfb = Ray(origin=o_g[sel].reshape(fb * TILE, 3), direction=d_g[sel].reshape(fb * TILE, 3))
             t2 = torch.where(live[:, None], t_up[sel], 0.0).reshape(fb * TILE)
-            l2, c2, s2, _, _ = cull2(bvh.cluster_min, bvh.cluster_max, rfb, t2, fb * TILE, maxv_full,
-                                     single_level=True)
+            with span("trace.fallback_cull"):
+                l2, c2, s2, _, _ = cull2(bvh.cluster_min, bvh.cluster_max, rfb, t2, fb * TILE, maxv_full,
+                                         single_level=True)
             k0, c0 = key_g[sel], cid_g[sel]
             kf, cf = cluster_trace.trace_closest_clusters(
                 bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, l2, torch.where(live, c2, 0), s2, cb,
@@ -650,8 +656,9 @@ def trace_any_lists(bvh: BVH, rays: Ray, t_eff: torch.Tensor, refine: bool):
             fb = sel.shape[0]
             rfb = Ray(origin=o_g[sel].reshape(fb * TILE, 3), direction=d_g[sel].reshape(fb * TILE, 3))
             t2 = torch.where(live[:, None], t2_g[sel], 0.0).reshape(fb * TILE)
-            l2, c2, s2, _, _ = cull2(bvh.cluster_min, bvh.cluster_max, rfb, t2, fb * TILE, maxv_full,
-                                     single_level=True)
+            with span("trace.fallback_cull"):
+                l2, c2, s2, _, _ = cull2(bvh.cluster_min, bvh.cluster_max, rfb, t2, fb * TILE, maxv_full,
+                                         single_level=True)
             occ_f = cluster_trace.trace_any_clusters(
                 bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, l2, torch.where(live, c2, 0), s2, cb,
                 rfb.origin, rfb.direction, t2)
@@ -680,7 +687,8 @@ def trace_any_clusters_sorted(bvh: BVH, rays: Ray, t_max=_INF, refine: bool = Tr
     tmax_b = _bcast_t(t_max, n, rays.origin)
     rays_m = rays_above_scene(bvh, rays, tmax_b > 0.0)
     keys, te = corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, tmax_b)
-    perm = torch.argsort(keys)
+    with span("trace.sort"):
+        perm = torch.argsort(keys)
     od_s = torch.cat([rays_m.origin, rays_m.direction, te[:, None]], dim=1)[perm]
     occ_s, stats = trace_any_clusters(bvh, Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6]), refine=refine,
                                       t_eff=od_s[:, 6])

@@ -424,7 +424,7 @@ def trace_closest_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits
             key0.data_ptr(), cid0.data_ptr(), n, key.data_ptr(), cid.data_ptr(),
             _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_closest")
-    count_launch(LAUNCHES, "cluster_closest")
+    count_launch(LAUNCHES, "cluster_closest", "closest_cluster_kernel")
     return key, cid
 
 
@@ -445,7 +445,7 @@ def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: in
             t_max.data_ptr(), n, occ.data_ptr(), _ptr(work),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any")
-    count_launch(LAUNCHES, "cluster_any")
+    count_launch(LAUNCHES, "cluster_any", "any_cluster_kernel")
     return occ
 
 
@@ -467,7 +467,7 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
             sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), key0.data_ptr(), cid0.data_ptr(), n,
             key.data_ptr(), cid.data_ptr(), _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
-    count_launch(LAUNCHES, name)
+    count_launch(LAUNCHES, name, "closest_walk_kernel")
     return key, cid
 
 
@@ -486,7 +486,7 @@ def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_ma
             sc_min.shape[0], origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(),
             _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any_walk")
-    count_launch(LAUNCHES, "cluster_any_walk")
+    count_launch(LAUNCHES, "cluster_any_walk", "any_walk_kernel")
     return occ
 
 
@@ -508,7 +508,7 @@ def fetch_winner_attrs_cuda(shade_a, shade_b, key, cid):
         err = lib.winner_attrs(shade_a.data_ptr(), shade_b.data_ptr(), key.data_ptr(), cid.data_ptr(), n,
                                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "winner_attrs")
-    count_launch(LAUNCHES, "winner_attrs")
+    count_launch(LAUNCHES, "winner_attrs", "winner_attr_kernel")
     return out
 
 

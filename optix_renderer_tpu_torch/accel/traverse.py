@@ -19,6 +19,7 @@ import functools
 import torch
 
 from ..core.types import Hit, Ray
+from ..utils.launches import span
 from . import brute_trace, cluster
 from .build import BRUTE_MAX_TRIS, BVH
 
@@ -104,7 +105,8 @@ def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor 
     if coherent:
         return cluster.trace_closest_clusters_packed(bvh, rays, t_max, baked_tab=baked_tab)
     keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
-    perm = torch.argsort(keys)
+    with span("trace.sort"):
+        perm = torch.argsort(keys)
     od_s = torch.cat([rays.origin, rays.direction, t_eff[:, None]], dim=1)[perm]  # one gather: rays and bounds
     key_s, cid_s, _t, stats = cluster.trace_closest_clusters_packed(
         bvh, Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6]), refine=True, t_eff=od_s[:, 6])

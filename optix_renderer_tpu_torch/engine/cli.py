@@ -5,7 +5,13 @@ depth, camera (``--camera``, ``--cam-from/--cam-to/--cam-up/--cam-fovy``,
 ``--record-camera``), output directory and files (``--save-npy``,
 ``--save-exr``, ``--save-gbuffers``), checkpoints (a resumed camera wins
 over the flags), the RATIO denoise-and-combine stage, ``--preview N``,
-``--profile DIR`` (a ``torch.profiler`` trace of the render loop),
+``--profile DIR`` (a ``torch.profiler`` trace of the render loop,
+``render_loop.pt.trace.json``, holding the port's own spans, and beside it
+``render_loop.stages.json``: ``Renderer.frame_stages()``, the stage map of
+the frame graph, whose ``stages`` name the ``frame.*`` span that made each
+operation of a replay by its position in the replay, and whose
+``kernels`` give the hand kernels' positions; null off the card, where
+frames are not replays),
 ``--devices N`` (the frames split by image rows over ``cuda:0`` ..
 ``cuda:N-1``, or over N CPU tiles with ``--cpu``: the same image, bit for
 bit; refused when fewer cards exist), ``--bvh-cache DIR`` (the trace
@@ -170,21 +176,25 @@ def _render_loop(r, spp: int, preview: int, preview_path: str, devices: list | N
 
 
 @contextlib.contextmanager
-def _profiled(out_dir: str | None, device: torch.device):
+def _profiled(out_dir: str | None, r):
     """A ``torch.profiler`` trace of the block, written into ``out_dir``
-    (the card's kernels too on a CUDA device); nothing without ``out_dir``."""
+    (the card's kernels too on a CUDA device), and the stage map of
+    ``r``'s frame graph beside it; nothing without ``out_dir``."""
     if not out_dir:
         yield
         return
     os.makedirs(out_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if r.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         yield
     trace = os.path.join(out_dir, "render_loop.pt.trace.json")
     prof.export_chrome_trace(trace)
-    log.info("profiler trace -> %s", trace)
+    stages = os.path.join(out_dir, "render_loop.stages.json")
+    with open(stages, "w") as f:
+        json.dump(r.frame_stages(), f)
+    log.info("profiler trace -> %s, stage map -> %s", trace, stages)
 
 
 def _save_gbuffers(out: str, gb, npy: bool, exr: bool) -> None:
@@ -247,7 +257,7 @@ def main(argv=None) -> int:
         return 0
 
     t0 = time.perf_counter()
-    with _profiled(args.profile, device):
+    with _profiled(args.profile, r):
         _render_loop(r, spp, args.preview, os.path.join(args.out, f"{name}_preview.png"), devices)
     img = r.image()
     dt = time.perf_counter() - t0

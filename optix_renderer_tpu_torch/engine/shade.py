@@ -28,6 +28,7 @@ from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
 from ..scene.device import ONEHOT_MAX_TRIS, PACK_SLICES, DeviceScene
 from ..scene.textures import sample_bilinear
+from ..utils.launches import span
 from . import shade_kernel
 
 
@@ -186,8 +187,10 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
         if t_max is None:
             t_max = _INF if active is None else torch.where(active, _INF, 0.0)
         hit = trace_closest(bvh, rays, t_max=t_max, coherent=coherent)
-        return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit), zero_trace_stats()
+        with span("trace.shade"):
+            return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit), zero_trace_stats()
     key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent,
                                                     baked_tab=baked_tab)
     cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)
-    return build_surface_interaction_fused(ds, rays, cid, cols), stats
+    with span("trace.shade"):
+        return build_surface_interaction_fused(ds, rays, cid, cols), stats

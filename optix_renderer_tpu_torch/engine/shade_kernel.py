@@ -147,5 +147,5 @@ def brute_shade_cuda(ds: DeviceScene, hit: Hit) -> SurfaceInteraction:
             si.area.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"brute_shade launch failed: cudaError {err}")
-    count_launch(LAUNCHES, "brute_shade")
+    count_launch(LAUNCHES, "brute_shade", "brute_shade_kernel")
     return si

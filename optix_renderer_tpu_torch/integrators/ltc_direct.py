@@ -14,18 +14,20 @@ import torch
 from ..core.types import Ray, SurfaceInteraction
 from ..scene.device import DeviceScene
 from ..shading import ltc_kernel
+from ..utils.launches import span
 
 
 def ltc_direct(ds: DeviceScene, rays: Ray, si: SurfaceInteraction) -> torch.Tensor:
     """LTC radiance for non-light hit lanes; garbage elsewhere (mask it).
     A CUDA tensor runs kernel B6 (or raises); a CPU tensor its plain version."""
-    args = (rays.origin.contiguous(), si.p.contiguous(), si.n_geom.contiguous(), si.alpha.contiguous(),
-            si.diffuse.contiguous(),
-            ltc_kernel.light_table(ds.light_v1, ds.light_v2, ds.light_v3, ds.light_normal, ds.light_emit))
-    if si.p.device.type == "cuda":
-        return ltc_kernel.ltc_direct_cuda(*args)
-    if si.p.device.type == "cpu":
-        return ltc_kernel.ltc_direct_plain(*args)
+    with span("ltc.direct"):
+        args = (rays.origin.contiguous(), si.p.contiguous(), si.n_geom.contiguous(), si.alpha.contiguous(),
+                si.diffuse.contiguous(),
+                ltc_kernel.light_table(ds.light_v1, ds.light_v2, ds.light_v3, ds.light_normal, ds.light_emit))
+        if si.p.device.type == "cuda":
+            return ltc_kernel.ltc_direct_cuda(*args)
+        if si.p.device.type == "cpu":
+            return ltc_kernel.ltc_direct_plain(*args)
     raise ValueError(f"no LTC implementation for device {si.p.device}")
 
 

@@ -22,6 +22,7 @@ from ..core.types import Ray, SurfaceInteraction
 from ..engine.shade import trace_closest_si
 from ..scene.device import DeviceScene
 from ..shading.bsdf import EPS
+from ..utils.launches import span
 from . import path_kernel
 from .path_kernel import RAY_EPS, PathState, gather_light_attrs, pdf_area_to_solid_angle  # noqa: F401 (re-exported)
 
@@ -68,31 +69,38 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
     dev = rays.origin.device
     path_sample, path_combine = _bounce_fns(dev, plain)
 
-    alive_counts = torch.zeros((max_depth, 3), dtype=torch.int64, device=dev)
-    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    # K2 returns a new state each bounce: the primary hit's fields, which
-    # render_tile turns into the g-buffers, are never written
-    state = PathState(p=si.p, nrm=si.n_geom, v=cm.normalize(rays.origin - si.p, eps=1e-30),  # back toward the camera
-                      diffuse=si.diffuse, alpha=si.alpha, tp=torch.ones((n, 3), dtype=torch.float32, device=dev),
-                      alive=si.hit & ~si.is_light)
+    with span("frame.path_init"):  # the path state before the first bounce
+        alive_counts = torch.zeros((max_depth, 3), dtype=torch.int64, device=dev)
+        color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        # K2 returns a new state each bounce: the primary hit's fields, which
+        # render_tile turns into the g-buffers, are never written
+        state = PathState(p=si.p, nrm=si.n_geom, v=cm.normalize(rays.origin - si.p, eps=1e-30),  # toward the camera
+                          diffuse=si.diffuse, alpha=si.alpha, tp=torch.ones((n, 3), dtype=torch.float32, device=dev),
+                          alive=si.hit & ~si.is_light)
     rng = rng_state
     stats = zero_trace_stats()
 
     for d in range(max_depth):
-        b = path_sample(ds, state, rng)
+        with span("frame.bounce.sample"):
+            b = path_sample(ds, state, rng)
         rng = b.rng
-        occluded, any_stats = trace_any_with_stats(
-            bvh, Ray(origin=b.origin, direction=b.shadow_dir), t_max=b.shadow_t, refine=True, coherent=False)
-        bounce_si, closest_stats = trace_closest_si(
-            ds, bvh, Ray(origin=b.origin, direction=b.bounce_dir), active=b.sample_ok, coherent=False,
-            t_max=b.bounce_t, plain=plain)
+        with span("frame.bounce.shadow"):
+            occluded, any_stats = trace_any_with_stats(
+                bvh, Ray(origin=b.origin, direction=b.shadow_dir), t_max=b.shadow_t, refine=True, coherent=False)
+        with span("frame.bounce.trace"):
+            bounce_si, closest_stats = trace_closest_si(
+                ds, bvh, Ray(origin=b.origin, direction=b.bounce_dir), active=b.sample_ok, coherent=False,
+                t_max=b.bounce_t, plain=plain)
         stats = merge_trace_stats(stats, merge_trace_stats(any_stats, closest_stats))
-        alive_counts[d] = torch.stack([state.alive.sum(), b.shadow_needed.sum(), b.sample_ok.sum()])
-        color, state = path_combine(ds.num_lights, color, state, b, occluded, bounce_si)
+        with span("frame.bounce.count"):
+            alive_counts[d] = torch.stack([state.alive.sum(), b.shadow_needed.sum(), b.sample_ok.sum()])
+        with span("frame.bounce.combine"):
+            color, state = path_combine(ds.num_lights, color, state, b, occluded, bounce_si)
 
     # EPS floor on the estimate (path.cuh:254-256), then the outer mode
     # wrapping (deviceCode.cu:146-153)
-    estimate = torch.clamp(color, min=EPS)
-    out = torch.where(si.is_light[:, None], si.emit, estimate)
-    out = torch.where(si.hit[:, None], out, ds.miss_color[None, :])
+    with span("frame.finish"):
+        estimate = torch.clamp(color, min=EPS)
+        out = torch.where(si.is_light[:, None], si.emit, estimate)
+        out = torch.where(si.hit[:, None], out, ds.miss_color[None, :])
     return out, rng, alive_counts, stats

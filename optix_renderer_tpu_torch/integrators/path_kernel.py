@@ -49,7 +49,7 @@ from ..core.types import SurfaceInteraction
 from ..scene.device import DeviceScene
 from ..shading import material
 from ..shading.bsdf import EPS, cos_theta
-from ..utils.launches import count_launch
+from ..utils.launches import count_launch, span
 
 # offset of secondary ray origins along the geometric normal
 RAY_EPS = 1e-3
@@ -227,12 +227,16 @@ def _bsdf_plain(s: PathState, to_world, wo_local, b_u1, b_u2):
 
 def path_sample_plain(ds: DeviceScene, s: PathState, rng: torch.Tensor) -> BounceSample:
     """K1's plain version: a bounce up to its traces."""
-    to_local, to_world, wo_local = _local_frame(s.nrm, s.v)
+    with span("bounce.bsdf"):
+        to_local, to_world, wo_local = _local_frame(s.nrm, s.v)
     rng, l_u1, l_u2 = rnglib.lcg_randomf2(rng)  # rand1 (path.cuh:165)
     rng, b_u1, b_u2 = rnglib.lcg_randomf2(rng)  # rand2 (path.cuh:166)
     rng, l_pick = rnglib.lcg_randomf(rng)  # light index (path.cuh:169)
-    origin, shadow_dir, shadow_t, shadow_needed, nee = _nee_plain(ds, s, to_local, wo_local, l_u1, l_u2, l_pick)
-    bounce_dir, bounce_t, sample_ok, brdf, cos_over_pdf, bsdf_pdf = _bsdf_plain(s, to_world, wo_local, b_u1, b_u2)
+    with span("bounce.nee"):
+        origin, shadow_dir, shadow_t, shadow_needed, nee = _nee_plain(ds, s, to_local, wo_local, l_u1, l_u2, l_pick)
+    with span("bounce.bsdf"):
+        bounce_dir, bounce_t, sample_ok, brdf, cos_over_pdf, bsdf_pdf = _bsdf_plain(s, to_world, wo_local, b_u1,
+                                                                                    b_u2)
     return BounceSample(origin=origin, shadow_dir=shadow_dir, shadow_t=shadow_t, bounce_dir=bounce_dir,
                         bounce_t=bounce_t, rng=rng, nee=nee, shadow_needed=shadow_needed, sample_ok=sample_ok,
                         brdf=brdf, cos_over_pdf=cos_over_pdf, bsdf_pdf=bsdf_pdf)
@@ -337,7 +341,7 @@ def path_sample_cuda(ds: DeviceScene, s: PathState, rng: torch.Tensor) -> Bounce
             *(getattr(out, f.name).data_ptr() for f in dataclasses.fields(out)), stream)
     if err != 0:
         raise RuntimeError(f"path_sample launch failed: cudaError {err}")
-    count_launch(LAUNCHES, "path_sample")
+    count_launch(LAUNCHES, "path_sample", "path_sample_kernel")
     return out
 
 
@@ -375,5 +379,5 @@ def path_combine_cuda(num_lights: int, color: torch.Tensor, s: PathState, b: Bou
             stream)
     if err != 0:
         raise RuntimeError(f"path_combine launch failed: cudaError {err}")
-    count_launch(LAUNCHES, "path_combine")
+    count_launch(LAUNCHES, "path_combine", "path_combine_kernel")
     return out_color, nxt

@@ -281,5 +281,5 @@ def ltc_direct_cuda(origin, p, n_geom, alpha, diffuse, lights) -> torch.Tensor:
                              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ltc_direct launch failed: cudaError {err}")
-    count_launch(LAUNCHES, "ltc")
+    count_launch(LAUNCHES, "ltc", "ltc_kernel")
     return out

@@ -20,34 +20,38 @@ in ``torch.cuda.synchronize()``), then renders as many again under
   its traces), ``K3`` (the brute tier's shading): the hand-written
   kernels, found by their names in the device trace (the first stage
   whose name matches);
-* ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys);
-* ``sort``: ``torch.argsort`` (the coherence sort, fallback batching);
+* ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys;
+  span ``trace.sweep``);
+* ``sort``: the coherence sort and the fallback's batching (``trace.sort``);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
-  a list-form per-lane trace, which rays on the card no longer take);
-* ``fallback_cull``: the checked fallback's single-level re-culls;
-* ``camera_rng``: the primary rays (pixel order, camera) and every LCG
-  seed and draw (``core.rng.make_rng``, ``lcg_randomf``);
+  a list-form per-lane trace, which rays on the card no longer take;
+  ``trace.cull``);
+* ``fallback_cull``: the checked fallback's single-level re-culls
+  (``trace.fallback_cull``);
+* ``camera_rng``: the primary rays (pixel order, the RNG's seeds and
+  jitter draws, the camera; ``frame.camera_rng``);
 * ``shade``: the fused surface interaction from B5's columns, and the
-  brute tier's plain shade gather (``build_surface_interaction``);
+  brute tier's plain shade gather (``trace.shade``);
 * ``nee``, ``bsdf``, ``combine``: the plain path bounce
-  (``integrators.path_kernel``): the light sample and NEE, the shading
-  frame with the BSDF sample and evaluation, and the MIS weights,
-  throughput and accumulation after the traces (in a kernel frame these
-  are K1 and K2);
-* ``ltc``: the LTC term (``integrators.ltc_direct.ltc_direct``) outside
-  B6, that is its setup: 0 where B6 takes the hits themselves;
-* ``glue``: all other device time (integrator, camera, accumulation).
+  (``integrators.path_kernel``): the light sample and NEE
+  (``bounce.nee``), the shading frame with the BSDF sample and evaluation
+  (``bounce.bsdf``), and what follows the traces (``frame.bounce.combine``:
+  in a kernel frame K2);
+* ``ltc``: the LTC term (``integrators.ltc_direct.ltc_direct``,
+  ``ltc.direct``) outside B6, that is its setup: 0 where B6 takes the
+  hits themselves;
+* ``glue``: all other device time (integrator, accumulation, the bounce's
+  own draws and counts).
 
-The PyTorch stages are wrapped in a ``record_function`` range once, at
-the start, for every run (the library itself carries no profiling code);
-such a range shows up on the device as a span over the kernels its ops
-launched, and a kernel belongs to the span that holds it.  A stage called
-inside another stage's range opens none of its own (the bounce's LCG
-draws inside K1's plain version are ``camera_rng`` because that version's
-draws sit outside its ``nee`` and ``bsdf`` pieces), so no range holds
-another.  (The
-profiler's link from a kernel to its launching op is not used: it can
-attach one kernel to two host events.)
+A stage is the program's own span (``utils.launches.span``, a profiler
+range while the profiler is open): an eager kernel belongs to the
+innermost stage span around its launch on the host (the CUDA call of its
+correlation id), so a span inside another wins.  A replayed frame runs no
+Python; its kernels take the stage of their position in the replay from
+the frame graph's stage map (``FrameGraph.stages``, recorded at the
+capture), which knows the ``frame.*`` spans only: in a replay
+``camera_rng`` and ``combine`` are split out, the cluster tier's inner
+stages count as glue.
 
 Prints one JSON line per config: the card (``nvidia-smi`` name and
 power limit), wall ms/frame unprofiled and profiled, device kernel
@@ -66,9 +70,15 @@ The line also holds ``render_n``: the same numbers for the frames the
 Renderer really renders, ``--frames`` replays of its frame graph
 (``engine.frame_graph``; captured in a warm-up before): one
 ``render(--frames)`` call in PATH and RATIO, ``--frames`` times
-``set_camera`` and ``render(1)`` in a deterministic mode.  The PyTorch
-stage ranges do not appear inside a replay, so there the stages' kernels
-count as glue; the hand-written kernels still count by name.
+``set_camera`` and ``render(1)`` in a deterministic mode.  Every line
+holds ``frame_stages``, the device ms a frame of every operation by the
+innermost program span (eager) or the stage map's ``frame.*`` stage
+(replayed) that made it, ``glue_stages``, the same for the operations
+that are not hand-written kernels, ``unmapped_replays``, the replays whose
+operations did not match the stage map (their stages are then unknown),
+and the card's idle ms a frame inside the ``renderer.render`` spans:
+``replay_gap_ms_per_frame`` between one graph replay and the next,
+``call_gap_ms_per_frame`` the rest, the call's own host work.
 """
 
 from __future__ import annotations
@@ -77,10 +87,10 @@ import argparse
 import bisect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import torch
@@ -96,8 +106,12 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 }
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
-STAGES = ("sweep", "sort", "cull", "fallback_cull", "shade", "ltc",  # record_function ranges
-          "camera_rng", "nee", "bsdf", "combine")
+# the program's spans (utils.launches.span) each stage reads
+SPAN_STAGES = {"trace.sweep": "sweep", "trace.sort": "sort", "trace.cull": "cull",
+               "trace.fallback_cull": "fallback_cull", "trace.shade": "shade", "ltc.direct": "ltc",
+               "frame.camera_rng": "camera_rng", "bounce.nee": "nee", "bounce.bsdf": "bsdf",
+               "frame.bounce.combine": "combine"}
+STAGES = tuple(SPAN_STAGES.values())
 # the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu, csrc/ltc.cu,
 # csrc/path_bounce.cu and csrc/brute_shade.cu, the first match decides (the baked walk is
 # closest_walk_kernel over BakedTri rows)
@@ -106,52 +120,6 @@ KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_clus
                  "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel",
                  "K1": "path_sample_kernel", "K2": "path_combine_kernel", "K3": "brute_shade_kernel"}
 TOP_KERNELS = 10
-
-
-_open = threading.local()  # .depth: stage ranges open on this thread
-
-
-def labeled(fn, label):
-    """``fn`` inside a profiler range named ``label`` (or ``label(kwargs)``),
-    unless it runs inside another such range."""
-
-    def wrapper(*args, **kwargs):
-        depth = getattr(_open, "depth", 0)
-        if depth:
-            return fn(*args, **kwargs)
-        name = label(kwargs) if callable(label) else label
-        _open.depth = 1
-        try:
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        finally:
-            _open.depth = 0
-
-    return wrapper
-
-
-def _instrument() -> None:
-    """Wrap each PyTorch stage's entry point in a named profiler range."""
-    from ..accel import cluster
-    from ..core import rng
-    from ..engine import camera, renderer, shade
-    from ..integrators import ltc_direct, path_kernel, ratio
-
-    for name in ("ray_t_bounds", "corridor_keys_and_t_bounds"):
-        setattr(cluster, name, labeled(getattr(cluster, name), "sweep"))
-    for name in ("cull_clusters", "cull_clusters_per_lane"):
-        setattr(cluster, name, labeled(getattr(cluster, name),
-                                        lambda kw: "fallback_cull" if kw.get("single_level") else "cull"))
-    torch.argsort = labeled(torch.argsort, "sort")
-    shade.build_surface_interaction_fused = labeled(shade.build_surface_interaction_fused, "shade")
-    shade.build_surface_interaction = labeled(shade.build_surface_interaction, "shade")
-    for mod, name in ((rng, "make_rng"), (rng, "lcg_randomf"), (camera, "primary_rays"), (renderer, "pixel_order")):
-        setattr(mod, name, labeled(getattr(mod, name), "camera_rng"))
-    path_kernel._nee_plain = labeled(path_kernel._nee_plain, "nee")
-    path_kernel._local_frame = labeled(path_kernel._local_frame, "bsdf")
-    path_kernel._bsdf_plain = labeled(path_kernel._bsdf_plain, "bsdf")
-    path_kernel.path_combine_plain = labeled(path_kernel.path_combine_plain, "combine")
-    ltc_direct.ltc_direct = ratio.ltc_direct = labeled(ltc_direct.ltc_direct, "ltc")  # ratio holds its own name
 
 
 def _eager_frames(r, n: int, plain: bool) -> None:
@@ -189,7 +157,6 @@ def main(argv=None) -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    _instrument()
     lines = [json.dumps(profile_config(config, args.frames, smi, args.plain)) for config in args.config]
     for line in lines:
         print(line)
@@ -218,9 +185,9 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
     _replayed_frames(r, 2, deterministic)  # the key's eager frame, then the frame graph's capture and a replay
     render_n = {"note": f"{frames} replays of the frame graph ("
                         + ("set_camera and render(1) each" if deterministic else f"render({frames})")
-                        + "); stage ranges do not appear inside a replay (their kernels count as glue there), "
+                        + "); replayed kernels take their stage from the frame graph's stage map, "
                           "hand-written kernels count by name",
-                **_measure(lambda: _replayed_frames(r, frames, deterministic), frames)}
+                **_measure(lambda: _replayed_frames(r, frames, deterministic), frames, r.frame_stages())}
     m = r.metrics
     return {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
@@ -231,10 +198,11 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
     }
 
 
-def _measure(run, frames: int) -> dict:
+def _measure(run, frames: int, stage_map: dict | None = None) -> dict:
     """``run()`` (``frames`` frames, ending in a synchronize) on the host
     clock, then again under the profiler: wall ms per frame of both, the
-    idle share and the device breakdown of the profiled run."""
+    idle share and the device breakdown of the profiled run (replays by
+    ``stage_map``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -246,49 +214,178 @@ def _measure(run, frames: int) -> dict:
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    breakdown = device_breakdown(prof.events(), frames)
+    breakdown = device_breakdown(prof, frames, stage_map)
     return {"wall_ms_per_frame": wall_ms, "profiled_wall_ms_per_frame": prof_wall_ms,
             "idle_share": 1.0 - breakdown["device_ms_per_frame"] / prof_wall_ms, **breakdown}
 
 
-def device_breakdown(events, frames: int) -> dict:
-    """Device time per frame of a profiled run (``prof.events()``): in
-    total, per stage, the rest as glue, and the largest kernels by name.
-    The hand-written kernels count by name (``KERNEL_STAGES``); every other
-    kernel belongs to the ``STAGES`` range whose device-side span holds it
-    (one stream runs its kernels one after another, and no stage range
-    holds another).  Every kernel counts once."""
+def _named(kernel: str, op_name: str) -> bool:
+    return re.search(r"(?<![A-Za-z0-9_])" + re.escape(kernel) + r"(?![A-Za-z0-9_])", op_name) is not None
+
+
+def _span_chains(spans: list):
+    """``chain(t, tid)``: the names of the spans open at ``t`` on thread
+    ``tid``, innermost first; ``spans`` as (start, end, name, tid), which
+    nest on each thread."""
+    by_thread: dict = {}
+    for sp in sorted(spans, key=lambda x: (x[0], -x[1])):
+        by_thread.setdefault(sp[3], []).append(sp)
+    parents: dict = {}
+    for tid, ss in by_thread.items():
+        stack, par = [], []
+        for s, _e, _name, _tid in ss:
+            while stack and ss[stack[-1]][1] <= s:
+                stack.pop()
+            par.append(stack[-1] if stack else -1)
+            stack.append(len(par) - 1)
+        parents[tid] = par
+    starts = {tid: [sp[0] for sp in ss] for tid, ss in by_thread.items()}
+
+    def chain(t, tid) -> list:
+        ss, out = by_thread.get(tid, ()), []
+        i = bisect.bisect_right(starts.get(tid, ()), t) - 1
+        while i >= 0:
+            if t < ss[i][1]:
+                out.append(ss[i][2])
+            i = parents[tid][i]
+        return out
+
+    return chain
+
+
+def profiled_events(prof) -> tuple[list, dict, list]:
+    """``(spans, calls, ops)`` of a profiled run (``torch.profiler.profile``
+    with CPU and CUDA activity), on the profiler's one clock in ns: the
+    program's spans as (start, end, name, thread), the CUDA calls as
+    {correlation id: (start, name, thread)}, and the device operations
+    (kernels, copies, fills) as (start, duration, name, correlation id),
+    in start order."""
     host = torch.autograd.DeviceType.CPU
-    on_device = sorted((e for e in events if e.device_type != host), key=lambda e: e.time_range.start)
-    spans = [e for e in on_device if e.name in STAGES]  # a stage range's span on the device
-    kernels = [e for e in on_device if e.name not in STAGES]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / frames
-    stages = {name: {"device_ms_per_frame": 0.0, "calls_per_frame": 0.0} for name in (*KERNEL_STAGES, *STAGES)}
-    for e in events:
-        if e.device_type == host and e.name in STAGES:
-            stages[e.name]["calls_per_frame"] += 1 / frames
-    owner: list = [None] * len(kernels)
-    for i, e in enumerate(kernels):
-        label = next((label for label, kname in KERNEL_STAGES.items() if kname in e.name), None)
-        if label is not None:
-            owner[i] = label
-            stages[label]["calls_per_frame"] += 1 / frames
-    starts = [e.time_range.start for e in kernels]
-    for span in spans:
-        i = bisect.bisect_left(starts, span.time_range.start)
-        while i < len(kernels) and kernels[i].time_range.end <= span.time_range.end:
-            owner[i] = owner[i] or span.name
+    spans, calls, ops = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == host:
+            if e.is_user_annotation():
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns(), name, e.start_thread_id()))
+            elif name.startswith("cu"):  # the CUDA call that launched the operations of its correlation id
+                calls[e.correlation_id()] = (e.start_ns(), name, e.start_thread_id())
+        elif not e.is_user_annotation():
+            ops.append((e.start_ns(), e.duration_ns(), name, e.correlation_id()))
+    ops.sort()
+    return spans, calls, ops
+
+
+def device_breakdown(prof, frames: int, stage_map: dict | None = None) -> dict:
+    """``stage_breakdown`` of a profiled run's ``profiled_events``."""
+    return stage_breakdown(*profiled_events(prof), frames, stage_map)
+
+
+def _render_gaps(ops: list, replay_of: list, spans: list) -> tuple[float, float]:
+    """(replay gaps, call gaps) in ns: the card's idle time inside the
+    ``renderer.render`` spans.  A replay gap lies between the last operation
+    of one graph replay and the first of another; every other idle time
+    inside a call is the call's own (its host work before, between and
+    after the replays), counted where it overlaps the call's span."""
+    calls = sorted((s, e) for s, e, name, _tid in spans if name == "renderer.render")
+    ends = [e for _s, e in calls]
+
+    def inside(a, b):  # the part of (a, b) that the calls' spans cover (they do not overlap)
+        covered, i = 0, bisect.bisect_right(ends, a)
+        while i < len(calls) and calls[i][0] < b:
+            covered += min(b, calls[i][1]) - max(a, calls[i][0])
             i += 1
+        return covered
+
+    replay_ns = call_ns = 0
+    end = last = None  # the end of the card's busy time so far, and the replay of the operation that ends it
+    for (s, d, _name, _corr), replay in zip(ops, replay_of):
+        if end is not None and s > end:
+            idle = inside(end, s)
+            if last is not None and replay is not None and last != replay:
+                replay_ns += idle
+            else:
+                call_ns += idle
+        if end is None or s + d > end:
+            end, last = s + d, replay
+    return replay_ns, call_ns
+
+
+def stage_breakdown(spans: list, calls: dict, ops: list, frames: int, stage_map: dict | None = None) -> dict:
+    """Device time per frame of a profiled run, from its
+    ``profiled_events``: in total, per stage, the rest as glue, the largest
+    kernels by name, per program span (``frame_stages``, and
+    ``glue_stages`` for the operations that are not hand-written kernels),
+    and the card's idle time inside the ``renderer.render`` spans split
+    into the gaps between graph replays and the call's own
+    (``replay_gap_ms_per_frame``, ``call_gap_ms_per_frame``).  The
+    hand-written kernels count by name (``KERNEL_STAGES``).  Every other
+    operation takes, if it was launched eagerly, the spans open around its
+    launch (innermost first), or, if a graph replay ran it (the operations
+    of one graph launch share its correlation id), the ``frame.*`` stage of
+    its position in the replay by ``stage_map``; its stage is the first of
+    those that ``SPAN_STAGES`` names.  A replay whose operation count
+    differs from the map's, or whose operation at a hand kernel's node is
+    not that kernel, is unmapped (``unmapped_replays``): its operations
+    take no span.  Every device operation counts once."""
+    chain = _span_chains(spans)
+    replays: dict = {}  # correlation id of a graph launch -> its operations' indices, in order
+    owners: list = []  # the spans of each operation, innermost first
+    replay_of: list = []  # the correlation id of each operation's graph launch, None if eager
+    for i, (_s, _d, _name, corr) in enumerate(ops):
+        call = calls.get(corr)
+        if call is not None and "GraphLaunch" in call[1]:
+            replays.setdefault(corr, []).append(i)
+            owners.append([])
+            replay_of.append(corr)
+        else:
+            owners.append(chain(call[0], call[2]) if call is not None else [])
+            replay_of.append(None)
+    node_stage = []
+    if stage_map:
+        node_stage = [None] * stage_map["nodes"]
+        for stage, first, end in stage_map["stages"]:
+            node_stage[first:end] = [stage] * (end - first)
+    unmapped = 0
+    for idx in replays.values():
+        if not node_stage or len(idx) != len(node_stage) or not all(
+                _named(kernel, ops[idx[pos]][2]) for pos, kernel in stage_map["kernels"]):
+            unmapped += 1
+            continue
+        for pos, i in enumerate(idx):
+            owners[i] = [node_stage[pos]]
+
+    stages = {name: {"device_ms_per_frame": 0.0, "calls_per_frame": 0.0} for name in (*KERNEL_STAGES, *STAGES)}
+    for _s, _e, name, _tid in spans:
+        if name in SPAN_STAGES:
+            stages[SPAN_STAGES[name]]["calls_per_frame"] += 1 / frames
     by_name: dict = {}
-    for e, label in zip(kernels, owner):
-        ms = e.time_range.elapsed_us() / 1e3 / frames
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    by_span: dict = {}
+    glue_by_span: dict = {}
+    device_ms = kernels = 0
+    for (_s, d, name, _corr), owner in zip(ops, owners):
+        ms = d / 1e6 / frames
+        top = owner[0] if owner else None
+        by_span[top] = by_span.get(top, 0.0) + ms
+        kernels += 1
+        device_ms += ms
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + ms
+        label = next((label for label, kname in KERNEL_STAGES.items() if kname in name), None)
+        if label is not None:
+            stages[label]["calls_per_frame"] += 1 / frames
+        else:
+            glue_by_span[top] = glue_by_span.get(top, 0.0) + ms
+            label = next((SPAN_STAGES[sp] for sp in owner if sp in SPAN_STAGES), None)
         if label is not None:
             stages[label]["device_ms_per_frame"] += ms
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS])
-    glue = device_ms - sum(s["device_ms_per_frame"] for s in stages.values())
-    return {"device_ms_per_frame": device_ms, "kernels_per_frame": len(kernels) / frames,
-            "stages": stages, "glue_ms_per_frame": glue, "top_kernels_ms_per_frame": top}
+    top_kernels = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS])
+    glue = device_ms - sum(st["device_ms_per_frame"] for st in stages.values())
+    replay_gap, call_gap = _render_gaps(ops, replay_of, spans)
+    return {"device_ms_per_frame": device_ms, "kernels_per_frame": kernels / frames,
+            "stages": stages, "glue_ms_per_frame": glue, "top_kernels_ms_per_frame": top_kernels,
+            "frame_stages": {str(k): v for k, v in sorted(by_span.items(), key=lambda kv: -kv[1])},
+            "glue_stages": {str(k): v for k, v in sorted(glue_by_span.items(), key=lambda kv: -kv[1])},
+            "unmapped_replays": unmapped,
+            "replay_gap_ms_per_frame": replay_gap / 1e6 / frames, "call_gap_ms_per_frame": call_gap / 1e6 / frames}
 
 
 if __name__ == "__main__":

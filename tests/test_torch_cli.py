@@ -12,7 +12,8 @@ image within relative RMSE 1e-4 (the goldens' tolerance; both render the
 same camera through the same arithmetic); the recorded camera entry equal;
 ``--camera 1`` on the recorded scene rendering the ``--cam-*`` image, and
 an index past the end rendering camera 0.  Port-only: ``--preview`` writes
-``<mode>_preview.png``; ``--profile`` leaves a non-empty trace.
+``<mode>_preview.png``; ``--profile`` leaves a trace that holds the port's
+spans, and the stage map beside it (null on the CPU).
 
 The surfaces: ``--devices 4`` (PATH depth 2 on Cornell) writes the JAX
 CLI's files, an image bit-equal to ``--devices 1`` with the same honest
@@ -146,10 +147,13 @@ def test_preview_writes_the_preview_png(preview_run):
 
 def test_profile_leaves_a_trace(preview_run):
     _out, prof = preview_run
-    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
-    assert traces and all(os.path.getsize(t) > 0 for t in traces)
-    with open(traces[0]) as f:
-        assert json.load(f)["traceEvents"]
+    assert sorted(os.listdir(prof)) == ["render_loop.pt.trace.json", "render_loop.stages.json"]
+    with open(os.path.join(prof, "render_loop.pt.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"renderer.render", "frame_graph.eager", "frame.camera_rng", "frame.bounce.combine"} <= names
+    with open(os.path.join(prof, "render_loop.stages.json")) as f:
+        assert json.load(f) is None  # frames on the CPU are no replays: no stage map
 
 
 DEVICES_ARGV = ["--scene", CORNELL, "--renderer", "path", "--spp", "2", "--depth", "2", "--save-npy",

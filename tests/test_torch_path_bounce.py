@@ -222,38 +222,25 @@ def test_cuda_wrappers_refuse_cpu_tensors(scenes, monkeypatch):
     assert pk.LAUNCHES == {"path_sample": 0, "path_combine": 0}
 
 
-def test_profile_stages_split_the_plain_bounce(scenes, monkeypatch):
-    """utils.profile_frames' stage ranges on a CPU frame through the plain
-    versions: every piece of the bounce in its range, once a call, and no
-    stage range inside another (a draw inside K1's plain version opens
-    none of its own)."""
-    from optix_renderer_tpu_torch.accel import cluster
-    from optix_renderer_tpu_torch.core import rng as trng
-    from optix_renderer_tpu_torch.engine import camera, renderer, shade
+def test_profile_stages_split_the_plain_bounce(scenes):
+    """utils.profile_frames' stages on a CPU frame through the plain
+    versions, read from the program's own spans: every piece of the bounce
+    in its span, once a call, and no stage span inside another."""
     from optix_renderer_tpu_torch.engine.modes import RendererType
     from optix_renderer_tpu_torch.engine.renderer import Renderer, _frame_impl
-    from optix_renderer_tpu_torch.integrators import ltc_direct, ratio
     from optix_renderer_tpu_torch.utils import profile_frames
 
-    patched = [(cluster, "ray_t_bounds"), (cluster, "corridor_keys_and_t_bounds"), (cluster, "cull_clusters"),
-               (cluster, "cull_clusters_per_lane"), (torch, "argsort"), (shade, "build_surface_interaction_fused"),
-               (shade, "build_surface_interaction"), (ltc_direct, "ltc_direct"), (ratio, "ltc_direct"),
-               (trng, "make_rng"), (trng, "lcg_randomf"), (camera, "primary_rays"), (renderer, "pixel_order"),
-               (pk, "_nee_plain"), (pk, "_local_frame"), (pk, "_bsdf_plain"), (pk, "path_combine_plain")]
-    for mod, name in patched:  # restored after the test
-        monkeypatch.setattr(mod, name, getattr(mod, name))
-    profile_frames._instrument()
     depth = 2
     r = Renderer(scenes["cornell"], width=16, height=16, mode=RendererType.PATH, path_depth=depth, device="cpu")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         _frame_impl(r.state, r.device_scene, r.bvh, mode=r.mode, width=16, height=16, path_depth=depth,
                     ratio_samples=r.ratio_samples)
-    spans = sorted((e for e in prof.events() if e.name in profile_frames.STAGES), key=lambda e: e.time_range.start)
-    calls = {}
-    for e in spans:
-        calls[e.name] = calls.get(e.name, 0) + 1
-    # camera_rng: make_rng, two primary draws, pixel order, the camera, and five draws a bounce
-    assert calls == {"camera_rng": 5 + 5 * depth, "shade": 1 + depth, "nee": depth, "bsdf": 2 * depth,
-                     "combine": depth}
+    stages = profile_frames.device_breakdown(prof, 1)["stages"]
+    calls = {name: st["calls_per_frame"] for name, st in stages.items() if st["calls_per_frame"]}
+    # camera_rng: one span a frame; shade: the primaries' and each bounce's; the shading frame and the
+    # BSDF sample are two bsdf spans a bounce
+    assert calls == {"camera_rng": 1, "shade": 1 + depth, "nee": depth, "bsdf": 2 * depth, "combine": depth}
+    spans = sorted((e for e in prof.events() if e.name in profile_frames.SPAN_STAGES),
+                   key=lambda e: e.time_range.start)
     for a, b in zip(spans, spans[1:]):
         assert a.time_range.end <= b.time_range.start, f"{b.name} inside {a.name}"
