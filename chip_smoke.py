@@ -11,8 +11,8 @@ raises and exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
-   one nvcc per library (brute_trace, ltc, cluster_trace, path_bounce,
-   brute_shade), all started together, with ptxas' register and spill
+   one nvcc per library (brute_trace, ltc, cluster_trace, camera_rng,
+   path_bounce, brute_shade), all started together, with ptxas' register and spill
    report (B1/B2 may not spill) and B1/B2's rays a thread, chunk rows and
    shared memory a block, and the SASS instructions on a lane's
    straight-line path of K1, K2 and K3 (``cuobjdump -sass``,
@@ -48,8 +48,12 @@ raises and exits non-zero):
    without the wrapper's host time), beside its byte bound and its issue
    floor (the straight-line SASS instructions a lane over 132 SMs x 4
    schedulers x 32 lanes an instruction a clock, at the SM clock read
-   after the timed launches); then one such
-   frame through K1-K3 bit-equal to one through their plain versions from
+   after the timed launches); K0 (``camera_rng``, the frame's camera and
+   RNG head) against its plain version on five tiles (1024^2 at frame ids
+   0 and 2^32 - 10000, a split tile, 1000 x 600, 30 x 17), the frame id an
+   int and a 0-d tensor, bit-equal on every lane, timed in turns and as
+   graph replays beside its byte bound; then one such
+   frame through K0-K3 bit-equal to one through their plain versions from
    the same state, with the same per-bounce counts and honest rays; the
    crossover between the tiers: NORMALS and PATH depth 4 at 1024^2 on the
    terrain at grid 46 (brute tier) and at grid 47 (4,244 triangles,
@@ -637,7 +641,7 @@ def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi, sass) -
     want = frame_impl(r.state, ds, r.bvh, plain=True, **kw)
     torch.cuda.synchronize()
     _require(bool(torch.equal(got[0].accum.view(torch.int32), want[0].accum.view(torch.int32))),
-             f"the {r.width}^2 PATH frame through K1-K3 differs from the plain frame on "
+             f"the {r.width}^2 PATH frame through K0-K3 differs from the plain frame on "
              f"{int((got[0].accum != want[0].accum).any(dim=-1).sum())} pixels")
     for f in dataclasses.fields(got[1]):
         _require(bool(torch.equal(getattr(got[1], f.name), getattr(want[1], f.name))),
@@ -646,10 +650,44 @@ def _check_bounce_kernels(torch, pk, sk, shade, Hit, r, frame_impl, smi, sass) -
     _require(bool(torch.equal(counts_k, counts_p)), f"per-bounce counts {counts_k.tolist()} vs {counts_p.tolist()}")
     honest = r.width * r.height + int(counts_k[:, 1:].sum())
     out["frame"] = {"honest_rays": honest, "alive_per_bounce": counts_k.tolist(), "image_mean": got[0].accum.mean().item()}
-    print(f"  one {r.width}^2 Cornell PATH depth {r.path_depth} frame through K1-K3 bit-equal to the frame through "
+    print(f"  one {r.width}^2 Cornell PATH depth {r.path_depth} frame through K0-K3 bit-equal to the frame through "
           f"their plain versions from the same state (accum, g-buffers), the same per-bounce counts "
           f"{counts_k.tolist()} and honest rays ({honest})", flush=True)
     return out
+
+
+def _check_camera_kernel(torch, ck, camera_from_lookat, cam, dev, smi) -> dict:
+    """K0 against its plain version on the card (states, origins and directions bit-equal on every lane, the
+    frame id as an int and as a 0-d tensor) on the shapes of its tile arithmetic: the main path's frame at
+    frame ids 0 and 2^32 - 10000 (the seed's frame id + 10007 wraps), a split tile, 1000 x 600 and 30 x 17
+    (block edges 8 and 8, 2 and 1); then timed in turns with its plain version at the main path's frame, and
+    as 30 launches in one CUDA graph, replayed, beside its byte bound."""
+    from optix_renderer_tpu_torch.utils.brute_bench import graph_ms
+
+    cases = [(MAIN_RES, MAIN_RES, 0, None, 0), (MAIN_RES, MAIN_RES, 0, None, 2**32 - 10000),
+             (MAIN_RES, MAIN_RES, MAIN_RES // 4, MAIN_RES // 4, 5), (1000, 600, 0, None, 3), (30, 17, 0, None, 7)]
+    for width, height, row_offset, rows, frame_id in cases:
+        camera = camera_from_lookat(cam.from_, cam.at, cam.up, cam.cos_fovy, width, height, dev)
+        want = ck.camera_rng_plain(camera, frame_id, width, height, row_offset, rows)
+        label = f"K0 {width}x{height} rows {row_offset}+{rows or height} frame {frame_id}"
+        for fid in (frame_id, torch.tensor(frame_id, dtype=torch.int64, device=dev)):
+            _check_bits(torch, label, ck.camera_rng_cuda(camera, fid, width, height, row_offset, rows), want,
+                        {"pixel": ck.pixel_order(width, height, dev, row_offset, rows)})
+    tiles = ", ".join(f"{w}x{h} rows {ro}+{rows or h} frame {f}" for w, h, ro, rows, f in cases)
+    print(f"  K0 camera_rng: {len(cases)} tiles ({tiles}), the frame id an int and a 0-d tensor: states, origins "
+          "and directions bit-equal on every lane", flush=True)
+    camera = camera_from_lookat(cam.from_, cam.at, cam.up, cam.cos_fovy, MAIN_RES, MAIN_RES, dev)
+    fid = torch.tensor(1, dtype=torch.int64, device=dev)
+    ms, plain_ms = _in_turns(torch, lambda: ck.camera_rng_plain(camera, fid, MAIN_RES, MAIN_RES),
+                             lambda: ck.camera_rng_cuda(camera, fid, MAIN_RES, MAIN_RES), 5, 50)
+    replayed = graph_ms(lambda: ck.camera_rng_cuda(camera, fid, MAIN_RES, MAIN_RES), 30)
+    lanes = MAIN_RES * MAIN_RES
+    bound = _bound(lanes * ck.BYTES_LANE, 0)
+    print(f"  times on {smi} (CUDA events; plain, kernel, kernel, plain), {lanes} lanes: K0 {ms:.4f} ms "
+          f"({replayed:.4f} replayed in a graph) vs plain {plain_ms:.4f} ms (bound {bound[0]:.4f} ms, {bound[1]}; "
+          f"replayed at {bound[0] / replayed * 100:.1f} % of it)", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "graph_ms": replayed, "plain_ms": plain_ms, "bound": bound, "lanes": lanes,
+            "tiles": len(cases)}
 
 
 def _check_edges(torch, bt, bounce_like_rays, small, cap, dev) -> int:
@@ -1130,9 +1168,11 @@ def main() -> int:
     from optix_renderer_tpu_torch.core import math as cm
     from optix_renderer_tpu_torch.engine import RendererType
     from optix_renderer_tpu_torch.core.types import Hit, Ray
+    from optix_renderer_tpu_torch.engine import camera_kernel as ck
     from optix_renderer_tpu_torch.engine import shade
     from optix_renderer_tpu_torch.engine import shade_kernel as sk
-    from optix_renderer_tpu_torch.engine.renderer import Renderer, pixel_order
+    from optix_renderer_tpu_torch.engine.camera import camera_from_lookat
+    from optix_renderer_tpu_torch.engine.renderer import Renderer
     from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
     from optix_renderer_tpu_torch.integrators import path_kernel as pk
@@ -1149,11 +1189,11 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine.renderer import _frame_impl
 
     def reset_counts():
-        for mod in (bt, lk, ct, pk, sk):
+        for mod in (bt, lk, ct, ck, pk, sk):
             mod.reset_launch_counts()
 
     def launch_counts():
-        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES, **pk.LAUNCHES, **sk.LAUNCHES}
+        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES, **ck.LAUNCHES, **pk.LAUNCHES, **sk.LAUNCHES}
 
     def expected(**launched):
         return {**{k: 0 for k in launch_counts()}, **launched}
@@ -1236,14 +1276,14 @@ def main() -> int:
     phase_done("phase 1")
 
     # ---- 2. build: one nvcc per library, all started together --------------
-    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES, "path_bounce": pk.SOURCES,
-            "brute_shade": sk.SOURCES}
+    libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES, "camera_rng": ck.SOURCES,
+            "path_bounce": pk.SOURCES, "brute_shade": sk.SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(cuda_build.build_library, name, srcs) for name, srcs in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
     build_wall = time.perf_counter() - t0
-    for mod in (bt, lk, ct, pk, sk):
+    for mod in (bt, lk, ct, ck, pk, sk):
         mod.kernel_library()
     print(f"[2 build] {len(libs)} libraries in {build_wall:.2f} s wall", flush=True)
     for name, (lib_path, build_s) in built.items():
@@ -1298,6 +1338,7 @@ def main() -> int:
           f"{bad_fmod} differ", flush=True)
     _require(bad_fmod == 0, f"|fmod(x, 1)| and |x - trunc(x)| differ on {bad_fmod} float32 bit patterns")
     bounce_k = _check_bounce_kernels(torch, pk, sk, shade, Hit, r, _frame_impl, smi, bounce_sass)
+    bounce_k["camera_rng"] = _check_camera_kernel(torch, ck, camera_from_lookat, cornell.cameras[0], dev, smi)
     ltc_l2, ltc_l6 = ltc_frame_inputs(rl), ltc_frame_inputs(rr)
     ltc_rand = random_ltc_inputs(LTC_RANDOM_RAYS, LTC_RANDOM_LIGHTS, SEED, dev)
     err_l = max(_check_ltc(torch, lk, ltc_l2, "Cornell LTC frame 1024^2"),
@@ -1331,7 +1372,7 @@ def main() -> int:
     capb = rc.bvh
     _require(not capb.clustered, f"the grid-{CAP_GRID} terrain ({capb.num_tris} triangles) left the brute tier")
     tab_c = capb.tri_tab
-    prim_c = first_frame_primaries(rc, pixel_order(MAIN_RES, MAIN_RES, dev))
+    prim_c = first_frame_primaries(rc, ck.pixel_order(MAIN_RES, MAIN_RES, dev))
     po_c, pd_c = prim_c.origin.contiguous(), prim_c.direction.contiguous()
     co, cd, ctm_c, ctm_a = bounce_like_rays(capb, BOUNCE_RAYS, dev, SEED)
     print(f"  cap shape: terrain grid {CAP_GRID}, {capb.num_tris} triangles, table {tuple(tab_c.shape)}", flush=True)
@@ -1400,7 +1441,7 @@ def main() -> int:
     print(f"  terrain: {tb.num_tris} triangles, {C} clusters, table {tuple(tb.tri_tab.shape)}, "
           f"write + parse + build {setup_s:.1f} s", flush=True)
     n_t = TERRAIN_RES * TERRAIN_RES
-    prim_t = first_frame_primaries(rt, pixel_order(TERRAIN_RES, TERRAIN_RES, dev))  # the renderer's block order
+    prim_t = first_frame_primaries(rt, ck.pixel_order(TERRAIN_RES, TERRAIN_RES, dev))  # the renderer's block order
     cb = cluster._cid_bits(C)
     t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38)
     maxv = cluster._pad128(min(cluster.DEFAULT_MAX_VISITS, C))
@@ -1508,7 +1549,7 @@ def main() -> int:
                        cos_fovy=cam0.cos_fovy)
     rt.set_camera(cam1)
     _require(bool(np.array_equal(rt.baked_tab.origin, np.float32(cam1.from_))), "set_camera did not rebake")
-    prim_1 = first_frame_primaries(rt, pixel_order(TERRAIN_RES, TERRAIN_RES, dev))
+    prim_1 = first_frame_primaries(rt, ck.pixel_order(TERRAIN_RES, TERRAIN_RES, dev))
     b3k["camera 0 moved"] = _check_baked(torch, ct, cluster, tb, prim_1, rt.baked_tab,
                                          f"terrain primary 1024^2, camera 0 moved by {TERRAIN_MOVE}")
     rt.set_camera(cam0)  # back, and baked again, before the main path of phase 8
@@ -1629,9 +1670,9 @@ def main() -> int:
     _require(img.shape == (MAIN_RES, MAIN_RES, 3), f"image shape {img.shape}")
     _require(bool(np.isfinite(img).all()), "image has non-finite values")
     _require(float(img.mean()) > 0.0, "image is black")
-    want = expected(brute_closest=TIMED_FRAMES * (1 + MAIN_DEPTH), brute_any=TIMED_FRAMES * MAIN_DEPTH,
-                    brute_shade=TIMED_FRAMES * (1 + MAIN_DEPTH), path_sample=TIMED_FRAMES * MAIN_DEPTH,
-                    path_combine=TIMED_FRAMES * MAIN_DEPTH)
+    want = expected(camera_rng=TIMED_FRAMES, brute_closest=TIMED_FRAMES * (1 + MAIN_DEPTH),
+                    brute_any=TIMED_FRAMES * MAIN_DEPTH, brute_shade=TIMED_FRAMES * (1 + MAIN_DEPTH),
+                    path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH)
     _require(launches_path == want, f"PATH launch counts {launches_path}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -1661,7 +1702,7 @@ def main() -> int:
         rl.render(1)
         secs += rl.metrics["seconds"] - s0
     launches_ltc = launch_counts()
-    want = expected(brute_closest=TIMED_FRAMES, ltc=TIMED_FRAMES, brute_shade=TIMED_FRAMES)
+    want = expected(camera_rng=TIMED_FRAMES, brute_closest=TIMED_FRAMES, ltc=TIMED_FRAMES, brute_shade=TIMED_FRAMES)
     _require(launches_ltc == want, f"LTC_BASELINE launch counts {launches_ltc}, expected {want}")
     img = rl.image()
     _require(img.shape == (MAIN_RES, MAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
@@ -1673,18 +1714,25 @@ def main() -> int:
     rl.set_camera(cornell.cameras[0])
     state0 = rl.state
     accum0 = state0.accum.clone()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        want_state, _frames = eager_frames(rl, state0, 1)
-        torch.cuda.synchronize()
+    # the profiled frame is the second of two sessions: the first profiler session after phases without one
+    # recorded no device operation of this frame (16 operations since K0), while the next one recorded all of
+    # them on an H100
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            want_state, _frames = eager_frames(rl, state0, 1)
+            torch.cuda.synchronize()
     rl.render(1)
     _require(rl.state.accum is not state0.accum and bool(torch.equal(state0.accum, accum0))
              and state0.accum_id == 0 and rl.state.accum_id == 1, "the LTC frame changed the state it started from")
     _require(bool(torch.equal(rl.state.accum, want_state.accum)), "the replayed LTC frame differs from the eager one")
-    ltc_stages = device_breakdown(prof, 1)["stages"]
+    ltc_prof = device_breakdown(prof, 1)
+    ltc_stages = ltc_prof["stages"]
     _require(ltc_stages["ltc"]["calls_per_frame"] == 1 and ltc_stages["B6"]["calls_per_frame"] == 1
              and ltc_stages["ltc"]["device_ms_per_frame"] == 0.0,
-             f"the LTC term of a frame: {ltc_stages['ltc']} outside B6 ({ltc_stages['B6']}), expected B6 alone")
+             f"the LTC term of a frame: {ltc_stages['ltc']} outside B6 ({ltc_stages['B6']}), expected B6 alone; "
+             f"the profile held {ltc_prof['kernels_per_frame']} device operations: "
+             f"{ltc_prof['top_kernels_ms_per_frame']}")
     print(f"[6 main path] LTC_BASELINE Cornell {MAIN_RES}^2, {TIMED_FRAMES} single frames (replays) after 2 warm-up: "
           f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {TIMED_FRAMES * n_px / secs / 1e6:.3f} Mrays/s "
           f"(primary rays), image mean {img.mean():.5f}, launches {launches_ltc}; an eager frame's LTC term, "
@@ -1701,7 +1749,8 @@ def main() -> int:
     rr.render(TIMED_FRAMES)
     launches_ratio = launch_counts()
     m1 = dict(rr.metrics)
-    want = expected(brute_closest=TIMED_FRAMES, brute_any=TIMED_FRAMES, ltc=TIMED_FRAMES, brute_shade=TIMED_FRAMES)
+    want = expected(camera_rng=TIMED_FRAMES, brute_closest=TIMED_FRAMES, brute_any=TIMED_FRAMES, ltc=TIMED_FRAMES,
+                    brute_shade=TIMED_FRAMES)
     _require(launches_ratio == want, f"RATIO launch counts {launches_ratio}, expected {want}")
     secs = m1["seconds"] - m0["seconds"]
     rays = m1["rays_traced"] - m0["rays_traced"]
@@ -1751,7 +1800,7 @@ def main() -> int:
     launches_c5 = launch_counts()
     m1 = dict(rt.metrics)
     st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
-    want = expected(cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
+    want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
     _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all())
@@ -1775,7 +1824,8 @@ def main() -> int:
     launches_c6 = launch_counts()
     m1 = dict(rg.metrics)
     traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
-    want = expected(cluster_closest_walk_baked=TIMED_FRAMES, cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
+    want = expected(camera_rng=TIMED_FRAMES, cluster_closest_walk_baked=TIMED_FRAMES,
+                    cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
                     cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces,
                     path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH)
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
@@ -1809,7 +1859,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
     n_fr = TERRAIN_PATH_FRAMES
-    want = expected(cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
+    want = expected(camera_rng=n_fr, cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
                     cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH),
                     path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH)
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
@@ -1896,7 +1946,8 @@ def main() -> int:
         sharding.render_rows(split, pair, SPLIT_FRAMES)
         launches_split = launch_counts()
         m1 = {"one": dict(one.metrics), "split": dict(split.metrics)}
-        want = expected(brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
+        want = expected(camera_rng=SPLIT_DEVICES * SPLIT_FRAMES,
+                        brute_closest=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
                         brute_any=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH,
                         brute_shade=SPLIT_DEVICES * SPLIT_FRAMES * (1 + MAIN_DEPTH),
                         path_sample=SPLIT_DEVICES * SPLIT_FRAMES * MAIN_DEPTH,
@@ -1972,7 +2023,8 @@ def main() -> int:
             secs_t["split"].append(rv.metrics["seconds"] - s0)
             _require(bool(torch.equal(rv.state.accum, single_t)), "a row-split terrain frame differs from the single")
         launches_split_t = launch_counts()
-        want = expected(cluster_closest_walk_baked=SPLIT_DEVICES * SPLIT_FRAMES,
+        want = expected(camera_rng=SPLIT_DEVICES * SPLIT_FRAMES,
+                        cluster_closest_walk_baked=SPLIT_DEVICES * SPLIT_FRAMES,
                         winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES)
         _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
         ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
@@ -2072,8 +2124,8 @@ def main() -> int:
         launches_viewer = launch_counts()
         _require(server.error is None and not any(t.is_alive() for t in server._threads),
                  f"the viewer's render loop failed: {server.error!r}")
-        for name in ("cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk", "winner_attrs", "ltc",
-                     "path_sample", "path_combine"):
+        for name in ("camera_rng", "cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk",
+                     "winner_attrs", "ltc", "path_sample", "path_combine"):
             _require(launches_viewer[name] > 0, f"the viewer never launched {name}: {launches_viewer}")
         img = rv.image()
         _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0,
@@ -2465,15 +2517,16 @@ def main() -> int:
          "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None,
          "by_lights": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": ltc_bounds[k][0],
                            "bound_by": ltc_bounds[k][1], "ops": ltc_ops[k]} for k, v in ltc_times.items()}},
-        # K1-K3: hand kernels with no Pallas counterpart (the JAX package leaves this code to XLA's fusions);
-        # ms, plain_ms and bound_ms at an eager Cornell PATH frame's 1M lanes (K1, K2 its second bounce, K3 its
-        # primaries; `bounce 1` K3 at that bounce)
+        # K0-K3: hand kernels with no Pallas counterpart (the JAX package leaves this code to XLA's fusions);
+        # ms, plain_ms and bound_ms at a 1024^2 Cornell frame's camera head (K0) and at an eager Cornell PATH
+        # frame's 1M lanes (K1, K2 its second bounce, K3 its primaries; `bounce 1` K3 at that bounce)
         *({"name": name, "route": "cuda", "source": f"optix_renderer_tpu_torch/csrc/{src_file}", "replaces": rep_at,
            "launches": launches[name], "max_abs_err": bounce_k[name]["max_abs_err"], "ms": bounce_k[name]["ms"],
            "plain_ms": bounce_k[name]["plain_ms"], "bound_ms": bounce_k[name]["bound"][0],
            "bound_by": bounce_k[name]["bound"][1], "library_ms": None,
            **{k: v for k, v in bounce_k[name].items() if k not in ("max_abs_err", "ms", "plain_ms", "bound")}}
           for name, src_file, rep_at in (
+              ("camera_rng", "camera_rng.cu", "optix_renderer_tpu/engine/renderer.py:89"),
               ("path_sample", "path_bounce.cu", "optix_renderer_tpu/integrators/path.py:127"),
               ("path_combine", "path_bounce.cu", "optix_renderer_tpu/integrators/path.py:204"),
               ("brute_shade", "brute_shade.cu", "optix_renderer_tpu/engine/shade.py:100"))),

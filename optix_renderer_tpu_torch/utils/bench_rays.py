@@ -106,7 +106,7 @@ def ltc_frame_inputs(renderer) -> tuple:
     """Kernel B6's inputs in ``renderer``'s first frame, in the order the
     frame traces its pixels: (origin, p, n_geom, alpha, diffuse, lights) of
     the jittered primaries' closest hits (``render_tile``)."""
-    from ..engine.renderer import pixel_order
+    from ..engine.camera_kernel import pixel_order
     from ..engine.shade import trace_closest_si
     from ..shading.ltc_kernel import light_table
 

@@ -341,7 +341,8 @@ def make_inputs(device) -> list[dict]:
     """The six (scene, batch) inputs with their plain-version results."""
     from ..accel import brute_trace as bt
     from ..engine import RendererType
-    from ..engine.renderer import Renderer, pixel_order
+    from ..engine.camera_kernel import pixel_order
+    from ..engine.renderer import Renderer
     from ..scene import parse_scene, write_terrain_scene
     from .bench_rays import bounce_like_rays, first_frame_primaries
 

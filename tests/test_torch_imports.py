@@ -74,7 +74,7 @@ occ, _ = traverse.trace_any_with_stats(r.bvh, Ray(origin=o, direction=d), t_max=
 assert (occ == (cid >= 0)).all() and 0 < int(occ.sum()) < 64, int(occ.sum())
 from optix_renderer_tpu_torch.accel import cluster
 from optix_renderer_tpu_torch.engine import cli
-from optix_renderer_tpu_torch.engine.renderer import pixel_order
+from optix_renderer_tpu_torch.engine.camera_kernel import pixel_order
 from optix_renderer_tpu_torch.utils.bench_rays import first_frame_primaries
 prim = first_frame_primaries(r, pixel_order(16, 16, "cpu"))
 baked = cluster.bake_shared_origin_tab(r.bvh.tri_tab, terrain.cameras[0].from_)
