@@ -61,6 +61,9 @@ the operation count behind the list form's bound, the ratios the lane
 utilisation.  The plain list versions add the first two.
 ``walk_bound_counts`` gives the walk form's operation count from the
 lanes' final bounds alone, whatever order an implementation visits in.
+While ``utils.launches.work_records`` is open, a walk launch given no
+``work`` counts into a fresh counter and appends it, with its boxes, rays
+and results, to that list.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ import ctypes
 
 import torch
 
-from ..utils.launches import count_launch
+from ..utils.launches import count_launch, open_work_records
 from .brute_trace import moller_trumbore
 from .build import CLUSTER_SIZE, SC_GROUP, SHADE_A_COLS, SHADE_B_COLS
 
@@ -449,6 +452,24 @@ def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: in
     return occ
 
 
+def _launch_work(work, device):
+    """(counter, records): ``work`` and None, or where the caller gave no
+    counter and ``utils.launches.work_records`` is open on this thread, a
+    zeroed counter and the list its launch goes into (``_record_work``)."""
+    records = open_work_records()
+    if work is not None or records is None:
+        return work, None
+    return torch.zeros(4, dtype=torch.int64, device=device), records
+
+
+def _record_work(records, name: str, work, boxes, *rays) -> None:
+    """One walk launch into ``records``: its counter, its (cmin, cmax,
+    sc_min, sc_max) and copies of its rays and results, which the frame
+    may overwrite after it."""
+    if records is not None:
+        records.append((name, work, boxes, tuple(a.clone() for a in rays)))
+
+
 def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, work=None,
                             baked: bool = False):
     """Kernel B3's walk form on the card: (key, cid) as trace_closest_walk_plain
@@ -461,6 +482,7 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
     cid = torch.empty_like(key)
     if n == 0:  # a grid of 0 blocks is an invalid launch
         return key, cid
+    work, records = _launch_work(work, origin.device)
     with torch.cuda.device(origin.device):
         err = getattr(kernel_library(), name)(
             tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0], sc_min.data_ptr(), sc_max.data_ptr(),
@@ -468,6 +490,7 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
             key.data_ptr(), cid.data_ptr(), _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     count_launch(LAUNCHES, name, "closest_walk_kernel")
+    _record_work(records, name, work, (cmin, cmax, sc_min, sc_max), origin, direction, key0, key)
     return key, cid
 
 
@@ -479,6 +502,7 @@ def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_ma
     occ = torch.empty(n, dtype=torch.bool, device=origin.device)  # one byte per ray
     if n == 0:
         return occ
+    work, records = _launch_work(work, origin.device)
     lib = kernel_library()
     with torch.cuda.device(origin.device):
         err = lib.cluster_any_walk(
@@ -487,6 +511,7 @@ def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_ma
             _ptr(work), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cluster_any_walk")
     count_launch(LAUNCHES, "cluster_any_walk", "any_walk_kernel")
+    _record_work(records, "cluster_any_walk", work, (cmin, cmax, sc_min, sc_max), origin, direction, t_max, occ)
     return occ
 
 

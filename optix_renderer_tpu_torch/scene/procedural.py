@@ -252,6 +252,75 @@ def write_terrain_scene(
     return path
 
 
+# SPD ``tetra`` (Haines, "A Proposal for Standard Graphics Environments", IEEE CG&A 7(11), 1987):
+# the root's corners at alternate corners of the cube [-512, 512]^3, so that every vertex down
+# to 9 subdivisions is an integer
+SPD_TETRA_CORNERS = np.array([(512, 512, 512), (512, -512, -512), (-512, 512, -512), (-512, -512, 512)], np.int64)
+SPD_TETRA_MAX_DEPTH = 9
+# a leaf's four faces: face j leaves out corner j, wound so that (b - a) x (c - a) points away from it
+SPD_TETRA_FACES = ((1, 3, 2), (0, 2, 3), (0, 3, 1), (0, 1, 2))
+SPD_TETRA_CAMERA = {"from": [1485.0, 209.0, 0.0], "to": [0.0, 0.0, 0.0], "up": [0.0, 1.0, 0.0], "cos_fovy": 0.55}
+SPD_TETRA_SIZE = 1024  # the image's width and height
+# one 600 x 600 area light 588 above the top edge, towards the camera, facing down
+_SPD_TETRA_LIGHT = [[(600, 1100, -300), (600, 1100, 300), (0, 1100, 300), (0, 1100, -300)]]
+_SPD_TETRA_LIGHT_EMIT = (34.0, 30.0, 24.0)
+
+
+def spd_tetra_mesh(depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """SPD's Sierpinski tetrahedron after ``depth`` subdivisions: a
+    tetrahedron replaced by four half-size copies at its corners, level
+    after level.  Returns (vertices (2 * 4^depth + 2, 3) int64, numbered in
+    order of first use; faces (4^(depth + 1), 3) 0-based), the 4^depth
+    leaves in depth-first order (leaf k's level-l copy is base-4 digit l of
+    k, most significant first), four faces each."""
+    if not 0 <= depth <= SPD_TETRA_MAX_DEPTH:
+        raise ValueError(f"depth {depth}: the integer grid holds 0 to {SPD_TETRA_MAX_DEPTH} subdivisions")
+    leaf = np.arange(4 ** depth, dtype=np.int64)
+    origin = np.zeros((leaf.size, 3), np.int64)
+    for level in range(1, depth + 1):
+        origin += SPD_TETRA_CORNERS[(leaf >> (2 * (depth - level))) & 3] >> level
+    corners = origin[:, None, :] + (SPD_TETRA_CORNERS >> depth)[None]
+    face_corners = corners[:, np.asarray(SPD_TETRA_FACES)].reshape(-1, 3)
+    uniq, first, inverse = np.unique(face_corners, axis=0, return_index=True, return_inverse=True)
+    by_use = np.argsort(first)
+    rank = np.empty_like(by_use)
+    rank[by_use] = np.arange(by_use.size)
+    return uniq[by_use], rank[inverse.reshape(-1)].reshape(-1, 3)
+
+
+def write_spd_tetra_scene(out_dir: str, depth: int = 9) -> str:
+    """SPD's ``tetra`` at ``depth`` subdivisions (4^(depth+1) triangles:
+    depth 9 gives 1,048,576) as ``tetra.obj``/``tetra.mtl`` (shared
+    integer vertices, ``f a b c`` faces in depth-first order, one
+    material), one area-light quad (``light.obj``/``light.mtl``) and
+    ``scene.json`` with one camera.  SPD gives the geometry; the light,
+    the material and the camera are this scene's own (SPD lights by
+    points, its NFF surfaces are not the GGX + Lambert material, and its
+    view fills about a sixth of the image with the tetra).  Returns the
+    JSON path."""
+    verts, faces = spd_tetra_mesh(depth)
+    os.makedirs(out_dir, exist_ok=True)
+    lines = [f"# SPD tetra, depth {depth}: {4 ** depth} leaf tetrahedra, {len(faces)} triangles",
+             "mtllib tetra.mtl"]
+    lines.extend("v %d %d %d" % tuple(v) for v in verts.tolist())
+    lines.append("usemtl tetra")
+    lines.extend("f %d %d %d" % tuple(f) for f in (faces + 1).tolist())
+    with open(os.path.join(out_dir, "tetra.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(out_dir, "tetra.mtl"), "w") as f:
+        f.write("newmtl tetra\nKd 0.730 0.730 0.730\nNs 0.3\n")
+    with open(os.path.join(out_dir, "light.mtl"), "w") as f:
+        f.write("newmtl light\nKd 0.780 0.780 0.780\nNs 1.0\nKe {} {} {}\n".format(*_SPD_TETRA_LIGHT_EMIT))
+    with open(os.path.join(out_dir, "light.obj"), "w") as f:
+        f.write(_emit_obj({"light": _SPD_TETRA_LIGHT}, "light.mtl"))
+    scene = {"spp": 1, "width": SPD_TETRA_SIZE, "height": SPD_TETRA_SIZE, "renderers": [9],
+             "cameras": [SPD_TETRA_CAMERA], "surface_geometry": "tetra.obj", "area_lights": "light.obj"}
+    path = os.path.join(out_dir, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene, f, indent=2)
+    return path
+
+
 def _uv_sphere(center, radius, n_lat=10, n_lon=14):
     """UV-sphere with per-vertex normals + uvs; returns (v, vn, vt, faces)
     with faces as (k, 3) 0-based indices shared across v/vt/vn."""

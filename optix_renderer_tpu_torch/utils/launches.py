@@ -1,6 +1,7 @@
 """The port's one instrumentation module: launch counts of the
 hand-written kernels right across CUDA graphs, the program's spans, and
-the stage map of a captured frame graph.
+the stage map of a captured frame graph, and the work records of the
+kernels that count their own work.
 
 Each kernel wrapper counts its launches in its module's ``LAUNCHES`` dict
 through ``count_launch``, so that a run can show which kernels its main
@@ -24,7 +25,9 @@ how many executable nodes (kernels, memsets, memcpys) the graph under
 capture holds when it is entered and when it exits, and each hand-kernel
 launch the position of the node it made.  The result names the stage of
 every node of the graph by its position: the ``i``-th operation a replay
-runs on the card is node ``i``.
+runs on the card is node ``i``.  The cluster tier's ``trace.*`` spans
+(sweep, sort, culls, fused shading) are recorded the same way, as stages
+nested in the ``frame.*`` stage around them.
 """
 
 from __future__ import annotations
@@ -35,13 +38,15 @@ import threading
 
 import torch
 
-STAGE_PREFIX = "frame."  # the spans a stage map records
+STAGE_PREFIX = "frame."  # the spans a stage map records as stages
+NESTED_PREFIX = "trace."  # and as stages nested in them
 _NULL = contextlib.nullcontext()
 
 
 class _Local(threading.local):
     tally = None  # the open recording's list of (counts, name)
     stages = None  # the open stage map (_StageMap)
+    work = None  # the open work_records list
 
 
 _local = _Local()
@@ -79,13 +84,34 @@ def add(tally: list) -> None:
         counts[name] += 1
 
 
+@contextlib.contextmanager
+def work_records():
+    """Have the kernels that keep their own work counters (the cluster
+    tier's walks, ``accel.cluster_trace``) count at every launch on this
+    thread that gives no counter of its own; yields the list to which each
+    such launch appends (name, work (4,) int64, scene boxes, rays and
+    results).  Not for a graph capture: a counter is a new tensor."""
+    if _local.work is not None:
+        raise RuntimeError("work records are already open on this thread")
+    _local.work = records = []
+    try:
+        yield records
+    finally:
+        _local.work = None
+
+
+def open_work_records():
+    """The list of the ``work_records`` open on this thread, or None."""
+    return _local.work
+
+
 def span(name: str):
     """A context over a piece of the program's host work named ``name``:
     a profiler range while a profiler session is open, a boundary of the
-    stage map being captured on this thread for a ``frame.*`` name, else
-    nothing at all."""
+    stage map being captured on this thread for a ``frame.*`` or
+    ``trace.*`` name, else nothing at all."""
     stages = _local.stages
-    if stages is not None and name.startswith(STAGE_PREFIX):
+    if stages is not None and name.startswith((STAGE_PREFIX, NESTED_PREFIX)):
         return stages.span(name)
     if not torch.autograd._profiler_enabled():
         return _NULL
@@ -93,26 +119,39 @@ def span(name: str):
 
 
 class _StageMap:
-    """The bookkeeping of one capture: the stack of open ``frame.*``
-    spans under ``root``, the nodes each owns, the hand kernels' nodes."""
+    """The bookkeeping of one capture: the stack of open ``frame.*`` and
+    ``trace.*`` spans under ``root``, the nodes each owns, the hand
+    kernels' nodes."""
 
     def __init__(self, count_nodes, root: str):
         self.count_nodes = count_nodes
         self.open = [root]
         self.stages: list[list] = []  # [stage, first node, end node), in order
+        self.nested: list[list] = []  # [trace stage, first node, end node), each inside one stage entry
         self.kernels: list[list] = []  # [node, kernel]
         self.nodes = 0  # nodes owned so far
 
     def cut(self) -> None:
-        """The nodes made since the last boundary go to the innermost open span."""
+        """The nodes made since the last boundary go to the innermost open
+        ``frame.*`` span (or the root), and to the innermost ``trace.*``
+        span opened inside it, if any."""
         n = self.count_nodes()
         if n <= self.nodes:
             return
-        stage = self.open[-1]
+        at = next(i for i in range(len(self.open) - 1, -1, -1)
+                  if i == 0 or self.open[i].startswith(STAGE_PREFIX))
+        stage = self.open[at]
         if self.stages and self.stages[-1][0] == stage:
             self.stages[-1][2] = n
         else:
             self.stages.append([stage, self.nodes, n])
+        if at < len(self.open) - 1:
+            inner = self.open[-1]
+            last = self.nested[-1] if self.nested else None
+            if last is not None and last[0] == inner and last[2] == self.nodes and last[1] >= self.stages[-1][1]:
+                last[2] = n
+            else:
+                self.nested.append([inner, self.nodes, n])
         self.nodes = n
 
     @contextlib.contextmanager
@@ -131,7 +170,7 @@ class _StageMap:
 
     def result(self) -> dict:
         self.cut()
-        return {"nodes": self.nodes, "stages": self.stages, "kernels": self.kernels}
+        return {"nodes": self.nodes, "stages": self.stages, "nested": self.nested, "kernels": self.kernels}
 
 
 @contextlib.contextmanager
@@ -141,8 +180,11 @@ def stage_map(root: str):
     the block is done, ``nodes`` (the graph's executable nodes),
     ``stages`` (``[stage, first, end]`` in order, covering nodes 0 to
     ``nodes`` once each; a node made outside every ``frame.*`` span goes
-    to ``root``) and ``kernels`` (``[node, kernel]`` of each hand-kernel
-    launch).  The dict stays empty where no node counter is there
+    to ``root``), ``nested`` (``[trace stage, first, end]`` in order: the
+    nodes made inside a ``trace.*`` span, by the innermost one opened
+    inside their stage; each entry lies inside one entry of ``stages``,
+    and no node is in two) and ``kernels`` (``[node, kernel]`` of each
+    hand-kernel launch).  The dict stays empty where no node counter is there
     (``capture_node_counter``)."""
     if _local.stages is not None:
         raise RuntimeError("a stage map is already open on this thread")

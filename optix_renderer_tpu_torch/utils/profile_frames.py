@@ -1,11 +1,13 @@
 """Where a frame's device time goes, on one CUDA card.
 
-    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap [--frames 2]
-        [--plain] [--out prof.jsonl]
+    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap tetra
+        [--frames 2] [--plain] [--out prof.jsonl]
 
 Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
 (999,710 triangles, grid 708), ``5b`` the same terrain in PATH depth 4,
-``6`` the gallery in PATH depth 4 at 512^2; and the brute tier's main
+``6`` the gallery in PATH depth 4 at 512^2, ``tetra`` SPD's tetra
+(``scene.procedural.write_spd_tetra_scene``, 1,048,576 triangles) in PATH
+depth 4 at 1024^2; and the brute tier's main
 paths at 1024^2: ``path`` (PATH depth 4 on Cornell), ``ltc``
 (LTC_BASELINE on Cornell), ``ratio`` (RATIO with 4 shadow samples on the
 three-light Cornell), and ``cap`` (PATH depth 4 on the terrain at grid
@@ -50,9 +52,8 @@ innermost stage span around its launch on the host (the CUDA call of its
 correlation id), so a span inside another wins.  A replayed frame runs no
 Python; its kernels take the stage of their position in the replay from
 the frame graph's stage map (``FrameGraph.stages``, recorded at the
-capture), which knows the ``frame.*`` spans only: in a replay
-``camera_rng`` and ``combine`` are split out, the cluster tier's inner
-stages count as glue.
+capture): the ``frame.*`` stage, and inside it the cluster tier's
+``trace.*`` stage where there is one, which wins.
 
 Prints one JSON line per config: the card (``nvidia-smi`` name and
 power limit), wall ms/frame unprofiled and profiled, device kernel
@@ -80,6 +81,14 @@ operations did not match the stage map (their stages are then unknown),
 and the card's idle ms a frame inside the ``renderer.render`` spans:
 ``replay_gap_ms_per_frame`` between one graph replay and the next,
 ``call_gap_ms_per_frame`` the rest, the call's own host work.
+
+On the cluster tier the line also holds ``walk_work``: the walk kernels'
+own counters (``csrc/cluster_trace.cu``'s ``add_work``) over the launches
+of B3-baked, B3 and B4 in one eager frame after the timed and profiled
+frames (``utils.launches.work_records``): slab tests, ray/triangle tests
+and the lane slots spent on each, per live ray (t bound above 0), beside
+``cluster_trace.walk_bound_counts``, the least any walk to the same final
+bounds needs.
 """
 
 from __future__ import annotations
@@ -96,6 +105,8 @@ import time
 
 import torch
 
+from . import launches
+
 CONFIGS = {  # name: (scene, mode, resolution, path depth)
     "5": ("terrain", "NORMALS", 1024, 4),
     "5b": ("terrain", "PATH", 1024, 4),
@@ -104,6 +115,7 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
     "ltc": ("cornell", "LTC_BASELINE", 1024, 4),
     "ratio": ("cornell3", "RATIO", 1024, 4),
     "cap": ("terrain_cap", "PATH", 1024, 4),
+    "tetra": ("spd_tetra", "PATH", 1024, 4),
 }
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
@@ -171,13 +183,15 @@ def main(argv=None) -> int:
 def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> dict:
     from ..engine.modes import DETERMINISTIC_MODES, RendererType
     from ..engine.renderer import Renderer
-    from ..scene import parse_scene, write_terrain_scene
+    from ..scene import parse_scene, write_spd_tetra_scene, write_terrain_scene
 
     scene_name, mode, res, depth = CONFIGS[config]
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with tempfile.TemporaryDirectory() as tmp:
         if scene_name in TERRAIN_GRIDS:
             scene = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRIDS[scene_name], width=res, height=res))
+        elif scene_name == "spd_tetra":
+            scene = parse_scene(write_spd_tetra_scene(tmp))
         else:
             scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
@@ -191,13 +205,61 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
                           "hand-written kernels count by name",
                 **_measure(lambda: _replayed_frames(r, frames, deterministic), frames, r.frame_stages())}
     m = r.metrics
-    return {
+    line = {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
         "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames, "plain_eager": plain,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **single, "render_n": render_n,
         # summed over the warm-up, timed and profiled frames
         "cull_stats": {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")},
     }
+    if r.bvh.clustered:
+        line["walk_work"] = walk_work(r)
+    return line
+
+
+# the walk kernels' labels by their launch names (``cluster_trace.LAUNCHES``)
+WALK_LABELS = {"cluster_closest_walk_baked": "B3_baked", "cluster_closest_walk": "B3_walk",
+               "cluster_any_walk": "B4_walk"}
+
+
+def walk_work(r) -> dict:
+    """The walk kernels' work counters over one eager frame of ``r`` (its
+    state left as it was), counted at each launch of B3-baked, B3 and B4
+    (``launches.work_records``).  Per kernel: ``launches``, ``rays``,
+    ``live_rays`` (t bound above 0), and per live ray the ``slab_tests``
+    and ``tri_tests`` the kernel ran, the lane slots it spent on each
+    (``slab_lane_slots``, ``test_lane_slots``: 32 a warp step), and
+    ``walk_bound_counts``' least ``bound_slab_tests`` and
+    ``bound_tri_tests`` for the same final bounds."""
+    from ..accel import cluster_trace as ct
+    from ..accel.cluster import key_t_up
+
+    with launches.work_records() as records:
+        _eager_frames(r, 1, False)
+    out: dict = {}
+    for name, work, boxes, rays in records:
+        if name == "cluster_any_walk":
+            o, d, t_max, occ = rays
+            live = int((t_max > 0).sum())
+            bound = ct.walk_bound_counts(*boxes, o, d, t_max, occluded=occ)
+        else:
+            o, d, key0, key = rays
+            alive = (key0 >> 6) > 0  # key0's t bits above its local id: a t bound above 0
+            live = int(alive.sum())
+            bound = ct.walk_bound_counts(*boxes, o, d, torch.where(alive, key_t_up(key), 0.0))
+        acc = out.setdefault(WALK_LABELS[name],
+                             {"launches": 0, "rays": 0, "live_rays": 0, "work": [0, 0, 0, 0], "bound": [0, 0]})
+        acc["launches"] += 1
+        acc["rays"] += o.shape[0]
+        acc["live_rays"] += live
+        acc["work"] = [a + int(w) for a, w in zip(acc["work"], work.tolist())]
+        acc["bound"] = [a + int(b) for a, b in zip(acc["bound"], bound)]
+    for acc in out.values():
+        per = max(acc["live_rays"], 1)
+        work, bound = acc.pop("work"), acc.pop("bound")
+        acc.update({k: v / per for k, v in zip(("slab_tests", "tri_tests", "slab_lane_slots", "test_lane_slots"), work)})
+        acc.update({"bound_slab_tests": bound[0] / per, "bound_tri_tests": bound[1] / per})
+    return out
 
 
 def _measure(run, frames: int, stage_map: dict | None = None) -> dict:
@@ -324,8 +386,9 @@ def stage_breakdown(spans: list, calls: dict, ops: list, frames: int, stage_map:
     operation takes, if it was launched eagerly, the spans open around its
     launch (innermost first), or, if a graph replay ran it (the operations
     of one graph launch share its correlation id), the ``frame.*`` stage of
-    its position in the replay by ``stage_map``; its stage is the first of
-    those that ``SPAN_STAGES`` names.  A replay whose operation count
+    its position in the replay by ``stage_map`` (its nested ``trace.*``
+    stage first, where it has one); its stage is the first of those that
+    ``SPAN_STAGES`` names.  A replay whose operation count
     differs from the map's, or whose operation at a hand kernel's node is
     not that kernel, is unmapped (``unmapped_replays``): its operations
     take no span.  Every device operation counts once."""
@@ -342,11 +405,14 @@ def stage_breakdown(spans: list, calls: dict, ops: list, frames: int, stage_map:
         else:
             owners.append(chain(call[0], call[2]) if call is not None else [])
             replay_of.append(None)
-    node_stage = []
+    node_stage = node_nested = []
     if stage_map:
         node_stage = [None] * stage_map["nodes"]
+        node_nested = [None] * stage_map["nodes"]
         for stage, first, end in stage_map["stages"]:
             node_stage[first:end] = [stage] * (end - first)
+        for stage, first, end in stage_map.get("nested", ()):
+            node_nested[first:end] = [stage] * (end - first)
     unmapped = 0
     for idx in replays.values():
         if not node_stage or len(idx) != len(node_stage) or not all(
@@ -354,7 +420,7 @@ def stage_breakdown(spans: list, calls: dict, ops: list, frames: int, stage_map:
             unmapped += 1
             continue
         for pos, i in enumerate(idx):
-            owners[i] = [node_stage[pos]]
+            owners[i] = [node_stage[pos]] if node_nested[pos] is None else [node_nested[pos], node_stage[pos]]
 
     stages = {name: {"device_ms_per_frame": 0.0, "calls_per_frame": 0.0} for name in (*KERNEL_STAGES, *STAGES)}
     for _s, _e, name, _tid in spans:

@@ -138,7 +138,7 @@ def test_the_capture_maps_every_node_once(monkeypatch):
         with span("frame.camera_rng"):
             make(3)
         with span("frame.primary_trace"):
-            with span("trace.shade"):  # not a frame stage: its nodes stay the primary trace's
+            with span("trace.shade"):  # a stage nested in the primary trace's: its nodes stay that stage's too
                 make()
                 launches.count_launch(bt.LAUNCHES, "brute_closest", "closest_kernel")
                 make()
@@ -175,6 +175,7 @@ def test_the_capture_maps_every_node_once(monkeypatch):
         ("frame.bounce.sample", 7, 8), ("frame.finish", 8, 10), ("frame.bounce.combine", 10, 11),
         ("frame.bounce.sample", 11, 12), ("frame.finish", 12, 14), ("frame.bounce.combine", 14, 15),
         ("frame.accumulate", 15, 20), ("frame_graph.capture", 20, 21)]
+    assert [tuple(s) for s in st["nested"]] == [("trace.shade", 5, 7)]
     assert [tuple(k) for k in st["kernels"]] == [(5, "closest_kernel"), (7, "path_sample_kernel"),
                                                  (11, "path_sample_kernel")]
     # the capture counted no launch, and each replay counts what the tally recorded
