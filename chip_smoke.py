@@ -12,11 +12,12 @@ raises and exits non-zero):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
    one nvcc per library (brute_trace, ltc, cluster_trace, camera_rng,
-   path_bounce, brute_shade), all started together, with ptxas' register and spill
+   path_bounce, brute_shade, sc_sweep), all started together, with ptxas' register and spill
    report (B1/B2 may not spill) and B1/B2's rays a thread, chunk rows and
-   shared memory a block, and the SASS instructions on a lane's
+   shared memory a block, the SASS instructions on a lane's
    straight-line path of K1, K2 and K3 (``cuobjdump -sass``,
-   ``utils.brute_bench.sass_path``);
+   ``utils.brute_bench.sass_path``), and K-sweep's SASS instructions a box
+   over its passes (``utils.brute_bench.sweep_box_instructions``);
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
    turns (plain, kernel, kernel, plain): B1 (closest hit) and B2
    (occlusion) on the Cornell table (1024^2 primary rays, which B1 traces
@@ -73,7 +74,12 @@ raises and exits non-zero):
    lists, the list form of B4 on 1M NEE shadow rays, B5 on the primaries'
    winners (B3 and B4 against the plain versions on a seeded sample of 64
    tiles with the lists the cull made for them: every lane bit-equal for
-   B3, B4 and B5), and the checked overflow fallback on the card (the list
+   B3, B4 and B5), K-sweep (the supercluster sweep) on the primaries (t
+   bound) and on the bounce and shadow rays with their dead lanes moved
+   above the scene (key and t bound), bit-equal to the plain sweep on every
+   lane, timed in turns with it and as graph replays beside its byte bound
+   and its dense issue estimate (every box tested: no floor for a kernel
+   that skips groups of boxes), and the checked overflow fallback on the card (the list
    path forced on per-lane rays, and a list cap that overflows); then the
    walk form of B3 on the same 1M bounce rays and of B4 on the same 1M NEE
    rays, with no lists, against their plain versions on the sample's lanes
@@ -145,7 +151,8 @@ raises and exits non-zero):
    and an orbit while a frame is in flight (the render thread is held
    just after it enqueued that frame until the round's client process has
    had its answers, so the orbit races the frame whatever the host's
-   timing), each round from a client process of its own (as a browser),
+   timing), each round from a client process of its own (as a browser,
+   ready before it asks: its URL opener built, the address resolved),
    every answer under a third of
    the median committed frame; after each orbit /status reads accum_id 0,
    the next committed frame is accum_id 1, the baked table's origin is the
@@ -690,6 +697,69 @@ def _check_camera_kernel(torch, ck, camera_from_lookat, cam, dev, smi) -> dict:
             "tiles": len(cases)}
 
 
+def _sweep_sass(built: dict) -> dict:
+    """{kernel mode: SASS instructions a box over its passes} of the built K-sweep
+    (``utils.brute_bench.sweep_box_instructions`` over ``cuobjdump -sass``): the count its dense issue estimate
+    takes."""
+    from optix_renderer_tpu_torch.utils.brute_bench import cuobjdump_sass, sweep_box_instructions
+
+    out = sweep_box_instructions(cuobjdump_sass(built["sc_sweep"][0]))
+    _require(sorted(out) == [0, 1, 2] and all(v > 0 for v in out.values()), f"SASS of K-sweep: found {out}")
+    return out
+
+
+def _check_sweep_kernel(torch, cluster, swk, tb, batches: dict, smi, sass: dict) -> dict:
+    """K-sweep against the plain sweep on the card: the t bound (``ray_t_bounds``) and, for rays the renderer
+    corridor-sorts, the key (``corridor_keys_and_t_bounds``), bit-equal on every lane; each timed in turns with
+    its plain version and as 30 launches in one CUDA graph, replayed, beside its byte bound and its dense issue
+    estimate: the SASS instructions a box of its passes times every box, a lane, at the SM clock read after the
+    timed launches.  That is the issue time of a dense sweep, which tests every box; the kernel skips each run
+    of 32 boxes whose union box a lane misses, so it can run below the estimate, which is no floor for it.
+    ``batches``: label -> (rays, t_max, with a key)."""
+    from optix_renderer_tpu_torch.utils.brute_bench import graph_ms, issue_floor_ms
+
+    boxes = (tb.sc_min, tb.sc_max)
+    S = tb.sc_min.shape[0]
+    mode = 2 if 3 * cluster._cid_bits(S) <= 31 else 1
+    out = {}
+    for label, (rays, t_max, key) in batches.items():
+        if key:
+            def kernel():
+                return cluster.corridor_keys_and_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max, sc_boxes=boxes)
+
+            def plain():
+                return cluster.corridor_keys_and_t_bounds_plain(tb.cluster_min, tb.cluster_max, rays, t_max)
+        else:
+            def kernel():
+                return cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max, sc_boxes=boxes)
+
+            def plain():
+                return cluster.ray_t_bounds_plain(tb.cluster_min, tb.cluster_max, rays, t_max)
+        swk.reset_launch_counts()
+        got = kernel()
+        _require(swk.LAUNCHES["sc_sweep"] == 1, f"K-sweep {label}: {swk.LAUNCHES} launches for one call")
+        got, want = (got, plain()) if key else ((got,), (plain(),))  # (key, t bound) or (t bound,)
+        _check_bits(torch, f"K-sweep {label}", got, want, {"origin": rays.origin, "direction": rays.direction})
+        n = rays.origin.shape[0]
+        ms, plain_ms = _in_turns(torch, plain, kernel, 2, 20)
+        out[label] = {"lanes": n, "boxes": S, "key": key, "ms": ms, "graph_ms": graph_ms(kernel, 30),
+                      "plain_ms": plain_ms, "bound": _bound(n * (swk.BYTES_LANE - (0 if key else 4)), 0),
+                      "live": int((want[-1] > 0).sum())}
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    for v in out.values():
+        per_lane = S * sass[mode if v["key"] else 0]
+        v.update({"sass_instructions": per_lane, "sm_clock_mhz": mhz,
+                  "dense_issue_ms": issue_floor_ms(v["lanes"], per_lane, mhz)})
+    print(f"  K-sweep ({S} superclusters): t bound and key bit-equal to the plain sweep on every lane of "
+          + ", ".join(out) + f"; times on {smi} (CUDA events; plain, kernel, kernel, plain): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms ({v['graph_ms']:.4f} replayed in a graph) vs plain {v['plain_ms']:.4f} "
+                      f"ms (bound {v['bound'][0]:.4f} ms, {v['bound'][1]}; dense issue estimate {v['dense_issue_ms']:.4f} ms, "
+                      f"{v['sass_instructions']:.0f} SASS instructions a lane at {v['sm_clock_mhz']:.0f} MHz; "
+                      f"{v['live']} of {v['lanes']} t bounds above 0)" for k, v in out.items()), flush=True)
+    return out
+
+
 def _check_edges(torch, bt, bounce_like_rays, small, cap, dev) -> int:
     """B1 (both its forms) and B2 against their plain versions where the
     kernels' blocking has an edge: ``small`` and ``cap`` are the BVHs of Cornell and of the
@@ -768,10 +838,11 @@ def _crossover_frames(torch, np, Renderer, RendererType, scene, dev, smi: str, c
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
         got = counts[1]()
         bounces = 0 if mode == RendererType.NORMALS else frames * MAIN_DEPTH
-        want = ((frames, bounces) if r.bvh.clustered else (0, 0))
-        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"]) == want,
-                 f"crossover {mode.name} ({r.bvh.num_tris} triangles): baked and unbaked walk launches "
-                 f"{got['cluster_closest_walk_baked']}, {got['cluster_closest_walk']}, expected {want}")
+        want = ((frames, bounces, frames + 2 * bounces) if r.bvh.clustered else (0, 0, 0))
+        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"], got["sc_sweep"]) == want,
+                 f"crossover {mode.name} ({r.bvh.num_tris} triangles): baked and unbaked walk and K-sweep launches "
+                 f"{got['cluster_closest_walk_baked']}, {got['cluster_closest_walk']}, {got['sc_sweep']}, "
+                 f"expected {want}")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             render()
@@ -983,7 +1054,7 @@ def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
              f"baked walk {label}: the rays do not start at the table's origin {baked.origin}")
     boxes = (bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max)
     n = o.shape[0]
-    t_eff = cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, 3.0e38)
+    t_eff = cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, 3.0e38, sc_boxes=(bvh.sc_min, bvh.sc_max))
     key0, cid0 = cluster.cold_start_keys(t_eff)
     work = torch.zeros(4, dtype=torch.int64, device=o.device)
     key, cid = ct.trace_closest_walk_cuda(baked.tab, *boxes, o, d, key0, cid0, work=work, baked=True)
@@ -1055,7 +1126,8 @@ def _sorted_lane_walk(torch, cluster, Ray, bvh, rays, active, t_max):
     per-lane cull ms)."""
     C = bvh.num_clusters
     rays_m = cluster.rays_above_scene(bvh, rays, active)
-    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, t_max)
+    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, t_max,
+                                                     sc_boxes=(bvh.sc_min, bvh.sc_max))
     perm = torch.argsort(keys)
     o, d, te = (a[perm].contiguous() for a in (rays_m.origin, rays_m.direction, t_eff))
     maxv = cluster._pad128(min(cluster._SC_KEEP * cluster._SC_GROUP, C))
@@ -1092,20 +1164,31 @@ def _http(port: int, path: str, body: dict | None = None):
 
 
 # one round of phase 13 from a process of its own, as a browser would send it: /status n times, an orbit,
-# /status once more; prints the answers and their seconds as one JSON line
+# /status once more; prints the answers and their seconds as one JSON line.  Before its first timed request
+# the client readies itself, as a browser is ready before it asks, and sends nothing meanwhile: it builds its
+# URL opener (urllib's first ``urlopen`` in a process makes one, with a TLS context that loads the system's
+# certificates), resolves the address once (the resolver's first call loads its modules) and parses a URL
+# once (which compiles urllib's patterns).  That is tens of ms on the client alone (``opener_s``), which no
+# answer of the viewer waits on
 _VIEWER_CLIENT = r"""
-import json, sys, time, urllib.request
+import json, socket, sys, time, urllib.request
 port, n = int(sys.argv[1]), int(sys.argv[2])
+t0 = time.perf_counter()
+opener = urllib.request.build_opener()
+socket.getaddrinfo("127.0.0.1", port, 0, socket.SOCK_STREAM)
+urllib.request.Request(f"http://127.0.0.1:{port}/control", data=b"{}", method="POST")
+opener_s = time.perf_counter() - t0
 def req(path, body=None):
     url = f"http://127.0.0.1:{port}{path}"
     r = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST") if body is not None else url
     t0 = time.perf_counter()
-    with urllib.request.urlopen(r, timeout=120) as f:
+    with opener.open(r, timeout=120) as f:
         out = json.loads(f.read())
     return out, time.perf_counter() - t0
 lat = [req("/status")[1] for _ in range(n)]
 orbit, orbit_s = req("/control", {"op": "orbit", "daz": 0.15, "del": 0.05})
-print(json.dumps({"status_s": lat, "orbit": orbit, "orbit_s": orbit_s, "after": req("/status")[0]}))
+print(json.dumps({"status_s": lat, "orbit": orbit, "orbit_s": orbit_s, "after": req("/status")[0],
+                  "opener_s": opener_s}))
 """
 
 
@@ -1165,6 +1248,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.accel import brute_trace as bt
     from optix_renderer_tpu_torch.accel import cluster
     from optix_renderer_tpu_torch.accel import cluster_trace as ct
+    from optix_renderer_tpu_torch.accel import sweep_kernel as swk
     from optix_renderer_tpu_torch.core import math as cm
     from optix_renderer_tpu_torch.engine import RendererType
     from optix_renderer_tpu_torch.core.types import Hit, Ray
@@ -1189,11 +1273,12 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine.renderer import _frame_impl
 
     def reset_counts():
-        for mod in (bt, lk, ct, ck, pk, sk):
+        for mod in (bt, lk, ct, ck, pk, sk, swk):
             mod.reset_launch_counts()
 
     def launch_counts():
-        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES, **ck.LAUNCHES, **pk.LAUNCHES, **sk.LAUNCHES}
+        return {**bt.LAUNCHES, **lk.LAUNCHES, **ct.LAUNCHES, **ck.LAUNCHES, **pk.LAUNCHES, **sk.LAUNCHES,
+                **swk.LAUNCHES}
 
     def expected(**launched):
         return {**{k: 0 for k in launch_counts()}, **launched}
@@ -1277,13 +1362,13 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per library, all started together --------------
     libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES, "camera_rng": ck.SOURCES,
-            "path_bounce": pk.SOURCES, "brute_shade": sk.SOURCES}
+            "path_bounce": pk.SOURCES, "brute_shade": sk.SOURCES, "sc_sweep": swk.SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(cuda_build.build_library, name, srcs) for name, srcs in libs.items()}
         built = {name: f.result() for name, f in futures.items()}
     build_wall = time.perf_counter() - t0
-    for mod in (bt, lk, ct, ck, pk, sk):
+    for mod in (bt, lk, ct, ck, pk, sk, swk):
         mod.kernel_library()
     print(f"[2 build] {len(libs)} libraries in {build_wall:.2f} s wall", flush=True)
     for name, (lib_path, build_s) in built.items():
@@ -1301,6 +1386,10 @@ def main() -> int:
     bounce_sass = _bounce_sass(built)
     print("  K1-K3, SASS instructions on a lane's straight-line path (brute_bench.sass_path): "
           + ", ".join(f"{k} {v}" for k, v in bounce_sass.items()), flush=True)
+    sweep_sass = _sweep_sass(built)
+    print("  K-sweep, SASS instructions a box over its passes (brute_bench.sweep_box_instructions): "
+          + ", ".join(f"{('t bound', 'key of first and last', 'key of first, middle and last')[k]} {v:.2f}"
+                      for k, v in sorted(sweep_sass.items())), flush=True)
     phase_done("phase 2")
 
     # ---- 3. kernels vs plain at the main paths' shapes --------------------
@@ -1443,7 +1532,7 @@ def main() -> int:
     n_t = TERRAIN_RES * TERRAIN_RES
     prim_t = first_frame_primaries(rt, ck.pixel_order(TERRAIN_RES, TERRAIN_RES, dev))  # the renderer's block order
     cb = cluster._cid_bits(C)
-    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38)
+    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
     maxv = cluster._pad128(min(cluster.DEFAULT_MAX_VISITS, C))
     cull_p = lambda: cluster.cull_clusters(  # noqa: E731
         tb.cluster_min, tb.cluster_max, prim_t, t_eff, n_t, maxv)
@@ -1500,6 +1589,13 @@ def main() -> int:
     os_, ds_, tes, walk_s, overflow_s, cull_s_ms = _sorted_lane_walk(torch, cluster, Ray, tb, shadow, tm_s > 0.0,
                                                                      tm_s)
     b4 = _check_walk(torch, ct, "any", tb, walk_s, os_, ds_, (tes,), "terrain 1M NEE shadow, per-lane lists")
+    # K-sweep on the same rays as a frame hands them to it: the primaries' t bound, the bounce and shadow rays'
+    # key and t bound with their dead lanes moved above the scene
+    t_inf = torch.full((n_t,), 3.0e38, device=dev)
+    sweep_k = _check_sweep_kernel(torch, cluster, swk, tb, {
+        "1024^2 primaries": (prim_t, t_inf, False),
+        "1M cosine bounce rays": (cluster.rays_above_scene(tb, bounce, si_p.hit), t_inf, True),
+        "1M NEE shadow rays": (cluster.rays_above_scene(tb, shadow, tm_s > 0.0), tm_s, True)}, smi, sweep_sass)
     print(f"  culls (CUDA events): tile-frustum cull of the 1024^2 primaries {cull_p_ms:.3f} ms "
           f"(overflow {int(overflow_p.sum().item())}); per-lane cull of the bounce rays {cull_b_ms:.3f} ms "
           f"(overflow {int(overflow_b.sum().item())}), of the shadow rays {cull_s_ms:.3f} ms "
@@ -1567,8 +1663,10 @@ def main() -> int:
     o2, d2, tm2_c, tm2_a = bounce_like_rays(big, ROUNDS_RAYS, dev, SEED)
     rays2 = Ray(origin=o2, direction=d2)
     args2 = (big.tri_tab, big.cluster_min, big.cluster_max, big.sc_min, big.sc_max, o2, d2)
-    keys2 = cluster.cold_start_keys(cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_c))
-    t_any2 = cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_a)
+    big_sc = (big.sc_min, big.sc_max)
+    keys2 = cluster.cold_start_keys(cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_c,
+                                                         sc_boxes=big_sc))
+    t_any2 = cluster.ray_t_bounds(big.cluster_min, big.cluster_max, rays2, tm2_a, sc_boxes=big_sc)
     key_k, cid_k = ct.trace_closest_walk_cuda(*args2, *keys2)
     key_q, cid_q = ct.trace_closest_walk_plain(*args2, *keys2)
     occ_k, occ_q = ct.trace_any_walk_cuda(*args2, t_any2), ct.trace_any_walk_plain(*args2, t_any2)
@@ -1622,10 +1720,11 @@ def main() -> int:
         reset_counts()
         g.render(spp)
         got = launch_counts()
-        want = (spp, spp * GOLDEN_DEPTH if mode == "PATH" else 0)
-        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"]) == want,
-                 f"golden {name}: baked and unbaked walk launches {got['cluster_closest_walk_baked']}, "
-                 f"{got['cluster_closest_walk']}, expected {want}")
+        bounces = spp * GOLDEN_DEPTH if mode == "PATH" else 0
+        want = (spp, bounces, spp + 2 * bounces)  # a sweep a trace: the primaries, each bounce's two
+        _require((got["cluster_closest_walk_baked"], got["cluster_closest_walk"], got["sc_sweep"]) == want,
+                 f"golden {name}: baked and unbaked walk and K-sweep launches {got['cluster_closest_walk_baked']}, "
+                 f"{got['cluster_closest_walk']}, {got['sc_sweep']}, expected {want}")
         want = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npy"))
         got = g.image()
         _require(got.shape == want.shape, f"golden {name}: shape {got.shape} != {want.shape}")
@@ -1642,9 +1741,12 @@ def main() -> int:
             reset_counts()
             g.render(1)
             imgs.append(g.image())
-            baked = launch_counts()["cluster_closest_walk_baked"]
-            _require(baked == (1 if device == dev else 0) and (g.baked_tab is None) == (device != dev),
-                     f"terrain {mode.name} on {device}: {baked} baked walk launches, table {g.baked_tab is not None}")
+            baked, sweeps = launch_counts()["cluster_closest_walk_baked"], launch_counts()["sc_sweep"]
+            on_card = device == dev
+            want_sweeps = (1 + (2 * GOLDEN_DEPTH if mode == RendererType.PATH else 0)) if on_card else 0
+            _require(baked == int(on_card) and sweeps == want_sweeps and (g.baked_tab is None) == (not on_card),
+                     f"terrain {mode.name} on {device}: {baked} baked walk and {sweeps} K-sweep launches, table "
+                     f"{g.baked_tab is not None}")
         terrain_rmse[mode.name] = _golden_rmse(*imgs)
         _require(terrain_rmse[mode.name] < tol,
                  f"terrain {mode.name} card vs cpu: relative RMSE {terrain_rmse[mode.name]:.3g} >= {tol}")
@@ -1800,7 +1902,8 @@ def main() -> int:
     launches_c5 = launch_counts()
     m1 = dict(rt.metrics)
     st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
-    want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES)
+    want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES,
+                    sc_sweep=TERRAIN_FRAMES)
     _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all())
@@ -1827,7 +1930,8 @@ def main() -> int:
     want = expected(camera_rng=TIMED_FRAMES, cluster_closest_walk_baked=TIMED_FRAMES,
                     cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
                     cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces,
-                    path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH)
+                    path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH,
+                    sc_sweep=TIMED_FRAMES * (1 + 2 * MAIN_DEPTH))
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
     st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
     _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
@@ -1861,7 +1965,7 @@ def main() -> int:
     n_fr = TERRAIN_PATH_FRAMES
     want = expected(camera_rng=n_fr, cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
                     cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH),
-                    path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH)
+                    path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH, sc_sweep=n_fr * traces)
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
     _require(not any(st5b.values()), f"config 5b: trace statistics {st5b} from traces that list nothing")
     img = rt.image()
@@ -1910,7 +2014,7 @@ def main() -> int:
         resumed = launch_counts()
         img = rc.image()
         _require(rc.state.accum_id == CLI_SPP + 1 and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0
-                 and resumed["cluster_closest_walk_baked"] == 1,
+                 and resumed["cluster_closest_walk_baked"] == 1 and resumed["sc_sweep"] == 1 + 2 * MAIN_DEPTH,
                  f"the resumed render: accum_id {rc.state.accum_id}, mean {img.mean()}, launches {resumed}")
     print(f"[11 CLI] gallery PATH depth {MAIN_DEPTH} {CLI_RES}^2, {CLI_SPP} spp from --cam-from {list(CLI_CAM_FROM)}: "
           f"{cli_s:.1f} s for the process; wrote {len(files)} files ({', '.join(files)}); the checkpoint resumed "
@@ -2025,7 +2129,7 @@ def main() -> int:
         launches_split_t = launch_counts()
         want = expected(camera_rng=SPLIT_DEVICES * SPLIT_FRAMES,
                         cluster_closest_walk_baked=SPLIT_DEVICES * SPLIT_FRAMES,
-                        winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES)
+                        winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES, sc_sweep=SPLIT_DEVICES * SPLIT_FRAMES)
         _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
         ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
         print(f"[12 split] {SPLIT_DEVICES} shares of {dev}, each tile a replay of its own graph: Cornell PATH depth "
@@ -2056,7 +2160,7 @@ def main() -> int:
             viewer_caps = [c for c in captures if c["thread"] == "viewer-render"]
             _require(len(viewer_caps) == 1, f"captures on the viewer's render thread: {viewer_caps}")
             n_cap = len(captures)
-            lat_status, lat_orbit, firsts = [], [], []
+            lat_status, lat_orbit, firsts, openers = [], [], [], []
             c0, t_rounds = len(server.commits), time.perf_counter()
             for k in range(VIEWER_ROUNDS):
                 d0 = server.discarded
@@ -2072,6 +2176,7 @@ def main() -> int:
                 got = json.loads(proc.stdout.strip().splitlines()[-1])
                 lat_status += got["status_s"]
                 lat_orbit.append(got["orbit_s"])
+                openers.append(got["opener_s"])
                 ans, st = got["orbit"], got["after"]
                 epoch = ans["epoch"]
                 _require(ans["ok"] and st["epoch"] == epoch and st["accum_id"] == 0,
@@ -2089,7 +2194,10 @@ def main() -> int:
             frame_ms = statistics.median(c[2] for c in server.commits) * 1e3
             worst = max(lat_status + lat_orbit) * 1e3
             _require(worst < frame_ms / 3, f"a /status or /control answer took {worst:.3f} ms, more than a third "
-                                           f"of the median committed frame ({frame_ms:.3f} ms)")
+                                           f"of the median committed frame ({frame_ms:.3f} ms); /status "
+                                           f"{[round(x * 1e3, 2) for x in lat_status]} ms, orbit "
+                                           f"{[round(x * 1e3, 2) for x in lat_orbit]} ms, in rounds of "
+                                           f"{VIEWER_STATUS_REQUESTS} and 1")
             # mode switches: a deterministic mode stops at one frame; LTC_BASELINE runs B6
             stops = {}
             for mode in (RendererType.NORMALS, RendererType.LTC_BASELINE, RendererType.PATH):
@@ -2125,7 +2233,7 @@ def main() -> int:
         _require(server.error is None and not any(t.is_alive() for t in server._threads),
                  f"the viewer's render loop failed: {server.error!r}")
         for name in ("camera_rng", "cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk",
-                     "winner_attrs", "ltc", "path_sample", "path_combine"):
+                     "winner_attrs", "ltc", "path_sample", "path_combine", "sc_sweep"):
             _require(launches_viewer[name] > 0, f"the viewer never launched {name}: {launches_viewer}")
         img = rv.image()
         _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0,
@@ -2135,8 +2243,10 @@ def main() -> int:
               f"flight), median committed frame {frame_ms:.3f} ms, the first after each orbit (its bake included) "
               f"{[round(x, 3) for x in firsts]} ms; while frames were in flight, to a client process of its own, "
               f"/status answered in {statistics.median(lat_status) * 1e3:.3f} ms median, "
-              f"{max(lat_status) * 1e3:.3f} max ({len(lat_status)} requests), orbit in "
-              f"{[round(x * 1e3, 3) for x in lat_orbit]} ms (bound a third of a frame, {frame_ms / 3:.3f} ms); "
+              f"{max(lat_status) * 1e3:.3f} max ({len(lat_status)} requests: "
+              f"{[round(x * 1e3, 2) for x in lat_status]} ms), orbit in "
+              f"{[round(x * 1e3, 3) for x in lat_orbit]} ms (bound a third of a frame, {frame_ms / 3:.3f} ms; each "
+              f"client readied itself before its first request in {[round(x * 1e3, 3) for x in openers]} ms); "
               f"{server.discarded} frames dropped, each orbit's first frame accum_id 1 from a table rebaked at its "
               f"origin, no capture after an orbit (the PATH graph captured on the render thread in "
               f"{viewer_caps[0]['ms']:.3f} ms); NORMALS and LTC_BASELINE stopped at {stops} frame(s); /frame.png in {png_s * 1e3:.3f} ms; "
@@ -2517,6 +2627,13 @@ def main() -> int:
          "plain_ms": ltc_times["L=2"][1], "bound_ms": bound_l[0], "bound_by": bound_l[1], "library_ms": None,
          "by_lights": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": ltc_bounds[k][0],
                            "bound_by": ltc_bounds[k][1], "ops": ltc_ops[k]} for k, v in ltc_times.items()}},
+        # K-sweep: the cluster tier's supercluster sweep, a hand kernel with no Pallas counterpart; ms, plain_ms
+        # and bound_ms at the terrain's 1M cosine bounce rays (key and t bound); `inputs` holds every batch's
+        {"name": "sc_sweep", "route": "cuda", "source": "optix_renderer_tpu_torch/csrc/sc_sweep.cu",
+         "replaces": f"{pc}:151", "launches": launches["sc_sweep"], "max_abs_err": 0.0,
+         "ms": sweep_k["1M cosine bounce rays"]["ms"], "plain_ms": sweep_k["1M cosine bounce rays"]["plain_ms"],
+         "bound_ms": sweep_k["1M cosine bounce rays"]["bound"][0],
+         "bound_by": sweep_k["1M cosine bounce rays"]["bound"][1], "library_ms": None, "inputs": sweep_k},
         # K0-K3: hand kernels with no Pallas counterpart (the JAX package leaves this code to XLA's fusions);
         # ms, plain_ms and bound_ms at a 1024^2 Cornell frame's camera head (K0) and at an eager Cornell PATH
         # frame's 1M lanes (K1, K2 its second bounce, K3 its primaries; `bounce 1` K3 at that bounce)

@@ -3,7 +3,10 @@ half of ``optix_renderer_tpu/accel/pallas_cluster.py``).
 
 Scenes above ``accel.build.BRUTE_MAX_TRIS`` are traced in one of two ways.
 Every ray's t bound is first clamped by a per-ray supercluster sweep
-(``ray_t_bounds``): rays overlapping no geometry get t = 0.
+(``ray_t_bounds``): rays overlapping no geometry get t = 0.  The sweep is
+one launch of the hand kernel K-sweep (``accel.sweep_kernel``) for rays on
+a CUDA device, and the plain PyTorch sweep below on the CPU; both give the
+same bits.
 
 **Walk form: rays on a CUDA device.**  The rays go straight from the sweep
 to the walk kernels of ``accel.cluster_trace``: each ray finds its own
@@ -74,7 +77,7 @@ import torch
 
 from ..core.types import Hit, Ray
 from ..utils.launches import span
-from . import cluster_trace
+from . import cluster_trace, sweep_kernel
 from .brute_trace import moller_trumbore
 from .build import CLUSTER_SIZE, SC_GROUP, BVH
 from .cluster_trace import TILE, inv_dir
@@ -160,43 +163,76 @@ def _t_bound_from_sweep(far, hit, t_max, n, like):
     return torch.where(hit.any(dim=-1), torch.minimum(t, far_bound * 1.0001 + 1e-3), 0.0)
 
 
-def ray_t_bounds(cluster_min, cluster_max, rays: Ray, t_max):
+def _sweep_cuda(cluster_min, cluster_max, rays: Ray, t_max, sc_boxes, key: bool):
+    """K-sweep over the plain sweep's boxes: the cluster boxes where there
+    are at most 512, else the superclusters ``sc_boxes`` (the BVH's
+    ``sc_min``/``sc_max``, which equal ``_superclusters``' boxes).  Returns
+    (t bound, key or None)."""
+    boxes = (cluster_min, cluster_max) if cluster_min.shape[0] <= 512 else sc_boxes
+    if isinstance(t_max, torch.Tensor):
+        t_max = t_max.to(device=rays.origin.device, dtype=torch.float32).contiguous()
+    bmin, bmax = (b.contiguous() for b in boxes)
+    return sweep_kernel.sc_sweep_cuda(bmin, bmax, rays.origin.contiguous(), rays.direction.contiguous(), t_max,
+                                      _cid_bits(bmin.shape[0]) if key else None)
+
+
+def ray_t_bounds_plain(cluster_min, cluster_max, rays: Ray, t_max):
+    """``ray_t_bounds`` in plain PyTorch on any device: what rays on the
+    CPU take, and K-sweep's reference."""
+    _near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
+    return _t_bound_from_sweep(far, hit, t_max, rays.origin.shape[0], rays.origin)
+
+
+def corridor_keys_and_t_bounds_plain(cluster_min, cluster_max, rays: Ray, t_max=_INF):
+    """``corridor_keys_and_t_bounds`` in plain PyTorch on any device: what
+    rays on the CPU take, and K-sweep's reference."""
+    near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
+    n = rays.origin.shape[0]
+    t_eff = _t_bound_from_sweep(far, hit, t_max, n, rays.origin)
+
+    S = near.shape[1]
+    near_c = torch.where(hit, torch.clamp(near, min=0.0), _INF)
+    entry_t, first = near_c.min(dim=-1)
+    last_n = torch.where(hit, torch.clamp(near, min=0.0), -_INF)
+    exit_t, last = last_n.max(dim=-1)
+    any_hit = hit.any(dim=-1)
+    mid_t = torch.where(any_hit, 0.5 * (entry_t + exit_t), 0.0)
+    mid = (near_c - mid_t[:, None]).abs().argmin(dim=-1)
+    first, mid, last = (a.to(torch.int32) for a in (first, mid, last))
+
+    sb = _cid_bits(S)
+    if 3 * sb <= 31:
+        key = (first << (2 * sb)) | (mid << sb) | last
+    elif 2 * sb <= 31:
+        key = (first << sb) | last
+    else:
+        key = first
+    return torch.where(any_hit, key, 0x7FFFFFFF), t_eff
+
+
+def ray_t_bounds(cluster_min, cluster_max, rays: Ray, t_max, *, sc_boxes):
     """Per-ray upper bound on any hit distance: the farthest exit of the
-    superclusters the ray overlaps, 0 where it overlaps none."""
+    superclusters the ray overlaps, 0 where it overlaps none.  Rays on a
+    CUDA device take K-sweep over ``sc_boxes``, the BVH's (sc_min, sc_max);
+    rays on the CPU the plain sweep, which makes them from the clusters."""
     with span("trace.sweep"):
-        _near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
-        return _t_bound_from_sweep(far, hit, t_max, rays.origin.shape[0], rays.origin)
+        if _walks(rays):
+            return _sweep_cuda(cluster_min, cluster_max, rays, t_max, sc_boxes, key=False)[0]
+        return ray_t_bounds_plain(cluster_min, cluster_max, rays, t_max)
 
 
-def corridor_keys_and_t_bounds(cluster_min, cluster_max, rays: Ray, t_max=_INF):
+def corridor_keys_and_t_bounds(cluster_min, cluster_max, rays: Ray, t_max=_INF, *, sc_boxes):
     """One supercluster sweep -> (coherence sort keys (N,) i32, the per-ray
     t bounds of ``ray_t_bounds``).  The key packs the ids of the first,
     middle and last overlapped supercluster along the ray, so rays sorted
     together traverse near-identical cluster sets; rays overlapping nothing
-    get INT32_MAX and sort last, together."""
+    get INT32_MAX and sort last, together.  Rays on a CUDA device take
+    K-sweep, as in ``ray_t_bounds``."""
     with span("trace.sweep"):
-        near, far, hit = _sc_slab_sweep(cluster_min, cluster_max, rays)
-        n = rays.origin.shape[0]
-        t_eff = _t_bound_from_sweep(far, hit, t_max, n, rays.origin)
-
-        S = near.shape[1]
-        near_c = torch.where(hit, torch.clamp(near, min=0.0), _INF)
-        entry_t, first = near_c.min(dim=-1)
-        last_n = torch.where(hit, torch.clamp(near, min=0.0), -_INF)
-        exit_t, last = last_n.max(dim=-1)
-        any_hit = hit.any(dim=-1)
-        mid_t = torch.where(any_hit, 0.5 * (entry_t + exit_t), 0.0)
-        mid = (near_c - mid_t[:, None]).abs().argmin(dim=-1)
-        first, mid, last = (a.to(torch.int32) for a in (first, mid, last))
-
-        sb = _cid_bits(S)
-        if 3 * sb <= 31:
-            key = (first << (2 * sb)) | (mid << sb) | last
-        elif 2 * sb <= 31:
-            key = (first << sb) | last
-        else:
-            key = first
-        return torch.where(any_hit, key, 0x7FFFFFFF), t_eff
+        if _walks(rays):
+            t_eff, key = _sweep_cuda(cluster_min, cluster_max, rays, t_max, sc_boxes, key=True)
+            return key, t_eff
+        return corridor_keys_and_t_bounds_plain(cluster_min, cluster_max, rays, t_max)
 
 
 # ---------------------------------------------------------------------------
@@ -500,8 +536,8 @@ def _fallback_batches(unresolved: torch.Tensor, n_un: int, grid_n: int):
 
 
 def _walks(rays: Ray) -> bool:
-    """Does this trace take the walk form?  Rays on a CUDA device do; the
-    rays' device decides, not what the machine has."""
+    """Does this trace take the walk form (and its sweep K-sweep)?  Rays on
+    a CUDA device do; the rays' device decides, not what the machine has."""
     return rays.origin.device.type == "cuda"
 
 
@@ -526,7 +562,7 @@ def trace_closest_clusters_packed(bvh: BVH, rays: Ray, t_max=_INF, *, refine: bo
     The rays then take the baked walk, the kernel on a CUDA device, its
     plain version on the CPU."""
     if t_eff is None:
-        t_eff = ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
+        t_eff = ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max, sc_boxes=(bvh.sc_min, bvh.sc_max))
     if baked_tab is not None:
         if baked_tab.tab.shape != bvh.tri_tab.shape:
             raise ValueError(f"baked table {tuple(baked_tab.tab.shape)} is not the shape of the BVH's table "
@@ -615,7 +651,7 @@ def trace_any_clusters(bvh: BVH, rays: Ray, t_max=_INF, *, refine: bool = False,
     """Occlusion: (occluded (N,) bool, stats): is there a hit in (0, t
     bound).  The walk form (``_walks``) or the list form."""
     if t_eff is None:
-        t_eff = ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
+        t_eff = ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max, sc_boxes=(bvh.sc_min, bvh.sc_max))
     if _walks(rays):
         occ = cluster_trace.trace_any_walk_cuda(
             bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max, rays.origin.contiguous(),
@@ -686,7 +722,8 @@ def trace_any_clusters_sorted(bvh: BVH, rays: Ray, t_max=_INF, refine: bool = Tr
     n = rays.origin.shape[0]
     tmax_b = _bcast_t(t_max, n, rays.origin)
     rays_m = rays_above_scene(bvh, rays, tmax_b > 0.0)
-    keys, te = corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, tmax_b)
+    keys, te = corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, tmax_b,
+                                          sc_boxes=(bvh.sc_min, bvh.sc_max))
     with span("trace.sort"):
         perm = torch.argsort(keys)
     od_s = torch.cat([rays_m.origin, rays_m.direction, te[:, None]], dim=1)[perm]

@@ -104,7 +104,8 @@ def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor 
         rays = cluster.rays_above_scene(bvh, rays, active)
     if coherent:
         return cluster.trace_closest_clusters_packed(bvh, rays, t_max, baked_tab=baked_tab)
-    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max)
+    keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max,
+                                                     sc_boxes=(bvh.sc_min, bvh.sc_max))
     with span("trace.sort"):
         perm = torch.argsort(keys)
     od_s = torch.cat([rays.origin, rays.direction, t_eff[:, None]], dim=1)[perm]  # one gather: rays and bounds

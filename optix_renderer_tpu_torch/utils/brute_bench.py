@@ -298,6 +298,40 @@ def sass_loops(sass: str, kernel: str) -> list[dict]:
     return sorted(loops, key=lambda lp: lp["instructions"])
 
 
+SWEEP_KERNEL, SWEEP_MULS_PER_BOX = "supercluster_sweep_kernel", 6  # csrc/sc_sweep.cu: 2 FMUL an axis
+
+
+def sweep_box_instructions(sass: str) -> dict[int, float]:
+    """{mode: SASS instructions a box, summed over its passes} of each
+    instantiation of K-sweep (``csrc/sc_sweep.cu``, template argument
+    ``kMode``) in a ``cuobjdump -sass`` listing.  A pass over the staged
+    boxes is an innermost loop (a backward branch whose body holds no other
+    one); where nvcc unrolled it, its main body is the one with the most
+    FMULs (6 a box) and the remainder loop is left out.  Each pass's count
+    is its main body's instructions over the boxes it serves."""
+    out = {}
+    for name, lines in sass_functions(sass).items():
+        m = re.search(SWEEP_KERNEL + r"ILi(\d+)E", name)
+        if not m:
+            continue
+        code = [(a, t) for a, t in lines if a is not None and not t.startswith(".L")]
+        labels = {t[:-1]: a for a, t in lines if t.startswith(".L")}
+        loops = []
+        for addr, text in code:
+            t = re.search(r"`?\(?(0x[0-9a-f]+|\.L_\w+)\)?`?\s*$", text)
+            if not (_op(text)[0].startswith("BRA") and t):
+                continue
+            to = int(t.group(1), 16) if t.group(1).startswith("0x") else labels.get(t.group(1))
+            if to is not None and to <= addr:
+                loops.append((to, addr, [b for a, b in code if to <= a <= addr]))
+        inner = [lp for lp in loops if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        muls = [sum(_op(b)[0].startswith("FMUL") for b in body) for _s, _e, body in inner]
+        top = max(muls, default=0)
+        out[int(m.group(1))] = sum(len(body) * SWEEP_MULS_PER_BOX / n for (_s, _e, body), n in zip(inner, muls)
+                                   if n == top and n > 0)
+    return out
+
+
 def _time_ms(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()

@@ -20,10 +20,12 @@ in ``torch.cuda.synchronize()``), then renders as many again under
   (the baked walk of the primaries), ``B3_walk``, ``B4_walk`` (walk form),
   ``B5``, ``B6`` (LTC), ``K0`` (the camera and RNG head), ``K1``, ``K2``
   (the path bounce before and after its traces), ``K3`` (the brute tier's
-  shading): the hand-written kernels, found by their names in the device
-  trace (the first stage whose name matches);
-* ``sweep``: the per-ray supercluster sweep (t bounds, corridor keys;
-  span ``trace.sweep``);
+  shading), ``S`` (K-sweep, the cluster tier's supercluster sweep): the
+  hand-written kernels, found by their names in the device trace (the
+  first stage whose name matches);
+* ``sweep``: the PyTorch operations of the per-ray supercluster sweep (t
+  bounds, corridor keys; span ``trace.sweep``): on the card, where K-sweep
+  does the sweep, at most a t_max's conversion;
 * ``sort``: the coherence sort and the fallback's batching (``trace.sort``);
 * ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
   a list-form per-lane trace, which rays on the card no longer take;
@@ -126,13 +128,13 @@ SPAN_STAGES = {"trace.sweep": "sweep", "trace.sort": "sort", "trace.cull": "cull
                "frame.bounce.combine": "combine"}
 STAGES = tuple(SPAN_STAGES.values())
 # the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu, csrc/ltc.cu,
-# csrc/camera_rng.cu, csrc/path_bounce.cu and csrc/brute_shade.cu, the first match decides (the
-# baked walk is closest_walk_kernel over BakedTri rows)
+# csrc/camera_rng.cu, csrc/path_bounce.cu, csrc/brute_shade.cu and csrc/sc_sweep.cu, the first match
+# decides (the baked walk is closest_walk_kernel over BakedTri rows)
 KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
                  "B4": "any_cluster_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
                  "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel",
                  "K0": "camera_rng_kernel", "K1": "path_sample_kernel", "K2": "path_combine_kernel",
-                 "K3": "brute_shade_kernel"}
+                 "K3": "brute_shade_kernel", "S": "supercluster_sweep_kernel"}
 TOP_KERNELS = 10
 
 

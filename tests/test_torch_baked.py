@@ -77,7 +77,7 @@ def _walk_args(b):
 def _baked_hit(s):
     """The plain baked walk's winners, decoded on the unbaked table."""
     b, rays = s["bvh"], s["rays"]
-    t_eff = cluster.ray_t_bounds(b.cluster_min, b.cluster_max, rays, 3.0e38)
+    t_eff = cluster.ray_t_bounds(b.cluster_min, b.cluster_max, rays, 3.0e38, sc_boxes=(b.sc_min, b.sc_max))
     key, cid = ct.trace_closest_walk_plain(s["baked"].tab, *_walk_args(b), rays.origin, rays.direction,
                                            *cluster.cold_start_keys(t_eff), baked=True)
     return cluster.decode_hits(key, cid, b.tri_tab, rays, t_eff), (key, cid, t_eff)

@@ -166,17 +166,18 @@ def test_t_bounds_and_corridor_keys_match_jax(terrain):
     jb, tb = terrain["jr"].bvh, terrain["tr"].bvh
     jrays = terrain["jrays"]
     rays = _tray(jrays)
+    boxes = (tb.sc_min, tb.sc_max)
     for t_max in (pc._INF, 0.125, 40.0):
         want = pc.ray_t_bounds(jb.cluster_min, jb.cluster_max, jrays, t_max)
-        np.testing.assert_array_equal(cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max).numpy(),
-                                      np.asarray(want))
+        got = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max, sc_boxes=boxes)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         wk, wt = pc.corridor_keys_and_t_bounds(jb.cluster_min, jb.cluster_max, jrays, t_max)
-        gk, gt = cluster.corridor_keys_and_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max)
+        gk, gt = cluster.corridor_keys_and_t_bounds(tb.cluster_min, tb.cluster_max, rays, t_max, sc_boxes=boxes)
         np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
         np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
     # rays that overlap nothing: bound 0, key INT32_MAX
     up = Ray(origin=torch.full((16, 3), 1e4), direction=torch.tensor([[0.0, 1.0, 0.0]]).repeat(16, 1))
-    k, t = cluster.corridor_keys_and_t_bounds(tb.cluster_min, tb.cluster_max, up)
+    k, t = cluster.corridor_keys_and_t_bounds(tb.cluster_min, tb.cluster_max, up, sc_boxes=boxes)
     assert (k == 0x7FFFFFFF).all() and (t == 0).all()
 
 
@@ -382,7 +383,7 @@ def test_plain_work_counts(terrain):
     tb = terrain["tr"].bvh
     rays = _tray(terrain["jrays"])
     n = rays.origin.shape[0]
-    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38)
+    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
     lists, counts, scales, _, _ = cluster.cull_clusters(tb.cluster_min, tb.cluster_max, rays, t_eff, n, 128)
     cb = cluster._cid_bits(tb.num_clusters)
     key0 = (t_eff.view(torch.int32) & ~63) | 63

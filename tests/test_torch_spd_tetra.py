@@ -322,4 +322,7 @@ def test_a_captured_tetra_frame_names_the_cluster_stages(cuda):
         r.render(2)
     b = profile_frames.stage_breakdown(*profile_frames.profiled_events(prof), 2, stage_map)
     assert b["unmapped_replays"] == 0
-    assert {"trace.sweep", "trace.sort", "trace.shade"} <= set(b["glue_stages"])
+    # the sweep is a hand kernel (K-sweep, stage S), nine launches a frame inside its span
+    assert {"trace.sort", "trace.shade"} <= set(b["glue_stages"]) and "trace.sweep" in b["frame_stages"]
+    assert b["stages"]["S"]["calls_per_frame"] == 9 and "supercluster_sweep_kernel" in kernels
+

@@ -82,7 +82,7 @@ def scenes(tmp_path_factory):
         t_max = (rng.random(N_RAYS, np.float32) * float(np.linalg.norm(hi - lo))).astype(np.float32)
         t_max[::5] = 0.0
         rays = Ray(origin=torch.tensor(o), direction=torch.tensor(d))
-        t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38)
+        t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
         t_any = torch.minimum(t_eff, torch.tensor(t_max))
         key_l, cid_l, _ = cluster.trace_closest_lists(tb, rays, t_eff, True)
         occ_l, _ = cluster.trace_any_lists(tb, rays, t_any, True)
@@ -168,7 +168,7 @@ def test_walk_dead_lanes_stay_misses(scenes, scene):
     occ = ct.trace_any_walk_plain(*_walk_args(tb), rays.origin, rays.direction, s["t_any"])
     assert not occ[dead].any()
     up = cluster.rays_above_scene(tb, rays, ~dead)
-    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, up, 3.0e38)
+    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, up, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
     assert (t_eff[dead] == 0).all()
     key0, cid0 = cluster.cold_start_keys(t_eff)
     key, cid = ct.trace_closest_walk_plain(*_walk_args(tb), up.origin, up.direction, key0, cid0)
