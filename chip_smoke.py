@@ -69,31 +69,26 @@ raises and exits non-zero):
    away), so that every clip case occurs, against ``ltc_direct_plain``
    (tolerance of tests/unit/test_ltc_pallas.py, and at least 99.99 % of
    rays bit-equal); then, on the 1M-triangle terrain (BASELINE
-   config 5), the list form of B3 on 1024^2 primaries with tile lists and
-   on 1M cosine bounce rays from their hits with corridor-sorted per-lane
-   lists, the list form of B4 on 1M NEE shadow rays, B5 on the primaries'
-   winners (B3 and B4 against the plain versions on a seeded sample of 64
-   tiles with the lists the cull made for them: every lane bit-equal for
-   B3, B4 and B5), K-sweep (the supercluster sweep) on the primaries (t
-   bound) and on the bounce and shadow rays with their dead lanes moved
-   above the scene (key and t bound), bit-equal to the plain sweep on every
+   config 5), the walk of B3 on 1024^2 primaries, against its plain
+   version on every ray (the key on every lane, the cluster id on 99.99 %)
+   and timed in turns with it on a seeded sample of 64 tiles of 1024 rays,
+   B5 on its winners (bit-equal on every lane), K-sweep (the supercluster
+   sweep) on the primaries (t bound) and on 1M cosine bounce rays from
+   their hits and 1M NEE shadow rays, with their dead lanes moved above
+   the scene (key and t bound), bit-equal to the plain sweep on every
    lane, timed in turns with it and as graph replays beside its byte bound
    and its dense issue estimate (every box tested: no floor for a kernel
-   that skips groups of boxes), and the checked overflow fallback on the card (the list
-   path forced on per-lane rays, and a list cap that overflows); then the
-   walk form of B3 on the same 1M bounce rays and of B4 on the same 1M NEE
-   rays, with no lists, against their plain versions on the sample's lanes
-   and against the list path's result on every ray (B4 equal on every
-   lane; B3's key on every lane and its cluster id on 99.99 %), and the
-   walk form of B3 on the primaries in the same way, its time beside
-   tile cull + list form; then the baked walk (B3-baked) on the same
+   that skips groups of boxes); then the walks of B3 on the bounce rays
+   and of B4 on the shadow rays, corridor-sorted as a frame sorts them,
+   against their plain versions on every ray in the same way (B4 equal on
+   every lane); then the baked walk (B3-baked) on the same
    primaries from the terrain Renderer's own shared-origin table, and
    again after ``set_camera`` moved the camera (a rebaked table): key and
    cid equal to the plain baked walk on every lane of the sample, the
    unbaked walk's winner on 99.9 % of all rays and, where both found the
    same triangle, the t in the keys within rtol 1e-4 / atol 1e-3
    (tests/unit/test_baked_mt.py), timed in turns with the
-   unbaked walk, and the bake's own time; and both walk forms against
+   unbaked walk, and the bake's own time; and both walks against
    their plain versions on a 1.28M-triangle terrain with 312
    superclusters, which takes two rounds of supercluster boxes per ray;
    the crossover frames count one baked walk per frame on the cluster
@@ -203,10 +198,7 @@ phase 12, the viewer of phase 13 and the graph frames of phase 15.  Each kernel'
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), counted from this run's inputs (B2: every table
 row for a live ray that is not occluded, one test for an occluded one);
-the list forms
-of B3 and B4 count the slab and ray/triangle tests their rules need on
-these lists, read back from the kernel (beside the lane slots the warps
-spent on them: the lane utilisation); the walk forms count, whatever the
+the walks of B3 and B4 count, whatever the
 kernel did, the tests any walk needs that ends at the lanes' final bounds
 (over every ray; B3's kernel may not have run fewer; the baked walk
 counts its tests at BAKED_MT_OPS each).
@@ -215,9 +207,7 @@ K1-K3's bounds count each input and output once (K1 159 bytes a lane and
 operations counted in their sources (``path_kernel.OPS_SAMPLE``,
 ``OPS_COMBINE``, ``shade_kernel.OPS_SHADE``); beside the bound their record
 holds the issue floor from their SASS (``issue_floor_ms``).
-B3's and B4's ``launches`` add both forms; every main path on the card
-launches the walk forms, and the list forms go on being built, launched
-and checked in phase 3.  The last three lines are the kernels' JSON record, the nvidia-smi line and
+The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -263,12 +253,10 @@ TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 
 GALLERY_RES = 512
 GALLERY_GOLDENS = {"gallery_diffuse": ("DIFFUSE", 1), "gallery_ltc": ("LTC_BASELINE", 1),
                    "gallery_path": ("PATH", 2)}  # tests/goldens/generate.py GALLERY_MODES
-SAMPLE_TILES = 64  # the plain B3/B4 walk a seeded sample of the 1024 tiles
-# the forced fallback against the default list cap: the same hits, but the
-# lists run in another order, so a packed key tied between two clusters may
-# keep the other cluster's id (B3 takes a cid on a strict decrease only)
-FALLBACK_EQUAL_MIN = 0.9999
-FORCED_MAX_VISITS = 128  # a list cap that overflows on the terrain: the checked fallback must run
+SAMPLE_TILE, SAMPLE_TILES = 1024, 64  # the kernels and their plain versions timed in turns on 64 seeded tiles of rays
+# B3's walk kernel against its plain version: the same keys, but a packed key tied between two clusters keeps
+# the cluster the kernel visited first, the plain version the lower id (B3 takes a cid on a strict decrease only)
+CID_EQUAL_MIN = 0.9999
 # a terrain with more than 256 superclusters (2 * 799^2 triangles, 312 superclusters): the walk kernels
 # test supercluster boxes 256 a round, so this one takes two rounds per ray
 ROUNDS_GRID, ROUNDS_RAYS = 800, 1 << 16
@@ -293,7 +281,7 @@ SPLIT_FRAMES, SPLIT_DEVICES, VIEWER_ROUNDS, VIEWER_STATUS_REQUESTS, VIEWER_DEADL
 # deterministic modes: 16 single frames); the interleaving's render(n)
 GRAPH_FRAMES, GRAPH_FRAMES_5B, GRAPH_SINGLES, INTERLEAVE_FRAMES = 8, 3, 16, 3
 CACHE_CLI_RES = 256
-SLAB_OPS = 28  # one list step: decoded-near test and per-lane slab test (csrc lane_slab)
+SLAB_OPS = 28  # one box of a walk: its slab test and the comparisons around it (csrc box_span, candidate)
 B6_LUT_BYTES = 64 * 12 * 4  # the packed LTC table, read once
 EDGE_LANES = 1 << 16  # the seeded edge lanes of K1 and K3
 
@@ -911,78 +899,20 @@ def _tile_sample(torch, n_tiles: int, tile: int, device):
     return sel, (sel[:, None] * tile + torch.arange(tile, device=device)[None, :]).reshape(-1)
 
 
-def _check_walk(torch, ct, kind: str, bvh, walk, o, d, extra, label: str) -> dict:
-    """B3 (``kind`` "closest", ``extra`` = (key0, cid0)) or B4 ("any",
-    ``extra`` = (t_max,)) over every tile of the cull products ``walk`` =
-    (lists, counts, scales, cid_bits), held against the plain version on
-    SAMPLE_TILES seeded tiles with the lists the cull made for them; times
-    the kernel on every tile, and the kernel and the plain version on the
-    sample in turns.  The bound counts the slab and ray/triangle tests the
-    kernel ran (its ``work`` counter), the rays, lists and outputs, and the
-    4 KB of table rows of every distinct listed cluster."""
-    lists, counts, scales, cb = walk
-    tab, cmin, cmax = bvh.tri_tab, bvh.cluster_min, bvh.cluster_max
-    closest = kind == "closest"
-    cuda_fn = ct.trace_closest_clusters_cuda if closest else ct.trace_any_clusters_cuda
-    plain_fn = ct.trace_closest_clusters_plain if closest else ct.trace_any_clusters_plain
-    work = torch.zeros(4, dtype=torch.int64, device=o.device)
-    full = cuda_fn(tab, cmin, cmax, lists, counts, scales, cb, o, d, *extra, work=work)
-    sel, lanes = _tile_sample(torch, lists.shape[0], ct.TILE, o.device)
-    sub = (tab, cmin, cmax, lists[sel].contiguous(), counts[sel].contiguous(), scales[sel].contiguous(), cb,
-           o[lanes].contiguous(), d[lanes].contiguous(), *(e[lanes].contiguous() for e in extra))
-    plain = plain_fn(*sub)
-    torch.cuda.synchronize()
-    if closest:
-        key_k, cid_k = full[0][lanes], full[1][lanes]
-        same = (key_k == plain[0]) & (cid_k == plain[1])
-        t_up = lambda k: (k | 63).view(torch.float32)  # noqa: E731
-        err = (t_up(key_k) - t_up(plain[0])).abs().max().item()
-        agree = same.float().mean().item()
-        # the same lists in the same order and the same f32 operations: every lane
-        _require(agree == 1.0, f"B3 {label}: key and cid differ from the plain version on {1 - agree:.7f} of lanes")
-        hits = int((plain[1] >= 0).sum().item())
-    else:
-        err = (full[lanes].float() - plain.float()).abs().max().item()
-        agree = (full[lanes] == plain).float().mean().item()
-        _require(agree == 1.0, f"B4 {label}: occlusion differs from the plain version on {1 - agree:.7f} of lanes")
-        hits = int(plain.sum().item())
-    ms = _time_ms(torch, lambda: cuda_fn(tab, cmin, cmax, lists, counts, scales, cb, o, d, *extra), 10)
-    ms_sample, plain_ms = _in_turns(torch, lambda: plain_fn(*sub), lambda: cuda_fn(*sub), 1, 10)
-    n = o.shape[0]
-    valid = torch.arange(lists.shape[1], device=o.device)[None, :] < counts[:, None]
-    n_clusters = torch.unique(lists[valid] & ((1 << cb) - 1)).numel()
-    listed = int(counts.sum().item())
-    ray_bytes = n * (24 + 16) if closest else n * (24 + 4 + 1)  # rays, key0/cid0 or t_max, outputs
-    n_bytes = ray_bytes + 4 * listed + 8 * lists.shape[0] + n_clusters * (64 * 16 * 4 + 24)
-    slabs, tests, slab_slots, test_slots = (int(w) for w in work.tolist())
-    bound_ms, bound_by = _bound(n_bytes, slabs * SLAB_OPS + tests * MT_OPS)
-    util_list, util_test = slabs / max(slab_slots, 1), tests / max(test_slots, 1)
-    name = "B3" if closest else "B4"
-    print(f"  {name} {label}: {n} rays, {lists.shape[0]} tiles, lists {tuple(lists.shape)}, {listed} entries "
-          f"({n_clusters} distinct clusters), {slabs} slab tests in {slab_slots} lane slots of the warps' list steps "
-          f"(utilisation {util_list:.4f}), {tests} ray/triangle tests in {test_slots} lane slots of the warps' "
-          f"triangle steps (utilisation {util_test:.4f}); "
-          f"{SAMPLE_TILES}-tile sample: {hits} {'hits' if closest else 'occluded'}, "
-          f"{'key+cid bit-equal' if closest else 'equal'} {agree:.7f}, max |err| {err:.3g}; "
-          f"kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}); sample: kernel {ms_sample:.4f} ms "
-          f"vs plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "sample_ms": ms_sample, "bound_ms": bound_ms,
-            "bound_by": bound_by, "list_utilisation": util_list, "test_utilisation": util_test}
-
-
-def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str, list_path) -> dict:
-    """The walk form of B3 (``kind`` "closest", ``extra`` = (key0, cid0)) or
-    B4 ("any", ``extra`` = (t_max,)) on every ray, with no lists: held
-    against its plain version on the lanes of SAMPLE_TILES seeded tiles and
-    against ``list_path``, the list path's result (per-lane cull, list form,
-    checked fallback) on every ray.  B4: equal on every lane.  B3: the key
-    equal on every lane, the cluster id on FALLBACK_EQUAL_MIN of them (a
-    packed key tied between two clusters keeps the one visited first).
-    The bound does not depend on the implementation: from every lane's
-    final bound, ``walk_bound_counts`` counts every supercluster box, the
-    cluster boxes of the superclusters and the triangles of the clusters
-    that pass within it, which B3's kernel cannot have undercut; the bytes
-    are the rays, the outputs, the boxes and the table once."""
+def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str) -> dict:
+    """The walk of B3 (``kind`` "closest", ``extra`` = (key0, cid0)) or B4
+    ("any", ``extra`` = (t_max,)), kernel against plain version on every
+    ray and again on the lanes of SAMPLE_TILES seeded tiles: B4 equal on
+    every lane; B3's key on every lane and its cluster id on CID_EQUAL_MIN
+    of them (a packed key tied between two clusters keeps the one the
+    kernel visited first, the plain version the lower id).  Times the
+    kernel on every ray, and the kernel and the plain version in turns on
+    the sample.  The bound does not depend on the implementation: from
+    every lane's final bound, ``walk_bound_counts`` counts every
+    supercluster box, the cluster boxes of the superclusters and the
+    triangles of the clusters that pass within it, which B3's kernel cannot
+    have undercut; the bytes are the rays, the outputs, the boxes and the
+    table once."""
     tab, boxes = bvh.tri_tab, (bvh.cluster_min, bvh.cluster_max, bvh.sc_min, bvh.sc_max)
     closest = kind == "closest"
     name = "B3" if closest else "B4"
@@ -991,34 +921,38 @@ def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str, list_pat
     n = o.shape[0]
     work = torch.zeros(4, dtype=torch.int64, device=o.device)
     full = cuda_fn(tab, *boxes, o, d, *extra, work=work)
-    sel, lanes = _tile_sample(torch, n // ct.TILE, ct.TILE, o.device)
-    o_s, d_s = o[lanes].contiguous(), d[lanes].contiguous()
-    sub = (tab, *boxes, o_s, d_s, *(e[lanes].contiguous() for e in extra))
+    t0 = time.perf_counter()
+    every = plain_fn(tab, *boxes, o, d, *extra)
+    torch.cuda.synchronize()
+    every_s = time.perf_counter() - t0
+    _sel, lanes = _tile_sample(torch, n // SAMPLE_TILE, SAMPLE_TILE, o.device)
+    sub = (tab, *boxes, o[lanes].contiguous(), d[lanes].contiguous(), *(e[lanes].contiguous() for e in extra))
     plain = plain_fn(*sub)
     torch.cuda.synchronize()
     if closest:
         t_up = lambda k: (k | 63).view(torch.float32)  # noqa: E731
-        key_k, cid_k = full[0][lanes], full[1][lanes]
-        err = (t_up(key_k) - t_up(plain[0])).abs().max().item()
-        key_same, cid_same = (key_k == plain[0]).float().mean().item(), (cid_k == plain[1]).float().mean().item()
-        key_list, cid_list = ((a == b).float().mean().item() for a, b in zip(full, list_path))
-        _require(key_same == 1.0, f"B3 walk {label}: key differs from the plain version on {1 - key_same:.7f} of lanes")
-        _require(key_list == 1.0, f"B3 walk {label}: key differs from the list path on {1 - key_list:.7f} of lanes")
-        _require(min(cid_same, cid_list) >= FALLBACK_EQUAL_MIN,
-                 f"B3 walk {label}: cluster id equal to the plain version's on {cid_same:.7f} and to the list "
-                 f"path's on {cid_list:.7f} of lanes (< {FALLBACK_EQUAL_MIN})")
-        hits = int((plain[1] >= 0).sum().item())
-        agree = (f"key equal on {key_same:.7f} and cid on {cid_same:.7f} of the sampled lanes; against the list "
-                 f"path on all rays: key {key_list:.7f}, cid {cid_list:.7f}")
+        err = (t_up(full[0]) - t_up(every[0])).abs().max().item()
+        key_all, cid_all = (a.float().mean().item() for a in (full[0] == every[0], full[1] == every[1]))
+        key_same, cid_same = ((full[0][lanes] == plain[0]).float().mean().item(),
+                              (full[1][lanes] == plain[1]).float().mean().item())
+        _require(key_all == 1.0 and key_same == 1.0,
+                 f"B3 walk {label}: key differs from the plain walk's on {1 - key_all:.7f} of all lanes and "
+                 f"{1 - key_same:.7f} of the sampled lanes")
+        _require(min(cid_all, cid_same) >= CID_EQUAL_MIN,
+                 f"B3 walk {label}: cluster id equal to the plain walk's on {cid_all:.7f} of all lanes and "
+                 f"{cid_same:.7f} of the sampled lanes (< {CID_EQUAL_MIN})")
+        hits = int((every[1] >= 0).sum().item())
+        agree = (f"against the plain walk: key equal on {key_all:.7f} and cid on {cid_all:.7f} of all rays, "
+                 f"{key_same:.7f} and {cid_same:.7f} of the sampled lanes")
         slabs_b, tests_b = ct.walk_bound_counts(*boxes, o, d, t_up(full[0]))
     else:
-        err = (full[lanes].float() - plain.float()).abs().max().item()
-        same, same_list = (full[lanes] == plain).float().mean().item(), (full == list_path).float().mean().item()
-        _require(same == 1.0, f"B4 walk {label}: occlusion differs from the plain version on {1 - same:.7f} of lanes")
-        _require(same_list == 1.0, f"B4 walk {label}: occlusion differs from the list path on {1 - same_list:.7f} "
-                 "of lanes")
-        hits = int(plain.sum().item())
-        agree = f"equal on {same:.7f} of the sampled lanes and to the list path on {same_list:.7f} of all rays"
+        err = (full.float() - every.float()).abs().max().item()
+        same_all, same = (full == every).float().mean().item(), (full[lanes] == plain).float().mean().item()
+        _require(same_all == 1.0 and same == 1.0,
+                 f"B4 walk {label}: occlusion differs from the plain walk's on {1 - same_all:.7f} of all lanes and "
+                 f"{1 - same:.7f} of the sampled lanes")
+        hits = int(every.sum().item())
+        agree = f"equal to the plain walk on {same_all:.7f} of all rays and {same:.7f} of the sampled lanes"
         slabs_b, tests_b = ct.walk_bound_counts(*boxes, o, d, extra[0], occluded=full)
     ms = _time_ms(torch, lambda: cuda_fn(tab, *boxes, o, d, *extra), 10)
     ms_sample, plain_ms = _in_turns(torch, lambda: plain_fn(*sub), lambda: cuda_fn(*sub), 1, 10)
@@ -1030,14 +964,15 @@ def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str, list_pat
              f"B3 walk {label}: the kernel ran {slabs} slab and {tests} ray/triangle tests, fewer than the "
              f"{slabs_b} and {tests_b} that its final bounds need")
     util_slab, util_test = slabs / max(slab_slots, 1), tests / max(test_slots, 1)
-    print(f"  {name} walk form, {label}: {n} rays, no lists; {SAMPLE_TILES}-tile sample: {hits} "
-          f"{'hits' if closest else 'occluded'}, {agree}, max |err| {err:.3g}; the kernel ran {slabs} slab tests in "
+    print(f"  {name} walk, {label}: {n} rays, {hits} {'hits' if closest else 'occluded'}; {agree}, max |err| "
+          f"{err:.3g}; the plain walk on every ray {every_s:.1f} s; the kernel ran {slabs} slab tests in "
           f"{slab_slots} lane slots (utilisation {util_slab:.4f}) and {tests} ray/triangle tests in {test_slots} "
           f"(utilisation {util_test:.4f}); any walk to these bounds needs {slabs_b} slab tests and {tests_b} "
           f"ray/triangle tests (counted over every ray); kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, "
-          f"{bound_by}); sample: kernel {ms_sample:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+          f"{bound_by}); {SAMPLE_TILES}-tile sample: kernel {ms_sample:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "sample_ms": ms_sample, "bound_ms": bound_ms,
-            "bound_by": bound_by, "slab_utilisation": util_slab, "test_utilisation": util_test}
+            "bound_by": bound_by, "slab_utilisation": util_slab, "test_utilisation": util_test,
+            "plain_every_ray_s": every_s}
 
 
 def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
@@ -1059,7 +994,7 @@ def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
     work = torch.zeros(4, dtype=torch.int64, device=o.device)
     key, cid = ct.trace_closest_walk_cuda(baked.tab, *boxes, o, d, key0, cid0, work=work, baked=True)
     key_u, cid_u = ct.trace_closest_walk_cuda(bvh.tri_tab, *boxes, o, d, key0, cid0)
-    _sel, lanes = _tile_sample(torch, n // ct.TILE, ct.TILE, o.device)
+    _sel, lanes = _tile_sample(torch, n // SAMPLE_TILE, SAMPLE_TILE, o.device)
     sub = (baked.tab, *boxes, o[lanes].contiguous(), d[lanes].contiguous(), key0[lanes].contiguous(),
            cid0[lanes].contiguous())
     key_p, cid_p = ct.trace_closest_walk_plain(*sub, baked=True)
@@ -1117,30 +1052,17 @@ def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
             "one_sided_hit_lanes": n_one, "test_utilisation": tests / max(test_slots, 1)}
 
 
-def _sorted_lane_walk(torch, cluster, Ray, bvh, rays, active, t_max):
+def _sorted_rays(torch, cluster, bvh, rays, active, t_max):
     """What the port does with incoherent rays (accel/traverse.trace_closest_winners,
     cluster.trace_any_clusters_sorted): inactive lanes become above-scene
     up-rays, one supercluster sweep gives the corridor keys and t bounds,
-    the rays are sorted by key and culled per lane.  Returns (sorted origin,
-    direction, t bound, (lists, counts, scales, cid_bits), overflow,
-    per-lane cull ms)."""
-    C = bvh.num_clusters
+    and the rays are sorted by key.  Returns (sorted origin, direction, t
+    bound)."""
     rays_m = cluster.rays_above_scene(bvh, rays, active)
     keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays_m, t_max,
                                                      sc_boxes=(bvh.sc_min, bvh.sc_max))
     perm = torch.argsort(keys)
-    o, d, te = (a[perm].contiguous() for a in (rays_m.origin, rays_m.direction, t_eff))
-    maxv = cluster._pad128(min(cluster._SC_KEEP * cluster._SC_GROUP, C))
-    n = o.shape[0]
-    cull = lambda: cluster.cull_clusters_per_lane(  # noqa: E731
-        bvh.cluster_min, bvh.cluster_max, Ray(origin=o, direction=d), te, n, maxv)
-    lists, counts, scales, overflow, _ = cull()
-    cull_ms = _time_ms(torch, cull, 1)
-    return o, d, te, (lists, counts, scales, cluster._cid_bits(C)), overflow, cull_ms
-
-
-def _stats_str(stats) -> str:
-    return ", ".join(f"{k} {int(v)}" for k, v in stats.items())
+    return tuple(a[perm].contiguous() for a in (rays_m.origin, rays_m.direction, t_eff))
 
 
 def _golden_rmse(got, want) -> float:
@@ -1321,13 +1243,13 @@ def main() -> int:
 
     def eager_frames(rend, state, n, every_gbuffer=False):
         """n ``_frame_impl`` frames from ``state`` (the pure reference): (the last state, each frame's
-        (g-buffers, aux, trace stats)); the g-buffers of the last frame only, unless ``every_gbuffer``."""
+        (g-buffers, aux)); the g-buffers of the last frame only, unless ``every_gbuffer``."""
         frames = []
         for i in range(n):
-            state, gb, aux, stats = _frame_impl(
+            state, gb, aux = _frame_impl(
                 state, rend.device_scene, rend.bvh, mode=rend.mode, width=rend.width, height=rend.height,
                 path_depth=rend.path_depth, ratio_samples=rend.ratio_samples, baked_tab=rend.baked_tab)
-            frames.append((gb if every_gbuffer or i == n - 1 else None, aux, stats))
+            frames.append((gb if every_gbuffer or i == n - 1 else None, aux))
         return state, frames
 
     def same_frames(label, got_state, got_gb, got_aux, want_state, frames):
@@ -1337,7 +1259,7 @@ def main() -> int:
         for f in dataclasses.fields(got_gb):
             _require(bool(torch.equal(getattr(got_gb, f.name), getattr(frames[-1][0], f.name))),
                      f"{label}: g-buffer {f.name} differs from the eager frame's")
-        auxes = [a for _gb, a, _st in frames]
+        auxes = [a for _gb, a in frames]
         for k in auxes[0]:
             if k == "path_alive_counts":
                 want = auxes[-1][k]
@@ -1351,7 +1273,7 @@ def main() -> int:
     def eager_rays(rend, frames):
         """(honest rays, alive_per_bounce of the last) of eager frames."""
         per_frame = rend.width * rend.height * (1 + (rend.ratio_samples if rend.mode == RendererType.RATIO else 0))
-        alive = [a["path_alive_counts"] for _gb, a, _st in frames if "path_alive_counts" in a]
+        alive = [a["path_alive_counts"] for _gb, a in frames if "path_alive_counts" in a]
         return (len(frames) * per_frame + sum(int(a[:, 1:].sum()) for a in alive),
                 [int(x) for x in alive[-1][:, 0]] if alive else None)
     kind = torch.cuda.get_device_name(0)
@@ -1531,19 +1453,13 @@ def main() -> int:
           f"write + parse + build {setup_s:.1f} s", flush=True)
     n_t = TERRAIN_RES * TERRAIN_RES
     prim_t = first_frame_primaries(rt, ck.pixel_order(TERRAIN_RES, TERRAIN_RES, dev))  # the renderer's block order
-    cb = cluster._cid_bits(C)
     t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, prim_t, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
-    maxv = cluster._pad128(min(cluster.DEFAULT_MAX_VISITS, C))
-    cull_p = lambda: cluster.cull_clusters(  # noqa: E731
-        tb.cluster_min, tb.cluster_max, prim_t, t_eff, n_t, maxv)
-    lists, counts, scales, overflow_p, _ = cull_p()
-    cull_p_ms = _time_ms(torch, cull_p, 3)
-    key0 = (t_eff.view(torch.int32) & ~63) | 63
-    cid0 = torch.full_like(key0, -1)
-    b3 = _check_walk(torch, ct, "closest", tb, (lists, counts, scales, cb), prim_t.origin, prim_t.direction,
-                     (key0, cid0), "terrain primary 1024^2, tile lists")
-    key_p, cid_p = ct.trace_closest_clusters_cuda(tb.tri_tab, tb.cluster_min, tb.cluster_max, lists, counts,
-                                                  scales, cb, prim_t.origin, prim_t.direction, key0, cid0)
+    key0, cid0 = cluster.cold_start_keys(t_eff)
+    # the walks on every ray against their plain versions: the coherent primaries first
+    b3p = _check_ray_walk(torch, ct, "closest", tb, prim_t.origin, prim_t.direction, (key0, cid0),
+                          "terrain primary 1024^2")
+    key_p, cid_p = ct.trace_closest_walk_cuda(tb.tri_tab, tb.cluster_min, tb.cluster_max, tb.sc_min, tb.sc_max,
+                                              prim_t.origin, prim_t.direction, key0, cid0)
     # B5 on the primaries' winners, every lane
     cols_k = ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key_p, cid_p)
     cols_p = ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key_p, cid_p)
@@ -1573,10 +1489,7 @@ def main() -> int:
     d_b = cm.normalize(cm.apply_mat(to_world, bsdf.sample_cosine_hemisphere(u[0], u[1])), eps=1e-30)
     org_b = si_p.p + si_p.n_geom * RAY_EPS
     bounce = Ray(origin=org_b, direction=d_b)
-    ob, db, teb, walk_b, overflow_b, cull_b_ms = _sorted_lane_walk(torch, cluster, Ray, tb, bounce, si_p.hit,
-                                                                   3.0e38)
-    b3b = _check_walk(torch, ct, "closest", tb, walk_b, ob, db, cluster.cold_start_keys(teb),
-                      "terrain 1M cosine bounce, corridor-sorted per-lane lists")
+    ob, db, teb = _sorted_rays(torch, cluster, tb, bounce, si_p.hit, 3.0e38)
     ds_t = rt.device_scene
     lidx = torch.randint(0, ds_t.num_lights, (n_t,), generator=g, device=dev)
     lp = cm.sample_point_on_triangle(ds_t.light_v1[lidx], ds_t.light_v2[lidx], ds_t.light_v3[lidx], u[2], u[3])
@@ -1586,9 +1499,7 @@ def main() -> int:
     needed = si_p.hit & ~si_p.is_light & (cm.dot(si_p.n_geom, ldir) > 0.0)
     tm_s = torch.where(needed, dist * (1.0 - 1e-3), 0.0)
     shadow = Ray(origin=org_b, direction=ldir)
-    os_, ds_, tes, walk_s, overflow_s, cull_s_ms = _sorted_lane_walk(torch, cluster, Ray, tb, shadow, tm_s > 0.0,
-                                                                     tm_s)
-    b4 = _check_walk(torch, ct, "any", tb, walk_s, os_, ds_, (tes,), "terrain 1M NEE shadow, per-lane lists")
+    os_, ds_, tes = _sorted_rays(torch, cluster, tb, shadow, tm_s > 0.0, tm_s)
     # K-sweep on the same rays as a frame hands them to it: the primaries' t bound, the bounce and shadow rays'
     # key and t bound with their dead lanes moved above the scene
     t_inf = torch.full((n_t,), 3.0e38, device=dev)
@@ -1596,45 +1507,10 @@ def main() -> int:
         "1024^2 primaries": (prim_t, t_inf, False),
         "1M cosine bounce rays": (cluster.rays_above_scene(tb, bounce, si_p.hit), t_inf, True),
         "1M NEE shadow rays": (cluster.rays_above_scene(tb, shadow, tm_s > 0.0), tm_s, True)}, smi, sweep_sass)
-    print(f"  culls (CUDA events): tile-frustum cull of the 1024^2 primaries {cull_p_ms:.3f} ms "
-          f"(overflow {int(overflow_p.sum().item())}); per-lane cull of the bounce rays {cull_b_ms:.3f} ms "
-          f"(overflow {int(overflow_b.sum().item())}), of the shadow rays {cull_s_ms:.3f} ms "
-          f"(overflow {int(overflow_s.sum().item())})", flush=True)
-
-    # the checked overflow fallback on the card: the port's trace entry
-    # points on the same rays, then a list cap that overflows
-    ct.reset_launch_counts()
-    key_lb, cid_lb, st_b = cluster.trace_closest_lists(tb, Ray(origin=ob, direction=db), teb, True)
-    occ_ls, st_s = cluster.trace_any_lists(tb, Ray(origin=os_, direction=ds_), tes, True)
-    default_max_visits = cluster.DEFAULT_MAX_VISITS
-    cluster.DEFAULT_MAX_VISITS = FORCED_MAX_VISITS
-    try:
-        key_f, cid_f, st_f = cluster.trace_closest_lists(tb, prim_t, t_eff, False)
-    finally:
-        cluster.DEFAULT_MAX_VISITS = default_max_visits
-    key_e, cid_e, st_e = cluster.trace_closest_lists(tb, prim_t, t_eff, False)
-    torch.cuda.synchronize()
-    fb_launches = dict(ct.LAUNCHES)
-    _require(int(st_f["retraced"]) > 0 and int(st_f["unresolved_tiles"]) > 0,
-             f"DEFAULT_MAX_VISITS={FORCED_MAX_VISITS} left no tile unresolved: {_stats_str(st_f)}")
-    same = ((key_f == key_e) & (cid_f == cid_e)).float().mean().item()
-    _require(same >= FALLBACK_EQUAL_MIN,
-             f"the checked fallback changed key and cid on {1 - same:.7f} of lanes "
-             f"(DEFAULT_MAX_VISITS={FORCED_MAX_VISITS})")
-    print(f"  the list path and its checked fallback on the card: bounce trace {_stats_str(st_b)}; shadow trace {_stats_str(st_s)}; "
-          f"primaries at DEFAULT_MAX_VISITS={FORCED_MAX_VISITS}: {_stats_str(st_f)}, key+cid equal to the default "
-          f"cap's ({_stats_str(st_e)}) on {same:.7f} of lanes; launches {fb_launches}", flush=True)
-
-    # the walk forms: the same rays with no lists, against their plain versions
-    # and against the list path's results above
+    # the walks on the incoherent rays as a frame sorts them, against their plain versions on every ray
     b3w = _check_ray_walk(torch, ct, "closest", tb, ob, db, cluster.cold_start_keys(teb),
-                          "terrain 1M cosine bounce, corridor-sorted", (key_lb, cid_lb))
-    b4w = _check_ray_walk(torch, ct, "any", tb, os_, ds_, (tes,), "terrain 1M NEE shadow, corridor-sorted", occ_ls)
-    # and on the coherent primaries, against the list path's result at the default cap
-    b3p = _check_ray_walk(torch, ct, "closest", tb, prim_t.origin, prim_t.direction, (key0, cid0),
-                          "terrain primary 1024^2", (key_e, cid_e))
-    print(f"  B3 on the 1024^2 primaries: walk form {b3p['ms']:.4f} ms against tile cull {cull_p_ms:.4f} ms (CUDA "
-          f"events around its eager PyTorch ops) + list form {b3['ms']:.4f} ms", flush=True)
+                          "terrain 1M cosine bounce, corridor-sorted")
+    b4w = _check_ray_walk(torch, ct, "any", tb, os_, ds_, (tes,), "terrain 1M NEE shadow, corridor-sorted")
     # the baked walk on the same primaries, from the Renderer's own table, then at a second camera origin
     cam0 = terrain.cameras[0]
     _require(rt.baked_tab is not None and bool(np.array_equal(rt.baked_tab.origin, np.float32(cam0.from_))),
@@ -1652,10 +1528,9 @@ def main() -> int:
     print(f"  bake_shared_origin_tab of the {tb.num_tris}-triangle table {tuple(tb.tri_tab.shape)}: {bake_ms:.4f} ms "
           f"(CUDA events), paid per camera move", flush=True)
     del prim_1
-    del bounce, shadow, ob, db, teb, walk_b, os_, ds_, tes, walk_s, si_p, cols_k, cols_p, tab26, u
-    del key_lb, cid_lb, occ_ls
+    del bounce, shadow, ob, db, teb, os_, ds_, tes, si_p, cols_k, cols_p, tab26, u
 
-    # the walk forms on a scene that needs two rounds of supercluster boxes per ray
+    # the walks on a scene that needs two rounds of supercluster boxes per ray
     with tempfile.TemporaryDirectory() as tmp:
         big = Renderer(parse_scene(write_terrain_scene(tmp, grid=ROUNDS_GRID, width=64, height=64)), width=64,
                        height=64, mode=RendererType.NORMALS, device=dev).bvh
@@ -1672,15 +1547,15 @@ def main() -> int:
     occ_k, occ_q = ct.trace_any_walk_cuda(*args2, t_any2), ct.trace_any_walk_plain(*args2, t_any2)
     torch.cuda.synchronize()
     cid_same = (cid_k == cid_q).float().mean().item()
-    _require(bool((key_k == key_q).all()) and cid_same >= FALLBACK_EQUAL_MIN and bool((occ_k == occ_q).all()),
-             f"walk forms on {big.sc_min.shape[0]} superclusters: key equal {(key_k == key_q).float().mean().item():.7f}, "
+    _require(bool((key_k == key_q).all()) and cid_same >= CID_EQUAL_MIN and bool((occ_k == occ_q).all()),
+             f"walks on {big.sc_min.shape[0]} superclusters: key equal {(key_k == key_q).float().mean().item():.7f}, "
              f"cid {cid_same:.7f}, occlusion {(occ_k == occ_q).float().mean().item():.7f}")
-    print(f"  walk forms on a {big.num_tris}-triangle terrain ({big.num_clusters} clusters, {big.sc_min.shape[0]} "
+    print(f"  walks on a {big.num_tris}-triangle terrain ({big.num_clusters} clusters, {big.sc_min.shape[0]} "
           f"superclusters: two rounds of level 1), {ROUNDS_RAYS} bounce-like rays: B3 key equal to the plain version's "
           f"on every lane, cid on {cid_same:.7f} ({int((cid_q >= 0).sum().item())} hits); B4 equal on every lane "
           f"({int(occ_q.sum().item())} occluded)", flush=True)
     del big, args2, rays2, o2, d2, key_k, cid_k, key_q, cid_q, occ_k, occ_q
-    del lists, counts, scales, key_f, cid_f, key_e, cid_e, lp, to_light, ldir, org_b, d_b
+    del key0, cid0, key_p, cid_p, lp, to_light, ldir, org_b, d_b
     phase_done("phase 3")
 
     # ---- 4. the slice against the committed goldens ------------------------
@@ -1882,9 +1757,6 @@ def main() -> int:
     phase_done("phase 7")
 
     # ---- 8. main path config 5: terrain NORMALS at 1024^2 -------------------
-    def stats_of(m):
-        return {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")}
-
     # warm-up: the key's eager frame, then (after set_camera, whose host-to-card copies of the camera are not a
     # frame's) the capture and a replay
     syncs = _no_implicit_syncs(torch, lambda: rt.render(1))
@@ -1900,8 +1772,6 @@ def main() -> int:
         rt.render(1)
         secs += rt.metrics["seconds"] - s0
     launches_c5 = launch_counts()
-    m1 = dict(rt.metrics)
-    st5 = {k: m1[k] - m0[k] for k in stats_of(m1)}
     want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES,
                     sc_sweep=TERRAIN_FRAMES)
     _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
@@ -1912,7 +1782,7 @@ def main() -> int:
     print(f"[8 main path] config 5: terrain NORMALS {TERRAIN_RES}^2 ({tb.num_tris} triangles), {TERRAIN_FRAMES} "
           f"single frames (replays) after 2 warm-up: {secs / TERRAIN_FRAMES * 1e3:.3f} ms/frame, "
           f"{TERRAIN_FRAMES * n_t / secs / 1e6:.3f} Mrays/s (primary rays), image mean {img.mean():.5f}, "
-          f"launches {launches_c5}, trace stats {st5}, host syncs in the warm-up frames: {len(syncs)}, "
+          f"launches {launches_c5}, host syncs in the warm-up frames: {len(syncs)}, "
           f"on {smi}", flush=True)
     phase_done("phase 8")
 
@@ -1933,8 +1803,6 @@ def main() -> int:
                     path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH,
                     sc_sweep=TIMED_FRAMES * (1 + 2 * MAIN_DEPTH))
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
-    st6 = {k: m1[k] - m0[k] for k in stats_of(m1)}
-    _require(not any(st6.values()), f"the gallery's lists overflowed: {st6}")
     img = rg.image()
     _require(img.shape == (GALLERY_RES, GALLERY_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"gallery PATH image: shape {img.shape}, mean {img.mean()}")
@@ -1943,7 +1811,7 @@ def main() -> int:
     print(f"[9 main path] config 6: gallery PATH depth {MAIN_DEPTH} {GALLERY_RES}^2 ({rg.bvh.num_tris} triangles, "
           f"{rg.bvh.num_clusters} clusters), {TIMED_FRAMES} frames after {WARMUP_FRAMES} warm-up: "
           f"{secs / TIMED_FRAMES * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
-          f"image mean {img.mean():.5f}, launches {launches_c6}, trace stats {st6}, implicit syncs in "
+          f"image mean {img.mean():.5f}, launches {launches_c6}, implicit syncs in "
           f"{WARMUP_FRAMES} warm-up frames: {len(syncs)}, on {smi}", flush=True)
     del rg
     phase_done("phase 9")
@@ -1952,7 +1820,7 @@ def main() -> int:
     rt.set_mode(RendererType.PATH)
     traces = 1 + 2 * MAIN_DEPTH  # primary, then NEE and bounce per bounce
     syncs = _no_implicit_syncs(torch, lambda: rt.render(WARMUP_FRAMES))  # warm-up, the frame graph's capture too
-    # the walk forms cut nothing and ask the host nothing
+    # the walks cut nothing and ask the host nothing
     _require(not syncs, f"the terrain PATH frame synchronizes with the card at {syncs}")
     m0 = dict(rt.metrics)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1961,13 +1829,11 @@ def main() -> int:
     launches_c5b = launch_counts()
     m1 = dict(rt.metrics)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    st5b = {k: m1[k] - m0[k] for k in stats_of(m1)}
     n_fr = TERRAIN_PATH_FRAMES
     want = expected(camera_rng=n_fr, cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
                     cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH),
                     path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH, sc_sweep=n_fr * traces)
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
-    _require(not any(st5b.values()), f"config 5b: trace statistics {st5b} from traces that list nothing")
     img = rt.image()
     _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
              f"terrain PATH image: shape {img.shape}, mean {img.mean()}")
@@ -1975,7 +1841,7 @@ def main() -> int:
     rays = m1["rays_traced"] - m0["rays_traced"]
     print(f"[10 main path] config 5b: terrain PATH depth {MAIN_DEPTH} {TERRAIN_RES}^2, {n_fr} frames after "
           f"{WARMUP_FRAMES} warm-up: {secs / n_fr * 1e3:.3f} ms/frame, {rays / secs / 1e6:.3f} Mrays/s honest ({rays} rays), "
-          f"image mean {img.mean():.5f}, peak {peak_gib:.3f} GiB, launches {launches_c5b}, trace stats {st5b}, "
+          f"image mean {img.mean():.5f}, peak {peak_gib:.3f} GiB, launches {launches_c5b}, "
           f"host syncs in the warm-up frames: {len(syncs)} ({traces} trace calls a frame), on {smi}", flush=True)
     phase_done("phase 10")
     del rt
@@ -2091,7 +1957,7 @@ def main() -> int:
         _require(launches_spp == launches_eager, f"spp split launches {launches_spp}, eager {launches_eager}")
         _require(out[0][0].accum_id == SPLIT_DEVICES and bool(torch.equal(out[0][0].accum, want_spp.accum)),
                  "the spp split differs from the sequential frames")
-        for (gb, aux, _st), g, a in zip(frames, out[0][1], out[0][2]):
+        for (gb, aux), g, a in zip(frames, out[0][1], out[0][2]):
             _require(all(bool(torch.equal(getattr(g, f.name), getattr(gb, f.name))) for f in dataclasses.fields(gb))
                      and bool(torch.equal(a["path_alive_counts"], aux["path_alive_counts"])),
                      "an spp share's g-buffers or per-bounce counts differ from its eager frame's")
@@ -2565,7 +2431,7 @@ def main() -> int:
                 for k in launches_path}
     _require(launches["cluster_closest_walk"] > 0 and launches["cluster_any_walk"] > 0
              and launches["cluster_closest_walk_baked"] > 0,
-             f"the walk form of B3 or B4 or the baked walk never ran on a main path: {launches}")
+             f"the walk of B3 or B4 or the baked walk never ran on a main path: {launches}")
     src = "optix_renderer_tpu_torch/csrc/brute_trace.cu"
     csrc = "optix_renderer_tpu_torch/csrc/cluster_trace.cu"
     pc = "optix_renderer_tpu/accel/pallas_cluster.py"
@@ -2590,24 +2456,18 @@ def main() -> int:
                  "shadow 1M": {"ms": cap_a, "plain_ms": cap_plain_a, "bound_ms": cap_bound_a[0],
                                "bound_by": cap_bound_a[1]}},
          "edge_cases": n_edges},
-        # B3 and B4: `launches` counts both forms (`form_launches` each); ms, plain_ms and bound_ms are the
-        # walk form's on the 1M incoherent rays (the form that every main path on the card launches), and
-        # `forms` holds each form's own numbers at each input
+        # B3 and B4, the walks: ms, plain_ms and bound_ms on the 1M incoherent rays; `inputs` holds each
+        # input's numbers
         {"name": "cluster_closest", "route": "cuda", "source": csrc, "replaces": f"{pc}:848",
-         "launches": launches["cluster_closest"] + launches["cluster_closest_walk"],
-         "max_abs_err": max(b3["max_abs_err"], b3b["max_abs_err"], b3w["max_abs_err"], b3p["max_abs_err"]),
+         "launches": launches["cluster_closest_walk"], "max_abs_err": max(b3w["max_abs_err"], b3p["max_abs_err"]),
          "ms": b3w["ms"], "plain_ms": b3w["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b3w["sample_ms"],
          "bound_ms": b3w["bound_ms"], "bound_by": b3w["bound_by"], "library_ms": None,
-         "form_launches": {"walk": launches["cluster_closest_walk"], "list": launches["cluster_closest"]},
-         "forms": {"walk, 1M bounce rays": b3w, "walk, 1024^2 primaries": b3p,
-                   "list, 1024^2 primaries, tile lists": b3, "list, 1M bounce rays, per-lane lists": b3b}},
+         "inputs": {"1M bounce rays": b3w, "1024^2 primaries": b3p}},
         {"name": "cluster_any", "route": "cuda", "source": csrc, "replaces": f"{pc}:1020",
-         "launches": launches["cluster_any"] + launches["cluster_any_walk"],
-         "max_abs_err": max(b4["max_abs_err"], b4w["max_abs_err"]), "ms": b4w["ms"],
+         "launches": launches["cluster_any_walk"], "max_abs_err": b4w["max_abs_err"], "ms": b4w["ms"],
          "plain_ms": b4w["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b4w["sample_ms"],
          "bound_ms": b4w["bound_ms"], "bound_by": b4w["bound_by"], "library_ms": None,
-         "form_launches": {"walk": launches["cluster_any_walk"], "list": launches["cluster_any"]},
-         "forms": {"walk, 1M NEE rays": b4w, "list, 1M NEE rays, per-lane lists": b4}},
+         "inputs": {"1M NEE rays": b4w}},
         # B3-baked: ms, unbaked_walk_ms and bound_ms on the 1024^2 terrain primaries from the Renderer's own
         # table (camera 0); plain_ms on the 64-tile sample; `origins` holds both cameras' numbers
         {"name": "cluster_closest_baked", "route": "cuda", "source": csrc, "replaces": f"{pc}:848 (baked, :984)",

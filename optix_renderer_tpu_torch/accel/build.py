@@ -9,7 +9,7 @@ trace kernels read (``pack_tri_table``; pad rows degenerate with prim =
 
 Scenes above ``BRUTE_MAX_TRIS`` take the cluster tier
 (``accel.cluster``): the Morton order is cut into fixed runs of
-``CLUSTER_SIZE`` triangles whose AABBs feed the cull, the table is padded
+``CLUSTER_SIZE`` triangles whose AABBs the walk tests, the table is padded
 to a multiple of 64 rows so that cluster ``c`` is rows ``[64c, 64c+64)``
 (4 KB, contiguous; the JAX package's (C*8, 128) grouped layout exists only
 because Mosaic cannot read at a lane offset), and the fused shading rows

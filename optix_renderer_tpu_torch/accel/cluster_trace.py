@@ -2,68 +2,51 @@
 attributes).
 
 Counterpart of the Pallas half of ``optix_renderer_tpu/accel/pallas_cluster.py``
-(``_closest_cluster_kernel``, ``_any_cluster_kernel``,
-``_winner_attr_kernel``).  Each kernel has three pieces here:
+(its closest-hit, any-hit and winner-attribute kernels, ``:848``, ``:1020``
+and ``:1657``).  Each kernel has three pieces here:
 
 * the wrapper (``*_cuda``), which checks its inputs, allocates the outputs
   and launches the hand-written CUDA kernel in ``csrc/cluster_trace.cu`` on
   the current stream, counting each launch in ``LAUNCHES``;
 * the plain PyTorch version (``*_plain``), which applies the kernel's
   per-lane rules in the same f32 order;
-* for the list form and B5, the router (``trace_closest_clusters``,
-  ``trace_any_clusters``, ``fetch_winner_attrs``): a CUDA tensor launches
-  the kernel, a CPU tensor runs the plain version, any other device raises.
+* the router (``trace_closest_walk``, ``trace_any_walk``,
+  ``fetch_winner_attrs``): a CUDA tensor launches the kernel, a CPU tensor
+  runs the plain version, any other device raises.
 
-B3 and B4 come in two forms.
-
-**List form** (``trace_*_clusters_*``; every trace of rays on the CPU, and
-on the card the list path that the walk form is held against).  For every ray of a 1024-ray tile, walk the tile's front-to-back
-cluster list ``lists[tile, :counts[tile]]`` (packed ``[nearq | cid]``
-entries; ``accel.cluster``).  Per lane, a list position k is visited
-unless the decoded near ``(entry >> cid_bits) * scale`` is at or past the
-lane's bound (B3: the upper decode of its running key; B4: its t_max),
-which ends the lane's walk; a visited cluster whose AABB the lane's ray
-misses within that bound is skipped; otherwise all 64 triangles of the
-cluster (flat table rows [64c, 64c+64)) are tested.  B3 keeps the running
-minimum of the packed key ``(f32 bits of t & ~63) | local id`` over the
-hits and takes the cluster id on a strict decrease; B4 ORs the hits with
-0 < t < t_max and ends a lane's walk at its first hit.  Kernel and plain
-version agree bit for bit.
-
-**Walk form** (``trace_*_walk_*``; every trace of rays on the card).  No
-lists: per ray, the kernel slab-tests the supercluster boxes
-(``BVH.sc_min/sc_max``, runs of ``SC_GROUP`` = 64 clusters), then the
-cluster boxes of the superclusters it passes, nearest first, and tests the
-64 triangles of every cluster whose box the ray passes within its running
-bound.  The function is: per lane, the minimum packed key (and its cluster
-id) over the triangles of all clusters whose box the ray passes within its
-bound, starting from ``key0``/``cid0`` (B3); the OR of 0 < t < t_max over
-them (B4).  The plain version computes it densely with the starting bound
+**Walk** (B3, B4; every trace of the cluster tier).  Per ray, the kernel
+slab-tests the supercluster boxes (``BVH.sc_min/sc_max``, runs of
+``SC_GROUP`` = 64 clusters), then the cluster boxes of the superclusters it
+passes, nearest first, and tests the 64 triangles (flat table rows [64c,
+64c+64)) of every cluster whose box the ray passes within its running
+bound.  The function is: per lane, the minimum packed key ``(f32 bits of t
+& ~63) | local id`` (and its cluster id, taken on a strict decrease) over
+the triangles of all clusters whose box the ray passes within its bound,
+starting from ``key0``/``cid0`` (B3); the OR of 0 < t < t_max over them
+(B4).  The plain version computes it densely with the starting bound
 (every supercluster box, then the clusters of those that pass), which
 prunes less and finds the same minimum; where two clusters hold the same
 packed key it keeps the lower cluster id and the kernel the one it
 visited first.
 
-**Baked walk** (``baked=True`` on the walk form of B3; every primary trace
-of the cluster tier on the card).  Rays that all share one origin are
-traced against the shared-origin table of that origin
+**Baked walk** (``baked=True`` on B3; every primary trace of the cluster
+tier on the card).  Rays that all share one origin are traced against the
+shared-origin table of that origin
 (``accel.cluster.bake_shared_origin_tab``) with the cheaper test of
-``_mt_block_baked``; the walk and the packed key are the walk form's.  It
-agrees with the unbaked walk up to float reassociation of the same
-products, so a winner tied within an ulp may differ; kernel and plain
-baked walk agree bit for bit.
+``_mt_block_baked``; the walk and the packed key are B3's.  It agrees with
+the unbaked walk up to float reassociation of the same products, so a
+winner tied within an ulp may differ; kernel and plain baked walk agree
+bit for bit.
 
 The kernels take an optional ``work`` tensor ((4,) int64 on the rays'
 device) to which they add: the (ray, box) slab tests and the ray/triangle
 tests the rules need (B4 stops inside a cluster at the first hit), and the
-lane slots (32 per warp step) the warps spent on each.  The first two are
-the operation count behind the list form's bound, the ratios the lane
-utilisation.  The plain list versions add the first two.
-``walk_bound_counts`` gives the walk form's operation count from the
-lanes' final bounds alone, whatever order an implementation visits in.
-While ``utils.launches.work_records`` is open, a walk launch given no
-``work`` counts into a fresh counter and appends it, with its boxes, rays
-and results, to that list.
+lane slots (32 per warp step) the warps spent on each; the ratios are the
+lane utilisation.  ``walk_bound_counts`` gives the operation count of any
+walk from the lanes' final bounds alone, whatever order an implementation
+visits in.  While ``utils.launches.work_records`` is open, a walk launch
+given no ``work`` counts into a fresh counter and appends it, with its
+boxes, rays and results, to that list.
 """
 
 from __future__ import annotations
@@ -76,7 +59,6 @@ from ..utils.launches import count_launch, open_work_records
 from .brute_trace import moller_trumbore
 from .build import CLUSTER_SIZE, SC_GROUP, SHADE_A_COLS, SHADE_B_COLS
 
-TILE = 1024  # rays per list: the culls' tile (accel.cluster), checked against the library's kTile
 MISS_KEY = 0x7FFFFFFF
 N_SHADE_ATTR = 26  # B5 output rows: the 20 shade_a columns, then the 6 uv columns of shade_b
 _LOCAL_MASK = CLUSTER_SIZE - 1
@@ -84,9 +66,8 @@ _LOCAL_MASK = CLUSTER_SIZE - 1
 # Launches of each kernel since the last reset_launch_counts(), counted by
 # utils.launches.count_launch (a CUDA graph's replays included); the plain
 # versions are not counted.
-LAUNCHES = {"cluster_closest": 0, "cluster_any": 0, "cluster_closest_walk": 0, "cluster_closest_walk_baked": 0,
-            "cluster_any_walk": 0, "winner_attrs": 0}
-# plain walk form: lanes per dense chunk, and (lane, cluster) pairs per block of 64 Moller-Trumbore tests
+LAUNCHES = {"cluster_closest_walk": 0, "cluster_closest_walk_baked": 0, "cluster_any_walk": 0, "winner_attrs": 0}
+# plain walk: lanes per dense chunk, and (lane, cluster) pairs per block of 64 Moller-Trumbore tests
 _WALK_LANES = 4096
 _WALK_PAIRS = 1 << 14
 
@@ -107,18 +88,14 @@ def kernel_library() -> ctypes.CDLL:
 
         lib = load_library("cluster_trace", SOURCES)
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_closest.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
-        lib.cluster_any.argtypes = [p, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
         lib.cluster_closest_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
         lib.cluster_closest_walk_baked.argtypes = lib.cluster_closest_walk.argtypes
         lib.cluster_any_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
         lib.winner_attrs.argtypes = [p, p, p, p, i32, p, p]
-        lib.cluster_tile.argtypes = lib.cluster_group.argtypes = []
-        for fn in (lib.cluster_closest, lib.cluster_any, lib.cluster_closest_walk, lib.cluster_closest_walk_baked,
-                   lib.cluster_any_walk, lib.winner_attrs, lib.cluster_tile, lib.cluster_group):
+        lib.cluster_group.argtypes = []
+        for fn in (lib.cluster_closest_walk, lib.cluster_closest_walk_baked, lib.cluster_any_walk, lib.winner_attrs,
+                   lib.cluster_group):
             fn.restype = ctypes.c_int
-        if lib.cluster_tile() != TILE:
-            raise RuntimeError(f"csrc/cluster_trace.cu walks tiles of {lib.cluster_tile()} rays, the culls {TILE}")
         if lib.cluster_group() != SC_GROUP:
             raise RuntimeError(f"csrc/cluster_trace.cu walks superclusters of {lib.cluster_group()} clusters, "
                                f"the build makes them of {SC_GROUP}")
@@ -172,81 +149,6 @@ def _mt_block_baked(rows, d):
     return (det.abs() >= 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0), t
 
 
-def _walk(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, lane_bound, visit, work):
-    """The list walk shared by the plain B3 and B4.  ``lane_bound(idx)``
-    gives the walking lanes' current bounds; ``visit(idx, c, rows, done)``
-    tests the lanes ``idx`` against the rows of their clusters ``c``,
-    updates the caller's state and returns the ray/triangle tests the
-    kernel runs for them; a lane leaves the walk when its bound is at or
-    below the decoded near, or when ``visit`` marks it ``done``."""
-    n = origin.shape[0]
-    dev = origin.device
-    lane_tile = torch.arange(n, device=dev) // TILE
-    cnt = counts[lane_tile]
-    scale = scales[lane_tile]
-    inv = inv_dir(direction)
-    cmask = (1 << cid_bits) - 1
-    tab = tab.reshape(-1, CLUSTER_SIZE, 16)
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    for k in range(lists.shape[1]):
-        idx = (~done & (k < cnt)).nonzero()[:, 0]
-        if idx.numel() == 0:
-            break
-        e = lists[lane_tile[idx], k]
-        bound = lane_bound(idx)
-        stop = (e >> cid_bits).to(torch.float32) * scale[idx] >= bound
-        done[idx[stop]] = True
-        keep = ~stop
-        idx, e, bound = idx[keep], e[keep], bound[keep]
-        c = (e & cmask).long()
-        lv = _lane_slab(cmin[c], cmax[c], origin[idx], inv[idx], bound)
-        if work is not None:
-            work[0] += idx.numel()
-        idx, c = idx[lv], c[lv]
-        tests = visit(idx, c, tab[c], done)
-        if work is not None:
-            work[1] += tests
-
-
-def trace_closest_clusters_plain(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction,
-                                 key0, cid0, work=None):
-    """B3's rules in PyTorch; returns (key, cid), each (N,) int32."""
-    key, cid = key0.clone(), cid0.clone()
-    local = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
-
-    def visit(idx, c, rows, done):
-        hit, t = _mt_block(rows, origin[idx], direction[idx])
-        kc = torch.where(hit, (t.view(torch.int32) & ~_LOCAL_MASK) | local, MISS_KEY)
-        kmin = kc.amin(dim=1)
-        better = kmin < key[idx]
-        key[idx] = torch.where(better, kmin, key[idx])
-        cid[idx] = torch.where(better, c.to(torch.int32), cid[idx])
-        return idx.numel() * CLUSTER_SIZE
-
-    _walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction,
-          lambda idx: (key[idx] | _LOCAL_MASK).view(torch.float32), visit, work)
-    return key, cid
-
-
-def trace_any_clusters_plain(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, t_max,
-                             work=None):
-    """B4's rules in PyTorch; returns occluded (N,) bool."""
-    occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
-
-    def visit(idx, c, rows, done):
-        hit, t = _mt_block(rows, origin[idx], direction[idx])
-        h = hit & (t < t_max[idx][:, None])
-        o = h.any(dim=1)
-        occ[idx] = o
-        done[idx[o]] = True  # the first hit decides the lane
-        # the kernel tests the rows up to and including the first hit
-        return torch.where(o, h.to(torch.int8).argmax(dim=1) + 1, CLUSTER_SIZE).sum()
-
-    _walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, lambda idx: t_max[idx], visit,
-          work)
-    return occ
-
-
 def _walk_candidates(cmin, cmax, sc_min, sc_max, o, inv, bound):
     """Dense two-level slab tests of a chunk of lanes within ``bound`` (L,):
     returns (lane (P,), cluster (P,)) of every (lane, cluster) pair whose
@@ -282,7 +184,7 @@ def _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, bound,
 
 
 def trace_closest_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, baked: bool = False):
-    """B3's walk form in PyTorch, dense; returns (key, cid), each (N,) int32.
+    """B3 in PyTorch, dense; returns (key, cid), each (N,) int32.
     ``baked``: the baked walk (``tab`` baked for the rays' shared origin)."""
     local = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=origin.device)
     # (key, cid) as one int64 so that one scatter-min keeps the lower cluster id of a tied key
@@ -297,7 +199,7 @@ def trace_closest_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction,
 
 
 def trace_any_walk_plain(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
-    """B4's walk form in PyTorch, dense; returns occluded (N,) bool."""
+    """B4 in PyTorch, dense; returns occluded (N,) bool."""
     occ = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
     for lane, _c, hit, t in _walk_pair_blocks(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
         occ[lane[(hit & (t < t_max[lane][:, None])).any(dim=1)]] = True
@@ -358,45 +260,27 @@ def _check(dev, **tensors) -> None:
         _require(a.is_contiguous(), f"{name} must be contiguous (got strides {a.stride()})")
 
 
-def _check_scene_and_rays(tab, cmin, cmax, origin, direction, work) -> int:
-    """What both forms of B3/B4 take: the flat table, the cluster boxes, the
-    rays and the optional counters.  Returns the number of rays."""
+def _check_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, work) -> int:
+    """What B3 and B4 take: the flat table, the cluster and supercluster
+    boxes, the rays and the optional counters.  Returns the number of rays."""
     n = origin.shape[0] if origin.dim() == 2 else -1
     C = cmin.shape[0]
+    S = -(-C // SC_GROUP)
     _require(origin.dim() == 2 and origin.shape[1] == 3, f"origin must be (N, 3), got {tuple(origin.shape)}")
     _require(tuple(direction.shape) == (n, 3), f"direction must be ({n}, 3), got {tuple(direction.shape)}")
     _require(tab.dim() == 2 and tuple(tab.shape) == (C * CLUSTER_SIZE, 16),
              f"tab must be the flat (C*64, 16) table for C = {C} clusters, got {tuple(tab.shape)}")
     _require(tuple(cmax.shape) == (C, 3) and tuple(cmin.shape) == (C, 3), "cluster boxes must be (C, 3)")
+    _require(tuple(sc_min.shape) == (S, 3) and tuple(sc_max.shape) == (S, 3),
+             f"supercluster boxes must be ({S}, 3): one per run of {SC_GROUP} clusters")
     _require(n < 2**31 and tab.numel() < 2**31, "more than 2^31 - 1 rays or table elements")
     _require(tab.data_ptr() % 16 == 0, "tab must be 16-byte aligned (the kernels copy its rows 16 bytes at a time)")
     _check(origin.device, tab=(tab, torch.float32), cmin=(cmin, torch.float32), cmax=(cmax, torch.float32),
-           origin=(origin, torch.float32), direction=(direction, torch.float32))
+           sc_min=(sc_min, torch.float32), sc_max=(sc_max, torch.float32), origin=(origin, torch.float32),
+           direction=(direction, torch.float32))
     if work is not None:
         _require(tuple(work.shape) == (4,), "work must be (4,)")
         _check(origin.device, work=(work, torch.int64))
-    return n
-
-
-def _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work) -> int:
-    n = _check_scene_and_rays(tab, cmin, cmax, origin, direction, work)
-    tiles = -(-n // TILE)
-    _require(lists.dim() == 2 and lists.shape[0] >= tiles,
-             f"lists must be (tiles >= {tiles}, maxv), got {tuple(lists.shape)}")
-    _require(tuple(counts.shape) == (lists.shape[0],) and tuple(scales.shape) == (lists.shape[0],),
-             "counts and scales must be (tiles,)")
-    _require(1 <= cid_bits <= 30 and (1 << cid_bits) >= cmin.shape[0],
-             f"cid_bits {cid_bits} cannot hold {cmin.shape[0]} cluster ids")
-    _check(origin.device, lists=(lists, torch.int32), counts=(counts, torch.int32), scales=(scales, torch.float32))
-    return n
-
-
-def _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work) -> int:
-    S = -(-cmin.shape[0] // SC_GROUP)
-    _require(tuple(sc_min.shape) == (S, 3) and tuple(sc_max.shape) == (S, 3),
-             f"supercluster boxes must be ({S}, 3): one per run of {SC_GROUP} clusters")
-    n = _check_scene_and_rays(tab, cmin, cmax, origin, direction, work)
-    _check(origin.device, sc_min=(sc_min, torch.float32), sc_max=(sc_max, torch.float32))
     return n
 
 
@@ -407,49 +291,6 @@ def _raise_on(err: int, name: str) -> None:
 
 def _ptr(a) -> int | None:
     return None if a is None else a.data_ptr()
-
-
-def trace_closest_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction,
-                                key0, cid0, work=None):
-    """Kernel B3 on the card; same outputs as trace_closest_clusters_plain."""
-    n = _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work)
-    _require(tuple(key0.shape) == (n,) and tuple(cid0.shape) == (n,), f"key0 and cid0 must be ({n},)")
-    _check(origin.device, key0=(key0, torch.int32), cid0=(cid0, torch.int32))
-    key = torch.empty(n, dtype=torch.int32, device=origin.device)
-    cid = torch.empty_like(key)
-    if n == 0:  # a grid of 0 blocks is an invalid launch
-        return key, cid
-    lib = kernel_library()
-    with torch.cuda.device(origin.device):
-        err = lib.cluster_closest(
-            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), lists.data_ptr(), lists.shape[1],
-            counts.data_ptr(), scales.data_ptr(), cid_bits, origin.data_ptr(), direction.data_ptr(),
-            key0.data_ptr(), cid0.data_ptr(), n, key.data_ptr(), cid.data_ptr(),
-            _ptr(work), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "cluster_closest")
-    count_launch(LAUNCHES, "cluster_closest", "closest_cluster_kernel")
-    return key, cid
-
-
-def trace_any_clusters_cuda(tab, cmin, cmax, lists, counts, scales, cid_bits: int, origin, direction, t_max,
-                            work=None):
-    """Kernel B4 on the card; same output as trace_any_clusters_plain."""
-    n = _check_walk(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, work)
-    _require(tuple(t_max.shape) == (n,), f"t_max must be ({n},), got {tuple(t_max.shape)}")
-    _check(origin.device, t_max=(t_max, torch.float32))
-    occ = torch.empty(n, dtype=torch.bool, device=origin.device)  # one byte per ray
-    if n == 0:
-        return occ
-    lib = kernel_library()
-    with torch.cuda.device(origin.device):
-        err = lib.cluster_any(
-            tab.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), lists.data_ptr(), lists.shape[1],
-            counts.data_ptr(), scales.data_ptr(), cid_bits, origin.data_ptr(), direction.data_ptr(),
-            t_max.data_ptr(), n, occ.data_ptr(), _ptr(work),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "cluster_any")
-    count_launch(LAUNCHES, "cluster_any", "any_cluster_kernel")
-    return occ
 
 
 def _launch_work(work, device):
@@ -472,10 +313,10 @@ def _record_work(records, name: str, work, boxes, *rays) -> None:
 
 def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, work=None,
                             baked: bool = False):
-    """Kernel B3's walk form on the card: (key, cid) as trace_closest_walk_plain
-    with the same ``baked``, which launches the baked walk kernel."""
+    """Kernel B3 on the card: (key, cid) as trace_closest_walk_plain with the
+    same ``baked``, which launches the baked walk kernel."""
     name = "cluster_closest_walk_baked" if baked else "cluster_closest_walk"
-    n = _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
+    n = _check_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
     _require(tuple(key0.shape) == (n,) and tuple(cid0.shape) == (n,), f"key0 and cid0 must be ({n},)")
     _check(origin.device, key0=(key0, torch.int32), cid0=(cid0, torch.int32))
     key = torch.empty(n, dtype=torch.int32, device=origin.device)
@@ -495,8 +336,8 @@ def trace_closest_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, 
 
 
 def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max, work=None):
-    """Kernel B4's walk form on the card: occluded as trace_any_walk_plain."""
-    n = _check_walk_form(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
+    """Kernel B4 on the card: occluded as trace_any_walk_plain."""
+    n = _check_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, work)
     _require(tuple(t_max.shape) == (n,), f"t_max must be ({n},), got {tuple(t_max.shape)}")
     _check(origin.device, t_max=(t_max, torch.float32))
     occ = torch.empty(n, dtype=torch.bool, device=origin.device)  # one byte per ray
@@ -549,14 +390,16 @@ def _route(t: torch.Tensor, cuda_fn, plain_fn):
     raise ValueError(f"no cluster-trace implementation for device {t.device}")
 
 
-def trace_closest_clusters(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, key0, cid0):
-    fn = _route(origin, trace_closest_clusters_cuda, trace_closest_clusters_plain)
-    return fn(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, key0, cid0)
+def trace_closest_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, baked: bool = False):
+    """B3: (key, cid), each (N,) int32; ``baked``: the baked walk."""
+    fn = _route(origin, trace_closest_walk_cuda, trace_closest_walk_plain)
+    return fn(tab, cmin, cmax, sc_min, sc_max, origin, direction, key0, cid0, baked=baked)
 
 
-def trace_any_clusters(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, t_max):
-    fn = _route(origin, trace_any_clusters_cuda, trace_any_clusters_plain)
-    return fn(tab, cmin, cmax, lists, counts, scales, cid_bits, origin, direction, t_max)
+def trace_any_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
+    """B4: occluded (N,) bool."""
+    return _route(origin, trace_any_walk_cuda, trace_any_walk_plain)(tab, cmin, cmax, sc_min, sc_max, origin,
+                                                                     direction, t_max)
 
 
 def fetch_winner_attrs(shade_a, shade_b, key, cid):

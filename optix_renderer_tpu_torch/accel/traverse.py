@@ -1,15 +1,12 @@
 """Trace dispatcher (counterpart of ``optix_renderer_tpu/accel/traverse.py``).
 
 Two tiers, by scene size: at most ``BRUTE_MAX_TRIS`` triangles, the
-brute-force kernels B1/B2 (``brute_trace``), which have no cull and so
-return the zero trace statistics; above it, the cluster tier
-(``cluster``: kernels B3/B4, as a list walk after a cull with a checked
-overflow fallback, or as the kernels' own two-level walk).  Inside a tier
+brute-force kernels B1/B2 (``brute_trace``); above it, the cluster tier
+(``cluster``: a supercluster sweep, then kernels B3/B4, each ray's own
+two-level walk, with no cull, no lists and no host sync).  Inside a tier
 the device of the rays decides, never what the machine has: a CUDA tensor
 goes to the hand-written kernels, a CPU tensor to their plain PyTorch
-versions, any other device raises.  On the cluster tier that also picks
-the form: rays on a CUDA device take the walk form (no cull, no lists, no
-host sync), rays on the CPU the list form.
+versions, which return the same hits, any other device raises.
 """
 
 from __future__ import annotations
@@ -24,7 +21,6 @@ from . import brute_trace, cluster
 from .build import BRUTE_MAX_TRIS, BVH
 
 _INF = 3.0e38
-zero_trace_stats = cluster.zero_trace_stats
 
 
 def _assert_zero_tmin(t_min) -> None:
@@ -65,7 +61,7 @@ def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, coherent:
     o, d, tm = _prepare(rays, t_min, t_max)
     if bvh.clustered:
         r = Ray(origin=o, direction=d)
-        key, cid, t_eff, _stats = trace_closest_winners(bvh, r, tm, coherent=coherent)
+        key, cid, t_eff, _ = trace_closest_winners(bvh, r, tm, coherent=coherent)
         return cluster.decode_hits(key, cid, bvh.tri_tab, r, t_eff)
     fn = _route(o, functools.partial(brute_trace.trace_closest_cuda, coherent=coherent),
                 brute_trace.trace_closest_plain)
@@ -76,19 +72,16 @@ def trace_closest(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, coherent:
 def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor | None = None,
                           coherent: bool = True, baked_tab: cluster.BakedTable | None = None):
     """The cluster tier's closest hit as packed winners: (key (N,) i32,
-    cid (N,) i32, t bound (N,) f32, trace stats); the winning SORTED
-    triangle is ``cid * 64 + (key & 63)``, cid < 0 a miss.
+    cid (N,) i32, t bound (N,) f32, {}); the winning SORTED triangle is
+    ``cid * 64 + (key & 63)``, cid < 0 a miss.  The empty dict is there
+    for ``portbench/edge_ties.py``, which unpacks four values.
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
     the others are rewritten to an up-ray above the scene, whose t bound
-    is 0.  ``coherent=True`` (primary rays) traces in the given order (on
-    a CUDA device the walk form of B3; on the CPU the tile-frustum cull
-    and the list form); ``coherent=False`` (bounce rays) sorts the rays by
-    their supercluster corridor, so that the 32 rays of a warp (and the
-    1024 of a tile) are neighbours, traces them (on a CUDA device the walk
-    form again, straight after the sweep; on the CPU the per-lane cull and
-    the list form) and unsorts the outputs.  The winners are the same
-    either way.
+    is 0.  ``coherent=True`` (primary rays) traces in the given order;
+    ``coherent=False`` (bounce rays) sorts the rays by their supercluster
+    corridor, so that the 32 rays of a warp are neighbours, traces them
+    and unsorts the outputs.  The winners are the same either way.
 
     ``baked_tab`` (``cluster.BakedTable``): the rays all start at its
     origin and take the baked walk.  The shared origin is refused where
@@ -103,40 +96,32 @@ def trace_closest_winners(bvh: BVH, rays: Ray, t_max=_INF, active: torch.Tensor 
     if active is not None:
         rays = cluster.rays_above_scene(bvh, rays, active)
     if coherent:
-        return cluster.trace_closest_clusters_packed(bvh, rays, t_max, baked_tab=baked_tab)
+        return *cluster.trace_closest_clusters_packed(bvh, rays, t_max, baked_tab=baked_tab), {}
     keys, t_eff = cluster.corridor_keys_and_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max,
                                                      sc_boxes=(bvh.sc_min, bvh.sc_max))
     with span("trace.sort"):
         perm = torch.argsort(keys)
     od_s = torch.cat([rays.origin, rays.direction, t_eff[:, None]], dim=1)[perm]  # one gather: rays and bounds
-    key_s, cid_s, _t, stats = cluster.trace_closest_clusters_packed(
-        bvh, Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6]), refine=True, t_eff=od_s[:, 6])
+    key_s, cid_s, _t = cluster.trace_closest_clusters_packed(bvh, Ray(origin=od_s[:, 0:3], direction=od_s[:, 3:6]),
+                                                             t_eff=od_s[:, 6])
     out = torch.empty((rays.origin.shape[0], 3), dtype=torch.int32, device=key_s.device)
     out[perm] = torch.stack([key_s, cid_s, od_s[:, 6].view(torch.int32)], dim=1)  # one scatter: the three outputs
-    return out[:, 0].contiguous(), out[:, 1].contiguous(), out[:, 2].contiguous().view(torch.float32), stats
+    return out[:, 0].contiguous(), out[:, 1].contiguous(), out[:, 2].contiguous().view(torch.float32), {}
 
 
-def trace_any(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF) -> torch.Tensor:
-    """Visibility query: True where some hit lies in (0, t_max)."""
-    occ, _stats = trace_any_with_stats(bvh, rays, t_min, t_max)
-    return occ
+def trace_any(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, coherent: bool = True) -> torch.Tensor:
+    """Visibility query: True where some hit lies in (0, t_max).  On the
+    cluster tier ``coherent=False`` corridor-sorts the rays first and
+    unsorts the bits after (``cluster.trace_any_clusters_sorted``), which
+    changes no bit."""
+    o, d, tm = _prepare(rays, t_min, t_max)
+    if bvh.clustered:
+        r = Ray(origin=o, direction=d)
+        return cluster.trace_any_clusters(bvh, r, tm) if coherent else cluster.trace_any_clusters_sorted(bvh, r, tm)
+    return _route(o, brute_trace.trace_any_cuda, brute_trace.trace_any_plain)(bvh.tri_tab, o, d, tm)
 
 
 def trace_any_with_stats(bvh: BVH, rays: Ray, t_min: float = 0.0, t_max=_INF, refine: bool = False,
                          coherent: bool = True):
-    """Visibility query returning (occluded (N,) bool, trace stats dict).
-
-    On the cluster tier rays on a CUDA device take the walk form of B4,
-    with no cull before it; on the CPU ``refine=True`` takes the per-lane
-    cull (scattered shadow origins) and the list form.  ``coherent=False``
-    corridor-sorts the rays first and unsorts the bits after
-    (``cluster.trace_any_clusters_sorted``).  Neither changes the result.
-    """
-    o, d, tm = _prepare(rays, t_min, t_max)
-    if bvh.clustered:
-        r = Ray(origin=o, direction=d)
-        if coherent:
-            return cluster.trace_any_clusters(bvh, r, tm, refine=refine)
-        return cluster.trace_any_clusters_sorted(bvh, r, tm, refine=refine)
-    fn = _route(o, brute_trace.trace_any_cuda, brute_trace.trace_any_plain)
-    return fn(bvh.tri_tab, o, d, tm), zero_trace_stats()
+    """``(trace_any(...), {})``, ``refine`` ignored: the signature ``portbench/edge_ties.py`` calls."""
+    return trace_any(bvh, rays, t_min, t_max, coherent=coherent), {}

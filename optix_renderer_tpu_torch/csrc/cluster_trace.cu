@@ -1,65 +1,49 @@
 // Cluster-tier ray/triangle kernels for scenes above 4096 triangles.
 //
-// B3 (closest hit) replaces optix_renderer_tpu/accel/pallas_cluster.py::
-// _closest_cluster_kernel, B4 (occlusion) replaces pallas_cluster.py::
-// _any_cluster_kernel and winner_attrs (B5) replaces pallas_cluster.py::
-// _winner_attr_kernel.  They compute what the TPU kernels compute, without their
-// DMA rings, visit groups, SMEM lists and (8, 128) planes.  B3 and B4 come in two
-// forms that share one intersection routine:
+// B3 (closest hit) replaces the closest-hit kernel of
+// optix_renderer_tpu/accel/pallas_cluster.py (:848), B4 (occlusion) its any-hit
+// kernel (:1020) and winner_attrs (B5) its winner-attribute kernel (:1657). They
+// compute what the TPU kernels compute, without their DMA rings, visit groups,
+// SMEM lists and (8, 128) planes.
 //
-// * List form (cluster_closest, cluster_any): the TPU kernels' own contract, kept
-//   as the card's check of the walk form against the list path, whose plain
-//   PyTorch version is what rays on the CPU take.  For each ray of a 1024-ray tile, start from key0/cid0 (B3) or t_max (B4) and walk the tile's
-//   front-to-back cluster list lists[tile, :counts[tile]] (packed [nearq | cid]
-//   entries made by the culls of accel/cluster.py).  A lane stops at the first
-//   entry whose decoded near ((entry >> cid_bits) * scale) is at or past its own
-//   bound: t_up = key | 63 read as a float (the upper decode of its running key)
-//   for B3, t_max for B4.  A cluster whose AABB the lane's ray misses within
-//   (0, bound) is skipped; else all 64 triangles are tested with no-cull
-//   Moller-Trumbore (|det| >= 1e-12, u, v >= 0, u + v <= 1, t > 0).  B3 keeps the
-//   minimum of the packed key (f32 bits of t & ~63) | local id and takes the
-//   cluster id on a strict decrease; B4 ORs the hits with t < t_max and a hit
-//   ends the lane.  The result is bit-equal to the plain PyTorch walk of the same
-//   lists (accel/cluster_trace.py).
-// * Walk form (cluster_closest_walk, cluster_any_walk): what every trace of rays on
-//   the card takes (accel/cluster.py).  It takes no lists: a warp serves its 32 rays one at a time.  For one ray the 32
-//   threads slab-test the supercluster boxes (64 Morton-contiguous clusters each,
-//   up to 8 boxes a thread a round), pick the overlapped superclusters front to
-//   back by a warp minimum over packed [near | slot] words, slab-test a picked
-//   supercluster's 64 cluster boxes two a thread, pick those front to back too
-//   and intersect each picked cluster.  Picking stops at the first box whose near
-//   is at or past the ray's running bound, so nothing is capped and nothing can
-//   overflow: the result is the minimum packed key over every cluster whose box
-//   the ray passes within its bound (B3), or the OR of 0 < t < t_max (B4, where a
-//   hit ends the ray), with no cull before the kernel and no fallback after it.
+// The walk (cluster_closest_walk, cluster_any_walk): what every trace of the
+// cluster tier takes on the card (accel/cluster.py).  The TPU kernels walk dense
+// per-tile cluster lists that a cull made before them, because a TPU core cannot
+// walk data-dependently per lane; a CUDA warp can, so these take no lists: a warp
+// serves its 32 rays one at a time.  For one ray the 32 threads slab-test the
+// supercluster boxes (64 Morton-contiguous clusters each, up to 8 boxes a thread a
+// round), pick the overlapped superclusters front to back by a warp minimum over
+// packed [near | slot] words, slab-test a picked supercluster's 64 cluster boxes
+// two a thread, pick those front to back too and intersect each picked cluster
+// with no-cull Moller-Trumbore (|det| >= 1e-12, u, v >= 0, u + v <= 1, t > 0).
+// Picking stops at the first box whose near is at or past the ray's running
+// bound, so nothing is capped and nothing can overflow: the result is the minimum
+// packed key (f32 bits of t & ~63) | local id, with the cluster id taken on a
+// strict decrease, over every cluster whose box the ray passes within its bound
+// (B3, starting from key0/cid0), or the OR of 0 < t < t_max (B4, where a hit ends
+// the ray), with no cull before the kernel and no fallback after it.  The key is
+// bit-equal to the plain PyTorch walk's (accel/cluster_trace.py).
 //
 // What bounds them on an H100: arithmetic, not bytes.  Per (ray, box) pair a 24-op
 // slab test, per (ray, cluster) pair 64 Moller-Trumbore tests of ~53 f32
 // operations (one IEEE division) against 36 bytes of table each.  With one thread
-// per ray and 64 serial tests, a warp pays 64 tests for every list entry that ANY
-// of its lanes passes: on the 1M-triangle terrain the lanes of that loop were
-// used to 0.43 (primaries, tile lists), 0.40 (shadow rays) and 0.12 (bounce
-// rays, per-lane lists).  So the intersection is warp-cooperative: for one (ray, cluster)
-// pair the ray's six values are broadcast by __shfl_sync from the owning lane,
+// per ray and 64 serial tests, a warp pays 64 tests for every cluster that ANY of
+// its lanes passes: on the 1M-triangle terrain the lanes of such a loop were used
+// to 0.43 (primaries), 0.40 (shadow rays) and 0.12 (bounce rays).  So the
+// intersection is warp-cooperative: the warp's one ray is in every lane (warp_ray),
 // every thread tests 2 of the 64 triangles, and the warp reduces
 // (__reduce_min_sync over the packed key; a ballot for B4).  The minimum does not
-// depend on the order of the tests, so the key equals the serial loop's.  The list
-// form serves the set bits of a slab-test ballot one pair at a time this way (a
-// branch that kept one thread per ray for entries that most lanes pass was no
-// faster at any threshold on the terrain's primaries, so there is none).  A
+// depend on the order of the tests, so the key equals the serial loop's.  A
 // cluster's rows reach the tests through shared memory: each warp stages the 48
-// used bytes of the 64 rows
-// (3 KB) with cp.async into one of two buffers, and the copy of the next
-// candidate cluster is started before the tests of this one (decided with the
-// bound as it stands, which can only shrink, so a needed cluster is never
-// missing).  The slab test of list entry k + 1 is computed during entry k and
-// only its t comparison is repeated with the fresh bound.  Warps never wait for
-// each other: no __syncthreads.
+// used bytes of the 64 rows (3 KB) with cp.async into one of two buffers, and the
+// copy of the next candidate cluster is started before the tests of this one
+// (decided with the bound as it stands, which can only shrink, so a needed cluster
+// is never missing).  Warps never wait for each other: no __syncthreads.
 //
 // Baked walk (cluster_closest_walk_baked): B3's walk form for rays that all
 // share one origin (primary rays), over the shared-origin table that
 // accel/cluster.py::bake_shared_origin_tab makes per camera position; replaces
-// the baked=True body of pallas_cluster.py::_closest_cluster_kernel (its test
+// the baked=True body of pallas_cluster.py's closest-hit kernel (:984; its test
 // _mt_chunk_baked).  Columns 0-9 of each row hold n2 = e2 x e1, uvec = e2 x T,
 // vvec = T x e1 and tconst = e2 . vvec (T = origin - v0), so a test is
 // det = d . n2, u = (d . uvec) / det, v = (d . vvec) / det, t = tconst / det:
@@ -85,9 +69,8 @@ namespace {
 constexpr int kThreads = 256;       // B5
 constexpr int kTraceThreads = 128;  // B3/B4: four independent warps
 constexpr int kWarps = kTraceThreads / 32;
-constexpr int kTile = 1024;     // rays per list (cluster_trace.TILE, checked through cluster_tile())
 constexpr int kCluster = 64;    // triangles per cluster
-constexpr int kGroup = 64;      // clusters per supercluster (accel.cluster._SC_GROUP, cluster_group())
+constexpr int kGroup = 64;      // clusters per supercluster (accel.build.SC_GROUP, cluster_group())
 constexpr int kTabCols = 16;    // flat table row: v0(3) e1(3) e2(3) prim(1) n(3) mesh area pad
 constexpr int kLocalMask = kCluster - 1;
 constexpr int32_t kMissKey = 0x7FFFFFFF;
@@ -95,7 +78,7 @@ constexpr int kShadeA = 20, kShadeB = 8, kUv = 6;
 constexpr int kStageCols = 12;  // staged floats per row: the 9 used and 3 more (three 16-byte pieces)
 constexpr int kStageFloats = kCluster * kStageCols;  // 3 KB per buffer
 constexpr int kStagePieces = kStageFloats / 4;       // 16-byte pieces per buffer
-constexpr int kScRound = 8;     // walk form: supercluster boxes per thread and round (256 a round)
+constexpr int kScRound = 8;     // the walk: supercluster boxes per thread and round (256 a round)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNone = 0xffffffffu;  // no candidate (above every packed [near | slot] word)
 
@@ -136,7 +119,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org, const flo
 
 // Lane `src`'s ray in every lane of the warp (the inverse recomputed from the
 // same direction, so it is the same value).
-__device__ __forceinline__ Ray warp_ray(const Ray& r, int src, bool with_inverse) {
+__device__ __forceinline__ Ray warp_ray(const Ray& r, int src) {
   Ray o;
   o.ox = __shfl_sync(kFull, r.ox, src);
   o.oy = __shfl_sync(kFull, r.oy, src);
@@ -144,8 +127,7 @@ __device__ __forceinline__ Ray warp_ray(const Ray& r, int src, bool with_inverse
   o.dx = __shfl_sync(kFull, r.dx, src);
   o.dy = __shfl_sync(kFull, r.dy, src);
   o.dz = __shfl_sync(kFull, r.dz, src);
-  o.ix = o.iy = o.iz = 0.0f;
-  if (with_inverse) set_inverse(o);
+  set_inverse(o);
   return o;
 }
 
@@ -301,148 +283,7 @@ __device__ __forceinline__ void add_work(unsigned long long* work, unsigned slab
   }
 }
 
-// ---- list form -----------------------------------------------------------------
-
-struct ListArgs {
-  const float* tab;
-  const float* cmin;
-  const float* cmax;
-  const int32_t* lists;
-  int maxv;
-  const int32_t* counts;
-  const float* scales;
-  int cid_bits;
-  const float* org;
-  const float* dir;
-  const int32_t* key0;  // B3
-  const int32_t* cid0;  // B3
-  const float* tmax;    // B4
-  int n;
-  int32_t* key_out;  // B3
-  int32_t* cid_out;  // B3
-  uint8_t* occ_out;  // B4
-  unsigned long long* work;
-};
-
-template <bool kAny, bool kCount>
-__device__ __forceinline__ void list_walk(const ListArgs& a) {
-  __shared__ __align__(16) float stage[kWarps][2][kStageFloats];
-  const int lane = threadIdx.x & 31;
-  float* const buf = &stage[threadIdx.x >> 5][0][0];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < a.n;
-  const int ii = live ? i : a.n - 1;
-  const int tile = (blockIdx.x * blockDim.x) / kTile;  // one tile for the whole block
-  const int cmask = (1 << a.cid_bits) - 1;
-  const Ray r = load_ray(a.org, a.dir, ii);
-  int32_t key = kAny ? 0 : a.key0[ii];
-  int32_t cid = kAny ? -1 : a.cid0[ii];
-  const float t_lim = kAny ? a.tmax[ii] : 0.0f;
-  bool occluded = false;
-  bool alive = live;  // still walking the list
-  const int cnt = a.counts[tile];
-  const float scale = a.scales[tile];
-  const int32_t* __restrict__ lst = a.lists + (size_t)tile * a.maxv;
-  unsigned slabs = 0, tests = 0, slab_steps = 0, test_steps = 0;
-
-  // entry k, looked at one step ahead: cluster id, decoded list near, box span
-  int c_cur = 0;
-  float nq_cur = 0.0f, bn_cur = 0.0f;
-  bool ok_cur = false;
-  if (cnt > 0) {
-    const int32_t e = __ldg(lst);
-    c_cur = e & cmask;
-    nq_cur = (float)(e >> a.cid_bits) * scale;
-    ok_cur = box_span(a.cmin + 3 * c_cur, a.cmax + 3 * c_cur, r, bn_cur);
-    const float b = kAny ? t_lim : __int_as_float(key | kLocalMask);
-    if (__any_sync(kFull, alive && nq_cur < b && ok_cur && bn_cur < b))
-      stage_cluster(buf, a.tab + (size_t)c_cur * kCluster * kTabCols, lane);
-  }
-  stage_commit();
-  for (int k = 0; k < cnt; ++k) {
-    // entry k + 1: its slab test, and the copy of its rows if some lane may need
-    // them (a lane's bound only shrinks, so this never misses a needed cluster)
-    int c_nxt = 0;
-    float nq_nxt = 0.0f, bn_nxt = 0.0f;
-    bool ok_nxt = false;
-    if (k + 1 < cnt) {
-      const int32_t e = __ldg(lst + k + 1);
-      c_nxt = e & cmask;
-      nq_nxt = (float)(e >> a.cid_bits) * scale;
-      ok_nxt = box_span(a.cmin + 3 * c_nxt, a.cmax + 3 * c_nxt, r, bn_nxt);
-      const float b = kAny ? t_lim : __int_as_float(key | kLocalMask);
-      if (__any_sync(kFull, alive && nq_nxt < b && ok_nxt && bn_nxt < b))
-        stage_cluster(buf + ((k + 1) & 1) * kStageFloats, a.tab + (size_t)c_nxt * kCluster * kTabCols, lane);
-    }
-    stage_commit();
-
-    const float bound = kAny ? t_lim : __int_as_float(key | kLocalMask);
-    if (alive && nq_cur >= bound) alive = false;  // front to back: no later cluster can improve
-    if (!__any_sync(kFull, alive)) break;
-    if (kCount) {
-      ++slab_steps;
-      if (alive) ++slabs;
-    }
-    const bool pass = alive && ok_cur && bn_cur < bound;
-    const unsigned ballot = __ballot_sync(kFull, pass);
-    if (ballot != 0) {
-      stage_wait<1>();  // entry k's rows have landed; entry k + 1's may be in flight
-      const float* rows = buf + (k & 1) * kStageFloats;
-      // the whole warp serves the lanes that pass one (ray, cluster) pair at a time
-      const Tri q0 = staged<Tri>(rows + lane * kStageCols);
-      const Tri q1 = staged<Tri>(rows + (lane + 32) * kStageCols);
-      for (unsigned m = ballot; m != 0; m &= m - 1) {
-        const int src = __ffs(m) - 1;
-        const Ray rs = warp_ray(r, src, false);
-        if (kAny) {
-          int first;
-          const bool hit = warp_any(q0, q1, rs, __shfl_sync(kFull, t_lim, src), first);
-          if (lane == src) {
-            if (hit) {
-              occluded = true;
-              alive = false;
-            }
-            if (kCount) tests += hit ? first + 1 : kCluster;
-          }
-        } else {
-          const int32_t kmin = warp_closest(q0, q1, rs, lane);
-          if (lane == src) {
-            if (kmin < key) {
-              key = kmin;
-              cid = c_cur;
-            }
-            if (kCount) tests += kCluster;
-          }
-        }
-        if (kCount) test_steps += 2;
-      }
-      __syncwarp();  // every lane is done with this buffer before the copy after next lands in it
-    }
-    c_cur = c_nxt, nq_cur = nq_nxt, bn_cur = bn_nxt, ok_cur = ok_nxt;
-  }
-  stage_wait<0>();
-  if (live) {
-    if (kAny) {
-      a.occ_out[i] = occluded ? 1 : 0;
-    } else {
-      a.key_out[i] = key;
-      a.cid_out[i] = cid;
-    }
-  }
-  if (kCount) add_work(a.work, slabs, tests, slab_steps, test_steps);
-}
-
-template <bool kCount>
-__global__ void __launch_bounds__(kTraceThreads) closest_cluster_kernel(const ListArgs a) {
-  list_walk<false, kCount>(a);
-}
-
-template <bool kCount>
-__global__ void __launch_bounds__(kTraceThreads) any_cluster_kernel(const ListArgs a) {
-  list_walk<true, kCount>(a);
-}
-
-// ---- walk form -----------------------------------------------------------------
+// ---- the walk --------------------------------------------------------------------
 
 struct WalkArgs {
   const float* tab;
@@ -505,7 +346,7 @@ __device__ __forceinline__ void ray_walk(const WalkArgs& a) {
 
   for (int s = 0; s < n_rays; ++s) {
     // ray s of the warp, its running key and bound, the same in every lane
-    const Ray r = warp_ray(mine, s, true);
+    const Ray r = warp_ray(mine, s);
     int32_t key = __shfl_sync(kFull, my_key, s);
     int32_t cid = __shfl_sync(kFull, my_cid, s);
     const float t_lim = __shfl_sync(kFull, my_tlim, s);
@@ -666,38 +507,8 @@ int launch_closest_walk(const WalkArgs& a, void* stream) {
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer;
 // `work` may be null, else it points at four counters to add to (see add_work);
 // `stream` is a cudaStream_t.  Returns cudaGetLastError() after the launch.
-// `lists` has a row of `maxv` entries for each tile of 1024 rays.
-extern "C" int cluster_closest(const float* tab, const float* cmin, const float* cmax, const int32_t* lists,
-                               int maxv, const int32_t* counts, const float* scales, int cid_bits, const float* org,
-                               const float* dir, const int32_t* key0, const int32_t* cid0,
-                               int n, int32_t* key_out, int32_t* cid_out, unsigned long long* work,
-                               void* stream) {
-  const ListArgs a{tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, key0, cid0, nullptr,
-                   n, key_out, cid_out, nullptr, work};
-  const int blocks = blocks_for(n, kTraceThreads);
-  if (work != nullptr)
-    closest_cluster_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  else
-    closest_cluster_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cluster_any(const float* tab, const float* cmin, const float* cmax, const int32_t* lists,
-                           int maxv, const int32_t* counts, const float* scales, int cid_bits, const float* org,
-                           const float* dir, const float* tmax, int n, uint8_t* occ_out,
-                           unsigned long long* work, void* stream) {
-  const ListArgs a{tab, cmin, cmax, lists, maxv, counts, scales, cid_bits, org, dir, nullptr, nullptr, tmax,
-                   n, nullptr, nullptr, occ_out, work};
-  const int blocks = blocks_for(n, kTraceThreads);
-  if (work != nullptr)
-    any_cluster_kernel<true><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  else
-    any_cluster_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Walk form: no lists.  `cmin`/`cmax` are the (n_clusters, 3) cluster boxes and
-// `scmin`/`scmax` the (n_super, 3) boxes of each run of 64 clusters.
+// `cmin`/`cmax` are the (n_clusters, 3) cluster boxes and `scmin`/`scmax` the
+// (n_super, 3) boxes of each run of 64 clusters.
 extern "C" int cluster_closest_walk(const float* tab, const float* cmin, const float* cmax, int n_clusters,
                                     const float* scmin, const float* scmax, int n_super, const float* org,
                                     const float* dir, const int32_t* key0, const int32_t* cid0, int n,
@@ -731,8 +542,6 @@ extern "C" int cluster_any_walk(const float* tab, const float* cmin, const float
     any_walk_kernel<false><<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
-
-extern "C" int cluster_tile() { return kTile; }
 
 extern "C" int cluster_group() { return kGroup; }
 

@@ -264,9 +264,6 @@ def main(argv=None) -> int:
     m = r.metrics
     log_ok(log, "rendered %d frame(s) in %.2fs (%.1f Mrays/s honest, %.2f spp/s)"
            % (m["frames"], dt, m["mrays_per_sec"], m["frames"] / max(dt, 1e-9)))
-    if r.bvh.clustered:
-        log.info("cluster tier: cull overflow %d, retraced traces %d, unresolved tiles %d",
-                 m["cull_overflow"], m["cull_retraces"], m["cull_unresolved_tiles"])
 
     save_png(os.path.join(args.out, f"{name}.png"), img)
     if args.save_npy:
@@ -305,9 +302,6 @@ def main(argv=None) -> int:
             "rays_traced": m["rays_traced"],
             "mrays_per_sec": round(m["mrays_per_sec"], 2),
             "alive_per_bounce": m["alive_per_bounce"],
-            "cull_overflow": m["cull_overflow"],
-            "cull_retraces": m["cull_retraces"],
-            "cull_unresolved_tiles": m["cull_unresolved_tiles"],
         },
     }
     with open(os.path.join(args.out, "render.json"), "w") as f:

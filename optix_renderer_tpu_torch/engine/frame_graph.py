@@ -8,11 +8,11 @@ frame is ``frames_step``: one frame done in place on static buffers
 (``FrameBuffers``).  It reads the carried frame id, the camera and the
 baked primary table from the buffers, adds the frame's color to the
 accumulator, its per-mode buffers (RATIO: ``ltc``, ``sto_direct``,
-``sto_no_vis``; PATH: the (depth, 3) ``path_alive_counts``) and its trace
-statistics to sums, advances the frame id and returns the frame's own
-(g-buffers, aux, trace stats).  The RNG streams are keyed by the carried
-frame id and ``accum.add_(color)`` is the same f32 add as ``state.accum +
-color``, so n steps are bit-identical to n ``_frame_impl`` frames.
+``sto_no_vis``; PATH: the (depth, 3) ``path_alive_counts``) to sums,
+advances the frame id and returns the frame's own (g-buffers, aux).  The
+RNG streams are keyed by the carried frame id and ``accum.add_(color)`` is
+the same f32 add as ``state.accum + color``, so n steps are bit-identical
+to n ``_frame_impl`` frames.
 
 ``FrameSlot`` runs every frame of one key on one set of buffers: on a card
 the first eagerly, then replays of one captured CUDA graph
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..accel.build import BVH
-from ..accel.cluster import BakedTable, zero_trace_stats
+from ..accel.cluster import BakedTable
 from ..core.types import Camera, GBuffers, RenderState
 from ..scene.device import DeviceScene
 from ..shading import ltc_kernel
@@ -62,16 +62,14 @@ class FrameBuffers:
     tile of ``rows`` image rows from ``row_offset``: the accumulator (rows,
     W, 3), the frame id (0-d int64), the camera's four vectors, the table
     baked for the primaries' shared origin (a copy; None where the
-    primaries take none), the sums of the per-mode buffers (RATIO (rows, W,
-    c) f32, PATH (depth, 3) int64) and of the trace statistics (0-d int64
-    each)."""
+    primaries take none) and the sums of the per-mode buffers (RATIO (rows,
+    W, c) f32, PATH (depth, 3) int64)."""
 
     accum: torch.Tensor
     frame_id: torch.Tensor
     camera: Camera
     baked: BakedTable | None
     sums: dict
-    stats: dict
     row_offset: int
     rows: int
 
@@ -95,8 +93,8 @@ class FrameBuffers:
             baked = BakedTable(tab=zeros(tuple(baked_tab.tab.shape), baked_tab.tab.dtype),
                                origin=np.full(3, np.nan, np.float32))
         return cls(accum=zeros((rows, width, 3)), frame_id=zeros((), torch.int64),
-                   camera=Camera(*(zeros(3) for _ in range(4))), baked=baked, sums=sums,
-                   stats={k: zeros((), torch.int64) for k in zero_trace_stats()}, row_offset=row_offset, rows=rows)
+                   camera=Camera(*(zeros(3) for _ in range(4))), baked=baked, sums=sums, row_offset=row_offset,
+                   rows=rows)
 
     def load(self, state: RenderState, baked_tab: BakedTable | None = None) -> None:
         """Start from ``state`` (its accumulator of this tile's rows) and
@@ -115,27 +113,25 @@ class FrameBuffers:
         if baked_tab is not None and not np.array_equal(self.baked.origin, baked_tab.origin):
             self.baked.tab.copy_(baked_tab.tab)  # the same address: a captured graph reads the new table
             self.baked = dataclasses.replace(self.baked, origin=np.array(baked_tab.origin, np.float32))
-        for t in (*self.sums.values(), *self.stats.values()):
+        for t in self.sums.values():
             t.zero_()
 
 
 def frames_step(buf: FrameBuffers, ds: DeviceScene, bvh: BVH, *, mode: RendererType, width: int, height: int,
                 path_depth: int, ratio_samples: int):
     """One frame (JAX renderer.py:226-240), in place on ``buf``; returns
-    the frame's own (g-buffers (rows, W, ...), aux, trace stats)."""
+    the frame's own (g-buffers (rows, W, ...), aux)."""
     from .renderer import render_tile  # renderer imports this module
 
-    color, gb, aux, stats = render_tile(buf.camera, buf.frame_id, ds, bvh, mode=mode, width=width, height=height,
-                                        path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=buf.baked,
-                                        row_offset=buf.row_offset, rows=buf.rows)
+    color, gb, aux = render_tile(buf.camera, buf.frame_id, ds, bvh, mode=mode, width=width, height=height,
+                                 path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=buf.baked,
+                                 row_offset=buf.row_offset, rows=buf.rows)
     with span("frame.accumulate"):
         buf.accum.add_(color.reshape(buf.rows, width, 3))
         for name, total in buf.sums.items():
             total.add_(aux[name])
-        for name, total in buf.stats.items():
-            total.add_(stats[name])
         buf.frame_id.add_(1)
-    return gb, aux, stats
+    return gb, aux
 
 
 class FrameGraph:
@@ -177,7 +173,7 @@ class FrameGraph:
 
     def replay(self):
         """One more frame, the captured kernels on the current stream;
-        returns the static outputs (g-buffers, aux, trace stats)."""
+        returns the static outputs (g-buffers, aux)."""
         with span("frame_graph.replay"):
             self.graph.replay()
         launches.add(self.recorded)
@@ -217,13 +213,12 @@ class FrameSlot:
         return out
 
     def frames(self, state: RenderState, baked_tab: BakedTable | None, n: int):
-        """``n`` >= 1 frames from ``state``: ``(state', gbuffers, aux, trace
-        stats, path_alive_counts summed over the frames or None)``, clones
-        that the next user of the buffers does not touch.  ``aux``: RATIO's
-        buffers as the mean over the n frames (JAX renderer.py:473-480),
-        PATH's last frame's ``path_alive_counts``; ``stats``: the sum over
-        the frames.  On a card the work is only enqueued, on the current
-        stream."""
+        """``n`` >= 1 frames from ``state``: ``(state', gbuffers, aux,
+        path_alive_counts summed over the frames or None)``, clones that the
+        next user of the buffers does not touch.  ``aux``: RATIO's buffers
+        as the mean over the n frames (JAX renderer.py:473-480), PATH's last
+        frame's ``path_alive_counts``.  On a card the work is only enqueued,
+        on the current stream."""
         if n < 1:
             raise ValueError(f"frames needs n >= 1, got {n}")
         buf = self.buf
@@ -236,7 +231,7 @@ class FrameSlot:
                 with span("frame_graph.load"):
                     buf.load(state, baked_tab)
                 for _ in range(n):
-                    gb, aux, _stats = self._step()
+                    gb, aux = self._step()
                 with span("frame_graph.clone"):
                     new = RenderState(accum=buf.accum.clone(), accum_id=state.accum_id + n, camera=state.camera)
                     gbuffers = GBuffers(**{f.name: getattr(gb, f.name).clone() for f in dataclasses.fields(gb)})
@@ -245,12 +240,11 @@ class FrameSlot:
                         aux, alive = {"path_alive_counts": aux["path_alive_counts"].clone()}, alive.clone()
                     else:  # the mean, so denoise and combine see n_samples * n shadow samples a pixel
                         aux = {k: v / n for k, v in buf.sums.items()}  # (deviceCode.cu:117-144)
-                    stats = {k: v.clone() for k, v in buf.stats.items()}
             finally:
                 if cuda:
                     self._done = torch.cuda.Event()
                     self._done.record(stream)
-        return new, gbuffers, aux, stats, alive
+        return new, gbuffers, aux, alive
 
 
 class FrameSlots:

@@ -16,15 +16,13 @@ one eager frame, and eager ``frames_step`` calls on the CPU.
 ``_frame_impl`` stays as the pure reference that the tests and
 ``chip_smoke.py`` hold them against; no frame on the card calls it.  The
 host syncs of :meth:`Renderer.render` are the one
-``torch.cuda.synchronize()`` at its end, the one a capture makes, and,
-on the cluster tier, at most one per trace call whose cull can cut a list
-(the count of unresolved tiles, ``accel.cluster``; rays on the CPU only).
+``torch.cuda.synchronize()`` at its end and the one a capture makes.
 
 Primary rays go in square pixel blocks of up to 32 x 32 (JAX
-renderer.py:72-96): the cluster tier culls per 1024-ray tile, and a tile of
-row-major rays is a frustum one pixel tall across the image.  RNG streams
-are keyed by the absolute pixel id, so the image does not depend on the
-order.
+renderer.py:72-96): the 32 rays of a warp of the cluster tier's walk are
+then neighbours in both directions, where 32 row-major rays are a line
+one pixel tall.  RNG streams are keyed by the absolute pixel id, so the
+image does not depend on the order.
 
 On the cluster tier on a CUDA device the primaries all start at the camera
 position, so the Renderer keeps the table baked for it
@@ -54,7 +52,7 @@ import numpy as np
 import torch
 
 from ..accel.build import BRUTE_MAX_TRIS, BVH, build_bvh_cached, pack_attr_tab
-from ..accel.cluster import BakedTable, bake_shared_origin_tab, merge_trace_stats
+from ..accel.cluster import BakedTable, bake_shared_origin_tab
 from ..core.types import Camera, GBuffers, RenderState
 from ..scene.config import Scene, SceneCamera
 from ..scene.device import DeviceScene, build_device_scene
@@ -98,8 +96,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     ``chip_smoke.py`` and ``utils.profile_frames --plain`` hold the
     kernels' frames against.
 
-    Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict,
-    trace stats).
+    Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict).
     """
     from ..integrators.gbuffer import gbuffer_color
     from ..integrators.ltc_direct import ltc_baseline_color
@@ -120,7 +117,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     with span("frame.camera_rng"):
         rays, rstate = camera_rng(camera, accum_id, width, height, row_offset, rows, plain=plain)
     with span("frame.primary_trace"):
-        si, stats = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab, plain=plain)
+        si = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab, plain=plain)
 
     aux: dict = {}
     if mode in GBUFFER_MODES:
@@ -130,15 +127,12 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
         with span("frame.ltc"):
             color = ltc_baseline_color(ds, rays, si)
     elif mode == RendererType.PATH:  # its stages are path_color's
-        color, rstate, alive_counts, pstats = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth,
-                                                         plain=plain)
+        color, rstate, alive_counts = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth, plain=plain)
         aux["path_alive_counts"] = alive_counts
-        stats = merge_trace_stats(stats, pstats)
     else:  # RendererType.RATIO
         with span("frame.ratio"):
-            color, rstate, raux, rstats = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
+            color, rstate, raux = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
             aux = {k: unblock(v).reshape(rows, width, -1) for k, v in raux.items()}
-            stats = merge_trace_stats(stats, rstats)
 
     with span("frame.gbuffers"):  # the unblock copies to pixel order: the six g-buffers and the color
         gb = GBuffers(
@@ -150,21 +144,21 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
             material_id=unblock(si.material_id.to(torch.float32)).reshape(rows, width),
         )
         color = unblock(color)
-    return color, gb, aux, stats
+    return color, gb, aux
 
 
 def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
                 width: int, height: int, path_depth: int, ratio_samples: int,
                 baked_tab: BakedTable | None = None, plain: bool = False):
-    """One frame over the whole image: ``(state', gbuffers, aux, trace
-    stats)``.  The pure reference (JAX ``_frame_impl``): the Renderer's
-    frames run through ``frame_graph.FrameSlot`` and must equal it bit for
-    bit.  ``plain``: see ``render_tile``."""
-    color, gb, aux, stats = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
-                                        height=height, path_depth=path_depth, ratio_samples=ratio_samples,
-                                        baked_tab=baked_tab, plain=plain)
+    """One frame over the whole image: ``(state', gbuffers, aux)``.  The pure
+    reference (JAX ``_frame_impl``): the Renderer's frames run through
+    ``frame_graph.FrameSlot`` and must equal it bit for bit.  ``plain``: see
+    ``render_tile``."""
+    color, gb, aux = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width, height=height,
+                                 path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab,
+                                 plain=plain)
     accum = state.accum + color.reshape(height, width, 3)  # a new buffer: the input state stays as it was
-    return RenderState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux, stats
+    return RenderState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux
 
 
 def bvh_inputs(host: dict):
@@ -232,13 +226,10 @@ class Renderer:
         self.gbuffers: GBuffers | None = None
         self.aux: dict = {}
         # honest ray accounting: primary rays + the NEE and bounce rays the
-        # integrator traced.  Per-bounce counts and the cluster tier's cull
-        # statistics stay on the device until ``metrics`` is read, so the
-        # render loop never syncs for them.
-        self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": [],
-                               "cull_overflow": 0, "cull_retraces": 0, "cull_unresolved_tiles": 0}
+        # integrator traced.  Per-bounce counts stay on the device until
+        # ``metrics`` is read, so the render loop never syncs for them.
+        self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": []}
         self._pending_counts: list[tuple] = []  # (sum over frames, last frame's) per-bounce counts
-        self._pending_stats: list[dict] = []
         self.set_camera(scene.cameras[0])
 
     def _zero_accum(self) -> torch.Tensor:
@@ -333,34 +324,29 @@ class Renderer:
         capture), on the CPU n eager ``frames_step`` calls; a deterministic
         mode renders one frame per accumulation.  Publishes clones: the
         state, the last frame's g-buffers, ``aux`` (RATIO: the mean over
-        this call's frames; PATH: the last frame's per-bounce counts) and
-        the frames' trace statistics."""
+        this call's frames; PATH: the last frame's per-bounce counts)."""
         t0 = time.perf_counter()
         with span("renderer.render"):
             state, mode, baked_tab, slot = self._snapshot()
             n = frames_to_run(mode, state.accum_id, n_frames)
-            stats = alive = None
+            alive = None
             if n:
-                state, self.gbuffers, self.aux, stats, alive = slot.frames(state, baked_tab, n)
+                state, self.gbuffers, self.aux, alive = slot.frames(state, baked_tab, n)
                 with self._lock:
                     self.state = state
             if self.device.type == "cuda":
                 with span("render.sync"):
                     torch.cuda.synchronize(self.device)  # the frames are done, not just enqueued
-            self.record_frames(time.perf_counter() - t0, n, stats,
+            self.record_frames(time.perf_counter() - t0, n,
                                None if alive is None else (alive, self.aux["path_alive_counts"]))
 
-    def record_frames(self, seconds: float, count: int, stats: dict | None = None,
-                      alive_counts: tuple | None = None) -> None:
-        """Account ``count`` frames in ``metrics``: ``seconds`` of host time,
-        ``stats``, their trace statistics summed, and in PATH
-        ``alive_counts``, their per-bounce counts as (the sum over the
-        frames, the last frame's), both left on the device;
+    def record_frames(self, seconds: float, count: int, alive_counts: tuple | None = None) -> None:
+        """Account ``count`` frames in ``metrics``: ``seconds`` of host time
+        and, in PATH, ``alive_counts``, their per-bounce counts as (the sum
+        over the frames, the last frame's), both left on the device;
         ``alive_per_bounce`` reads the last frame's.  :meth:`render` and
         :meth:`commit_step` call it, and so does the multi-device split for
         frames it rendered itself."""
-        if stats is not None:
-            self._pending_stats.append(stats)
         if alive_counts is not None:
             self._pending_counts.append(alive_counts)
         self._metrics["seconds"] += seconds
@@ -373,23 +359,23 @@ class Renderer:
     # -- detached frames (the live viewer, JAX renderer.py:503-530) ---------
     def render_step_detached(self):
         """One frame from one snapshot of (state, mode, baked table), leaving
-        the renderer as it is: ``(state', gbuffers, aux, trace stats)``,
-        clones of the slot's outputs (a replay of the key's graph on a
-        card).  The caller adopts it with :meth:`commit_step` or drops it
-        (a dropped frame changes nothing).  The work is only enqueued on a
-        CUDA device, on the current stream."""
+        the renderer as it is: ``(state', gbuffers, aux)``, clones of the
+        slot's outputs (a replay of the key's graph on a card).  The caller
+        adopts it with :meth:`commit_step` or drops it (a dropped frame
+        changes nothing).  The work is only enqueued on a CUDA device, on
+        the current stream."""
         state, _mode, baked_tab, slot = self._snapshot()
-        return slot.frames(state, baked_tab, 1)[:4]
+        return slot.frames(state, baked_tab, 1)[:3]
 
-    def commit_step(self, state: RenderState, gbuffers: GBuffers, aux: dict, stats: dict, seconds: float) -> None:
+    def commit_step(self, state: RenderState, gbuffers: GBuffers, aux: dict, seconds: float) -> None:
         """Adopt a detached frame, with the accounting of one frame of
         :meth:`render` (primary and RATIO rays, the pending per-bounce
-        counts and trace statistics)."""
+        counts)."""
         with self._lock:
             self.state = state
         self.gbuffers, self.aux = gbuffers, aux
         alive = aux.get("path_alive_counts")
-        self.record_frames(seconds, 1, stats, None if alive is None else (alive, alive))
+        self.record_frames(seconds, 1, None if alive is None else (alive, alive))
 
     @property
     def metrics(self) -> dict:
@@ -403,11 +389,6 @@ class Renderer:
             self._pending_counts = []
             self._metrics["alive_per_bounce"] = [int(a) for a in counts[-1][:, 0]]
             self._metrics["rays_traced"] += int(counts[:-1, :, 1:].sum())
-        for stats in self._pending_stats:
-            self._metrics["cull_overflow"] += int(stats["overflow"])
-            self._metrics["cull_retraces"] += int(stats["retraced"])
-            self._metrics["cull_unresolved_tiles"] += int(stats["unresolved_tiles"])
-        self._pending_stats = []
         secs = self._metrics["seconds"]
         self._metrics["mrays_per_sec"] = self._metrics["rays_traced"] / secs / 1e6 if secs else 0.0
         return self._metrics

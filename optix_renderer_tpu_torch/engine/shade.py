@@ -23,7 +23,7 @@ import torch
 from ..accel import cluster_trace
 from ..accel.brute_trace import moller_trumbore
 from ..accel.build import BRUTE_MAX_TRIS
-from ..accel.traverse import _INF, trace_closest, trace_closest_winners, zero_trace_stats
+from ..accel.traverse import _INF, trace_closest, trace_closest_winners
 from ..core import math as cm
 from ..core.types import Hit, Ray, SurfaceInteraction
 from ..scene.device import ONEHOT_MAX_TRIS, PACK_SLICES, DeviceScene
@@ -162,17 +162,17 @@ def _brute_shade(dev: torch.device, plain: bool):
 def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | None = None,
                      coherent: bool = True, baked_tab=None, t_max: torch.Tensor | None = None,
                      plain: bool = False):
-    """Trace + shade in one step.  Returns (SurfaceInteraction, trace stats).
+    """Trace + shade in one step: the SurfaceInteraction of each ray.
 
     ``active`` (bool (N,), optional) marks the lanes the caller will use;
     the others return a miss.  On the brute tier they trace with t_max = 0,
     which the kernel skips (``t_max``: that per-lane bound,
     ``where(active, INF, 0)``, when the caller already has it); on the
     cluster tier ``accel.traverse.trace_closest_winners`` rewrites them to
-    an up-ray above the scene.  ``coherent`` picks that function's cull and
-    ray order and, on the brute tier, whether kernel B1's warps vote to
-    leave a test (primary rays True, bounce rays False); the closest hit is
-    the same either way.  The tier decides the shading: the brute tier's
+    an up-ray above the scene.  ``coherent`` picks that function's ray order
+    and, on the brute tier, whether kernel B1's warps vote to leave a test
+    (primary rays True, bounce rays False); the closest hit is the same
+    either way.  The tier decides the shading: the brute tier's
     Hit reads the packed rows (kernel K3 on a CUDA tensor; ``plain=True``
     takes its plain version there too), the cluster tier's winners their
     B5 columns.
@@ -188,9 +188,8 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
             t_max = _INF if active is None else torch.where(active, _INF, 0.0)
         hit = trace_closest(bvh, rays, t_max=t_max, coherent=coherent)
         with span("trace.shade"):
-            return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit), zero_trace_stats()
-    key, cid, _t_eff, stats = trace_closest_winners(bvh, rays, active=active, coherent=coherent,
-                                                    baked_tab=baked_tab)
+            return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit)
+    key, cid, _t_eff, _ = trace_closest_winners(bvh, rays, active=active, coherent=coherent, baked_tab=baked_tab)
     cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)
     with span("trace.shade"):
-        return build_surface_interaction_fused(ds, rays, cid, cols), stats
+        return build_surface_interaction_fused(ds, rays, cid, cols)

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..accel.cluster import merge_trace_stats
-from ..accel.traverse import trace_any_with_stats, zero_trace_stats
+from ..accel.traverse import trace_any
 from ..core import math as cm
 from ..core.types import Ray, SurfaceInteraction
 from ..engine.shade import trace_closest_si
@@ -41,9 +40,7 @@ def _bounce_fns(dev: torch.device, plain: bool):
 def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_state: torch.Tensor,
                max_depth: int = 10, plain: bool = False):
     """Radiance for each primary ray; returns (color (N, 3), rng_state,
-    alive_counts (max_depth, 3) int64 on the device, trace_stats): the
-    cluster tier's statistics of every NEE and bounce trace, merged (the
-    zero dict on the brute tier).
+    alive_counts (max_depth, 3) int64 on the device).
 
     A bounce is kernel K1 (``path_kernel.path_sample_*``: frame, light
     sample, NEE, BSDF sample), the shadow trace, the bounce trace with its
@@ -54,8 +51,7 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
     tensor runs the plain versions.
 
     On the cluster tier the shadow and bounce rays are incoherent: both
-    traces take the per-lane cull, corridor-sorted (JAX path.py with its
-    default NEE sort).
+    traces are corridor-sorted (JAX path.py with its default NEE sort).
 
     alive_counts columns per bounce: [0] lanes alive, [1] NEE shadow rays
     actually traced (lanes whose contribution is not provably zero), [2]
@@ -78,20 +74,16 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
                           diffuse=si.diffuse, alpha=si.alpha, tp=torch.ones((n, 3), dtype=torch.float32, device=dev),
                           alive=si.hit & ~si.is_light)
     rng = rng_state
-    stats = zero_trace_stats()
 
     for d in range(max_depth):
         with span("frame.bounce.sample"):
             b = path_sample(ds, state, rng)
         rng = b.rng
         with span("frame.bounce.shadow"):
-            occluded, any_stats = trace_any_with_stats(
-                bvh, Ray(origin=b.origin, direction=b.shadow_dir), t_max=b.shadow_t, refine=True, coherent=False)
+            occluded = trace_any(bvh, Ray(origin=b.origin, direction=b.shadow_dir), t_max=b.shadow_t, coherent=False)
         with span("frame.bounce.trace"):
-            bounce_si, closest_stats = trace_closest_si(
-                ds, bvh, Ray(origin=b.origin, direction=b.bounce_dir), active=b.sample_ok, coherent=False,
-                t_max=b.bounce_t, plain=plain)
-        stats = merge_trace_stats(stats, merge_trace_stats(any_stats, closest_stats))
+            bounce_si = trace_closest_si(ds, bvh, Ray(origin=b.origin, direction=b.bounce_dir), active=b.sample_ok,
+                                         coherent=False, t_max=b.bounce_t, plain=plain)
         with span("frame.bounce.count"):
             alive_counts[d] = torch.stack([state.alive.sum(), b.shadow_needed.sum(), b.sample_ok.sum()])
         with span("frame.bounce.combine"):
@@ -103,4 +95,4 @@ def path_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_stat
         estimate = torch.clamp(color, min=EPS)
         out = torch.where(si.is_light[:, None], si.emit, estimate)
         out = torch.where(si.hit[:, None], out, ds.miss_color[None, :])
-    return out, rng, alive_counts, stats
+    return out, rng, alive_counts

@@ -27,15 +27,14 @@ Deviations from the reference's quirks, kept from the JAX package:
 
 Every lane traces its ``n_samples`` visibility rays, in one batched
 (n_samples * N,) any-hit trace: one launch of kernel B2 per frame, or on
-the cluster tier one per-lane cull and one launch of B4 (more where its
-checked fallback re-traces).
+the cluster tier one sweep and one launch of B4.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..accel.traverse import trace_any_with_stats
+from ..accel.traverse import trace_any
 from ..core import math as cm
 from ..core import rng as rnglib
 from ..core.types import Ray, SurfaceInteraction
@@ -79,7 +78,7 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
     """RATIO-mode frame (deviceCode.cu:117-144).
 
     Returns (accumulated color = the LTC buffer (N, 3), rng, aux buffers
-    {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}, trace stats).
+    {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}).
     """
     ltc_color = ltc_direct(ds, rays, si)
     to_local, wo_local = ltc.shading_frame(rays.origin, si.p, si.n_geom)  # the stochastic samples' frame
@@ -96,7 +95,7 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
 
     # one batched (n_samples * N,) visibility trace
     all_rays = Ray(origin=shadow_origin.repeat(n_samples, 1), direction=torch.cat(dirs, dim=0))
-    occ, stats = trace_any_with_stats(bvh, all_rays, t_max=torch.cat(dists, dim=0) * (1.0 - 1e-3), refine=True)
+    occ = trace_any(bvh, all_rays, t_max=torch.cat(dists, dim=0) * (1.0 - 1e-3))
     occ = occ.reshape(n_samples, n)
 
     no_vis = sum(contribs) / n_samples
@@ -116,4 +115,4 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
     sto_n = torch.where(hit, torch.where(is_l, emit_gray, g_no_vis), 0.0)
 
     aux = {"ltc": ltc_buf, "sto_direct": sto_d, "sto_no_vis": sto_n}
-    return ltc_buf, rng, aux, stats
+    return ltc_buf, rng, aux

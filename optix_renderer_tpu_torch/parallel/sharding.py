@@ -42,7 +42,6 @@ import time
 
 import torch
 
-from ..accel.cluster import merge_trace_stats
 from ..core.types import Camera, RenderState
 from ..engine.frame_graph import FrameSlots
 from ..engine.modes import RendererType
@@ -130,47 +129,38 @@ def merge_aux(auxs: list, device) -> dict:
                 else gather_rows([a[k] for a in auxs], device)) for k in auxs[0]}
 
 
-def _merge_stats(stats: list, device) -> dict:
-    out = {k: 0 for k in stats[0]}
-    for s in stats:
-        out = merge_trace_stats(out, {k: _to(v, device) for k, v in s.items()})
-    return out
-
-
 def _row_frames(shares: FrameSlots, state: ShardedState, ds: list, bvh: list, baked_tab: list, n: int):
     """``n`` frames of every row tile, each tile's back to back:
-    ``(state', gbuffers, aux, stats, alive)`` as ``FrameSlot.frames`` gives
-    them, per tile, with the stats summed on the first device."""
+    ``(state', gbuffers, aux, alive)`` as ``FrameSlot.frames`` gives them,
+    per tile."""
     outs = [shares.slot(i, ds[i], bvh[i], baked_tab[i]).frames(
                 RenderState(accum=state.accum[i], accum_id=state.accum_id, camera=state.camera[i]), baked_tab[i], n)
             for i in range(len(shares.devices))]
     new = ShardedState(accum=[o[0].accum for o in outs], accum_id=state.accum_id + n, camera=state.camera)
-    return (new, [o[1] for o in outs], [o[2] for o in outs], _merge_stats([o[3] for o in outs], shares.devices[0]),
-            [o[4] for o in outs])
+    return new, [o[1] for o in outs], [o[2] for o in outs], [o[3] for o in outs]
 
 
 def make_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
                           ratio_samples: int = 4):
-    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
-    one frame, device i rendering row tile i through a ``FrameSlot`` of its
+    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux)``: one
+    frame, device i rendering row tile i through a ``FrameSlot`` of its
     own (on a card a replay of the tile's graph, after its first eager
     frame).  ``state`` is a ``ShardedState``; ``ds``, ``bvh`` and
     ``baked_tab`` are ``replicate`` lists; ``gbuffers`` and ``aux`` are
-    per-tile lists (``gather_rows``, ``merge_aux``); ``stats`` are the
-    trace statistics summed on ``devices[0]``."""
+    per-tile lists (``gather_rows``, ``merge_aux``)."""
     devices = check_devices(devices, height)
     shares = FrameSlots((), devices, height // len(devices), mode=mode, width=width, height=height,
                         path_depth=path_depth, ratio_samples=ratio_samples)
 
     def frame(state: ShardedState, ds: list, bvh: list, baked_tab: list):
-        return _row_frames(shares, state, ds, bvh, baked_tab, 1)[:4]
+        return _row_frames(shares, state, ds, bvh, baked_tab, 1)[:3]
 
     return frame
 
 
 def make_spp_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
                               ratio_samples: int = 4):
-    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux, stats)``:
+    """``frame(state, ds, bvh, baked_tab) -> (state', gbuffers, aux)``:
     ``len(devices)`` frames in one step, device i rendering the whole frame
     for ``state.accum_id + i`` through a ``FrameSlot`` of its own onto a
     zero accumulator.  ``state`` is a ``RenderState`` on ``devices[0]``; its
@@ -191,7 +181,7 @@ def make_spp_sharded_frame_fn(devices, mode: RendererType, width: int, height: i
         for o in outs:  # 0 + color: the frame's color
             accum = accum + o[0].accum.to(dev0)
         new = RenderState(accum=accum, accum_id=state.accum_id + len(devices), camera=state.camera)
-        return new, [o[1] for o in outs], [o[2] for o in outs], _merge_stats([o[3] for o in outs], dev0)
+        return new, [o[1] for o in outs], [o[2] for o in outs]
 
     return frame
 
@@ -218,11 +208,11 @@ def render_rows(r, devices, n_frames: int = 1) -> None:
     ds, bvh = shares.inputs
     t0 = time.perf_counter()
     n = frames_to_run(mode, state.accum_id, n_frames)
-    stats = alive = None
+    alive = None
     if n:
         # the table on r's device: each tile copies it in when its origin moves
-        state, gbs, auxs, stats, alives = _row_frames(shares, shard_render_state(state, devices), ds, bvh,
-                                                      [baked_tab] * len(devices), n)
+        state, gbs, auxs, alives = _row_frames(shares, shard_render_state(state, devices), ds, bvh,
+                                               [baked_tab] * len(devices), n)
         with r._lock:
             r.state = gather_state(state, r.device)
         r.gbuffers = gather_rows(gbs, r.device)
@@ -230,4 +220,4 @@ def render_rows(r, devices, n_frames: int = 1) -> None:
         if alives[0] is not None:
             alive = (sum(a.to(r.device) for a in alives), r.aux["path_alive_counts"])
     _synchronize(devices)
-    r.record_frames(time.perf_counter() - t0, n, stats, alive)
+    r.record_frames(time.perf_counter() - t0, n, alive)

@@ -112,7 +112,7 @@ def ltc_frame_inputs(renderer) -> tuple:
 
     ds = renderer.device_scene
     rays = first_frame_primaries(renderer, pixel_order(renderer.width, renderer.height, renderer.device))
-    si, _ = trace_closest_si(ds, renderer.bvh, rays)
+    si = trace_closest_si(ds, renderer.bvh, rays)
     return (rays.origin.contiguous(), si.p.contiguous(), si.n_geom.contiguous(), si.alpha.contiguous(),
             si.diffuse.contiguous(), light_table(ds.light_v1, ds.light_v2, ds.light_v3, ds.light_normal,
                                                  ds.light_emit))

@@ -26,7 +26,7 @@ capture holds when it is entered and when it exits, and each hand-kernel
 launch the position of the node it made.  The result names the stage of
 every node of the graph by its position: the ``i``-th operation a replay
 runs on the card is node ``i``.  The cluster tier's ``trace.*`` spans
-(sweep, sort, culls, fused shading) are recorded the same way, as stages
+(sweep, sort, fused shading) are recorded the same way, as stages
 nested in the ``frame.*`` stage around them.
 """
 

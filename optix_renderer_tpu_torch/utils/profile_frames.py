@@ -16,9 +16,9 @@ frame the script times ``--frames`` frames on the host clock (each ends
 in ``torch.cuda.synchronize()``), then renders as many again under
 ``torch.profiler``, timing those on the host clock too.  The stages:
 
-* ``B1``, ``B2`` (brute tier), ``B3``, ``B4`` (list form), ``B3_baked``
-  (the baked walk of the primaries), ``B3_walk``, ``B4_walk`` (walk form),
-  ``B5``, ``B6`` (LTC), ``K0`` (the camera and RNG head), ``K1``, ``K2``
+* ``B1``, ``B2`` (brute tier), ``B3_baked`` (the baked walk of the
+  primaries), ``B3_walk``, ``B4_walk`` (the cluster tier's walks), ``B5``,
+  ``B6`` (LTC), ``K0`` (the camera and RNG head), ``K1``, ``K2``
   (the path bounce before and after its traces), ``K3`` (the brute tier's
   shading), ``S`` (K-sweep, the cluster tier's supercluster sweep): the
   hand-written kernels, found by their names in the device trace (the
@@ -26,12 +26,7 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 * ``sweep``: the PyTorch operations of the per-ray supercluster sweep (t
   bounds, corridor keys; span ``trace.sweep``): on the card, where K-sweep
   does the sweep, at most a t_max's conversion;
-* ``sort``: the coherence sort and the fallback's batching (``trace.sort``);
-* ``cull``: the first pass's tile-frustum culls (and the per-lane culls of
-  a list-form per-lane trace, which rays on the card no longer take;
-  ``trace.cull``);
-* ``fallback_cull``: the checked fallback's single-level re-culls
-  (``trace.fallback_cull``);
+* ``sort``: the coherence sort (``trace.sort``);
 * ``camera_rng``: the primary rays in plain PyTorch (pixel order, the
   RNG's seeds and jitter draws, the camera; ``frame.camera_rng``: in a
   kernel frame K0);
@@ -122,16 +117,14 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
 # the program's spans (utils.launches.span) each stage reads
-SPAN_STAGES = {"trace.sweep": "sweep", "trace.sort": "sort", "trace.cull": "cull",
-               "trace.fallback_cull": "fallback_cull", "trace.shade": "shade", "ltc.direct": "ltc",
+SPAN_STAGES = {"trace.sweep": "sweep", "trace.sort": "sort", "trace.shade": "shade", "ltc.direct": "ltc",
                "frame.camera_rng": "camera_rng", "bounce.nee": "nee", "bounce.bsdf": "bsdf",
                "frame.bounce.combine": "combine"}
 STAGES = tuple(SPAN_STAGES.values())
 # the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu, csrc/ltc.cu,
 # csrc/camera_rng.cu, csrc/path_bounce.cu, csrc/brute_shade.cu and csrc/sc_sweep.cu, the first match
 # decides (the baked walk is closest_walk_kernel over BakedTri rows)
-KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3": "closest_cluster_kernel",
-                 "B4": "any_cluster_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
+KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
                  "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel",
                  "K0": "camera_rng_kernel", "K1": "path_sample_kernel", "K2": "path_combine_kernel",
                  "K3": "brute_shade_kernel", "S": "supercluster_sweep_kernel"}
@@ -206,13 +199,10 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
                         + "); replayed kernels take their stage from the frame graph's stage map, "
                           "hand-written kernels count by name",
                 **_measure(lambda: _replayed_frames(r, frames, deterministic), frames, r.frame_stages())}
-    m = r.metrics
     line = {
         "config": config, "scene": scene_name, "mode": mode, "res": res, "path_depth": depth,
         "triangles": r.bvh.num_tris, "clusters": r.bvh.num_clusters, "frames": frames, "plain_eager": plain,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **single, "render_n": render_n,
-        # summed over the warm-up, timed and profiled frames
-        "cull_stats": {k: m[k] for k in ("cull_overflow", "cull_retraces", "cull_unresolved_tiles")},
     }
     if r.bvh.clustered:
         line["walk_work"] = walk_work(r)

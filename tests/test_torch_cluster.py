@@ -1,14 +1,18 @@
 """The port's cluster tier (``accel.build`` cluster half, ``accel.cluster``,
 the plain versions of kernels B3, B4 and B5 in ``accel.cluster_trace``, and
-the fused shading) against the JAX package on the same inputs.
+the fused shading) against the JAX package on the same inputs.  The port
+walks; the JAX package culls into lists, and its culls are forced into
+each of their regimes (single level, two level, a binding supercluster
+cap whose checked fallback runs) to show that the walk returns what the
+list path returns in every one.
 
 The JAX side runs its Pallas kernels with ``interpret=True``, as
 ``tests/unit/test_pallas_cluster.py`` does; each such call costs seconds on
 the CPU, so every reference is computed once per module.
 
 Tolerances:
-* build products, t bounds, corridor keys and the culls' lists, counts,
-  scales and overflow: equal (the same f32 operations in the same order);
+* build products, t bounds and corridor keys: equal (the same f32
+  operations in the same order);
 * B3: the same winner (cluster id and local triangle id) on at least
   99.9 % of lanes, with the packed keys at most one quantum of t apart,
   and equal keys on at least 99 %: XLA's CPU lowering contracts a*b + c*d
@@ -24,6 +28,7 @@ Tolerances:
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,36 +186,54 @@ def test_t_bounds_and_corridor_keys_match_jax(terrain):
     assert (k == 0x7FFFFFFF).all() and (t == 0).all()
 
 
+@pytest.fixture
+def fresh_jax_caches():
+    """JAX's compilation caches cleared before and after the test: the JAX
+    traces are jitted, so only a fresh trace reads the module constants
+    that a test patches, and no trace made with them outlives the test."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 @pytest.mark.parametrize("kind", ["tile", "lane"])
 @pytest.mark.parametrize("level", ["single", "two_level", "sc_cap"])
-def test_culls_match_jax(terrain100, monkeypatch, kind, level):
+def test_walk_matches_jax_in_every_cull_regime(terrain100, monkeypatch, fresh_jax_caches, kind, level):
+    """The walk against the JAX package's list path with its cull forced
+    into each regime: B3 against the tile-frustum cull's winners ("tile"),
+    B4 against the per-lane cull's occlusion ("lane"), on every lane; with
+    a supercluster cap of 2 the lists overflow and the JAX checked fallback
+    runs, and the port, which lists nothing, still agrees."""
     jb, tb = terrain100[0].bvh, terrain100[1].bvh
-    C = tb.num_clusters
-    n = 2 * cluster.TILE
+    n = 2048
     jrays = _random_rays(jb, n, seed=3, above=None)
+    rays = _tray(jrays)
     t_max = np.full((n,), 1e5, np.float32)
-    maxv = cluster._pad128(C)
     if level != "single":  # force the two-level path on this small fixture
-        for mod in (pc, cluster):
-            monkeypatch.setattr(mod, "_TWO_LEVEL_MIN_C", 1)
+        monkeypatch.setattr(pc, "_TWO_LEVEL_MIN_C", 1)
     if level == "sc_cap":  # a supercluster cap that binds: overflow through the SC level
-        for mod in (pc, cluster):
-            monkeypatch.setattr(mod, "_SC_CAND" if kind == "tile" else "_SC_CAND_LANE", 2)
-    jfn, tfn = ((pc.cull_clusters, cluster.cull_clusters) if kind == "tile"
-                else (pc.cull_clusters_per_lane, cluster.cull_clusters_per_lane))
-    want = jfn(jb.cluster_min, jb.cluster_max, jrays, jnp.asarray(t_max), n, maxv)
-    got = tfn(tb.cluster_min, tb.cluster_max, _tray(jrays), torch.as_tensor(t_max), n, maxv)
-    for name, g, w in zip(("lists", "counts", "scales", "overflow", "near_dropped"), got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    assert (int(np.asarray(want[3]).sum()) > 0) == (level == "sc_cap")
+        monkeypatch.setattr(pc, "_SC_CAND" if kind == "tile" else "_SC_CAND_LANE", 2)
+    if kind == "tile":
+        wkey, wcid, _, wstats = pc.trace_closest_clusters_packed(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays,
+                                                                jnp.asarray(t_max), interpret=True)
+        key, cid, _ = cluster.trace_closest_clusters_packed(tb, rays, torch.as_tensor(t_max))
+        _assert_same_winners(key.numpy(), cid.numpy(), wkey, wcid)
+        assert (np.asarray(wcid) >= 0).mean() > 0.2
+    else:
+        wocc, wstats = pc.trace_any_clusters(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays, jnp.asarray(t_max),
+                                             refine=True, interpret=True)
+        occ = cluster.trace_any_clusters(tb, rays, torch.as_tensor(t_max))
+        np.testing.assert_array_equal(occ.numpy(), np.asarray(wocc))
+        assert 0.1 < occ.float().mean() < 0.9
+    capped = level == "sc_cap"
+    assert (int(wstats["overflow"]) > 0) == capped and (int(wstats["retraced"]) > 0) == capped
 
 
 def test_b3_plain_matches_jax_and_brute(terrain):
     jb, tb = terrain["jr"].bvh, terrain["tr"].bvh
     jrays = terrain["jrays"]
     rays = _tray(jrays)
-    key, cid, t_eff, stats = cluster.trace_closest_clusters_packed(tb, rays)
-    assert stats == cluster.zero_trace_stats()
+    key, cid, t_eff = cluster.trace_closest_clusters_packed(tb, rays)
     np.testing.assert_array_equal(t_eff.numpy(), terrain["t_eff"])
     _assert_same_winners(key.numpy(), cid.numpy(), terrain["key"], terrain["cid"])
     hit = cluster.decode_hits(key, cid, tb.tri_tab, rays, t_eff)
@@ -226,15 +249,16 @@ def test_b3_plain_matches_jax_and_brute(terrain):
 
 
 def test_b3_b4_plain_per_lane_lists_match_jax(terrain100):
-    """Incoherent rays with the per-lane cull (refine=True): B3 against the
-    JAX kernel and the oracle, B4 equal to the JAX kernel on every lane."""
+    """Incoherent rays against the JAX package's per-lane cull
+    (refine=True): B3 against the JAX kernel and the oracle, B4 equal to
+    the JAX kernel on every lane."""
     jb, tb = terrain100[0].bvh, terrain100[1].bvh
     n = 2048
     jrays = _random_rays(jb, n, seed=11, above=1.1)
     rays = _tray(jrays)
     wkey, wcid, _, _ = pc.trace_closest_clusters_packed(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays,
                                                         refine=True, interpret=True)
-    key, cid, t_eff, _ = cluster.trace_closest_clusters_packed(tb, rays, refine=True)
+    key, cid, t_eff = cluster.trace_closest_clusters_packed(tb, rays)
     _assert_same_winners(key.numpy(), cid.numpy(), wkey, wcid)
     want_ids, want_t = _brute_ids(jb, jrays)
     hit = cluster.decode_hits(key, cid, tb.tri_tab, rays, t_eff)
@@ -246,7 +270,7 @@ def test_b3_b4_plain_per_lane_lists_match_jax(terrain100):
     t_max = np.full((n,), 1e5, np.float32)
     wocc, _ = pc.trace_any_clusters(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays, t_max=jnp.asarray(t_max),
                                     refine=True, interpret=True)
-    occ, _ = cluster.trace_any_clusters(tb, rays, torch.as_tensor(t_max), refine=True)
+    occ = cluster.trace_any_clusters(tb, rays, torch.as_tensor(t_max))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(wocc))
     np.testing.assert_array_equal(occ.numpy(), want_ids >= 0)
 
@@ -259,7 +283,7 @@ def test_b4_plain_matches_jax_and_brute(terrain):
     t_max = np.random.default_rng(5).uniform(200.0, 1200.0, size=n).astype(np.float32)
     wocc, _ = pc.trace_any_clusters(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays, t_max=jnp.asarray(t_max),
                                     interpret=True)
-    occ, stats = cluster.trace_any_clusters(tb, _tray(jrays), torch.as_tensor(t_max))
+    occ = cluster.trace_any_clusters(tb, _tray(jrays), torch.as_tensor(t_max))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(wocc))
     want_ids, want_t = _brute_ids(jb, jrays)
     want = (want_ids >= 0) & (want_t < t_max)
@@ -267,22 +291,20 @@ def test_b4_plain_matches_jax_and_brute(terrain):
     np.testing.assert_array_equal(occ.numpy(), want)
 
 
-def test_overflow_fallback_matches_jax(terrain100, monkeypatch):
-    """A list cap of 128 on 310 clusters with scattered rays and a partial
-    final tile: the checked fallback runs, its statistics equal the JAX
-    package's, and the hits are exact (JAX
-    test_overflow_is_checked_not_silent)."""
+def test_overflow_fallback_matches_jax(terrain100):
+    """The walk against the JAX package's list path with a list cap of 128
+    on 310 clusters, scattered rays and a partial final tile: the JAX
+    checked fallback runs, and the walk, which lists nothing, returns its
+    hits, exact against brute force (JAX test_overflow_is_checked_not_silent)."""
     jb, tb = terrain100[0].bvh, terrain100[1].bvh
     n = 1000
     jrays = _random_rays(jb, n, seed=7, above=1.2)
     rays = _tray(jrays)
     whit, wstats = pc.trace_closest_clusters(jb.tri_tab, jb.geom_tab, jb.cluster_min, jb.cluster_max, jrays,
                                              max_visits=128, interpret=True)
-    monkeypatch.setattr(cluster, "DEFAULT_MAX_VISITS", 128)
-    key, cid, t_eff, stats = cluster.trace_closest_clusters_packed(tb, rays)
+    assert int(wstats["overflow"]) > 0 and int(wstats["unresolved_tiles"]) > 0
+    key, cid, t_eff = cluster.trace_closest_clusters_packed(tb, rays)
     hit = cluster.decode_hits(key, cid, tb.tri_tab, rays, t_eff)
-    assert {k: int(v) for k, v in stats.items()} == {k: int(v) for k, v in wstats.items()}
-    assert stats["overflow"] > 0 and stats["unresolved_tiles"] > 0
     want_ids, want_t = _brute_ids(jb, jrays)
     assert (hit.tri_id.numpy() == want_ids).mean() >= B3_AGREE_MIN
     assert (hit.tri_id.numpy() == np.asarray(whit.tri_id)).mean() >= B3_AGREE_MIN
@@ -293,8 +315,8 @@ def test_overflow_fallback_matches_jax(terrain100, monkeypatch):
     t_max = np.full((n,), 1e5, np.float32)
     wocc, wastats = pc.trace_any_clusters(jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays,
                                           t_max=jnp.asarray(t_max), max_visits=128, interpret=True)
-    occ, astats = cluster.trace_any_clusters(tb, rays, torch.as_tensor(t_max))
-    assert {k: int(v) for k, v in astats.items()} == {k: int(v) for k, v in wastats.items()}
+    assert int(wastats["overflow"]) > 0
+    occ = cluster.trace_any_clusters(tb, rays, torch.as_tensor(t_max))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(wocc))
     np.testing.assert_array_equal(occ.numpy(), want_ids >= 0)
 
@@ -323,7 +345,7 @@ def gallery(tmp_path_factory):
                         "scene.json")
     jr, tr = _pair(path, 64, 64)
     jrays = _primaries(jr, 64, 64)
-    key, cid, _, _ = cluster.trace_closest_clusters_packed(tr.bvh, _tray(jrays))
+    key, cid, _ = cluster.trace_closest_clusters_packed(tr.bvh, _tray(jrays))
     return jr, tr, jrays, key, cid
 
 
@@ -356,12 +378,12 @@ def test_sorted_traces_match_unsorted(terrain100):
     jrays = _random_rays(jb, n, seed=23, above=1.2)
     rays = _tray(jrays)
     ds, bvh = tr.device_scene, tr.bvh
-    si_s, _ = tshade.trace_closest_si(ds, bvh, rays, coherent=False)
-    si_u, _ = tshade.trace_closest_si(ds, bvh, rays, coherent=True)
+    si_s = tshade.trace_closest_si(ds, bvh, rays, coherent=False)
+    si_u = tshade.trace_closest_si(ds, bvh, rays, coherent=True)
     for f in dataclasses.fields(si_s):
         np.testing.assert_array_equal(getattr(si_s, f.name).numpy(), getattr(si_u, f.name).numpy(), err_msg=f.name)
     active = torch.arange(n) % 3 > 0
-    si_a, _ = tshade.trace_closest_si(ds, bvh, rays, active=active, coherent=False)
+    si_a = tshade.trace_closest_si(ds, bvh, rays, active=active, coherent=False)
     assert not si_a.hit[~active].any()
     np.testing.assert_array_equal(si_a.p[active].numpy(), si_u.p[active].numpy())
 
@@ -369,7 +391,7 @@ def test_sorted_traces_match_unsorted(terrain100):
     lo, hi = np.asarray(jb.cluster_min.min(axis=0)), np.asarray(jb.cluster_max.max(axis=0))
     t_max = (rng.random(n, np.float32) * float(np.linalg.norm(hi - lo))).astype(np.float32)
     t_max[::5] = 0.0
-    occ, _ = cluster.trace_any_clusters_sorted(bvh, rays, torch.as_tensor(t_max))
+    occ = cluster.trace_any_clusters_sorted(bvh, rays, torch.as_tensor(t_max))
     want_ids, want_t = _brute_ids(jb, jrays)
     want = (want_ids >= 0) & (want_t < t_max)
     clear = np.abs(want_t - t_max) > 1e-3 * np.maximum(t_max, 1.0)
@@ -377,49 +399,19 @@ def test_sorted_traces_match_unsorted(terrain100):
     np.testing.assert_array_equal(occ.numpy()[clear], want[clear])
 
 
-def test_plain_work_counts(terrain):
-    """The plain B3 and B4 count the (lane, cluster) slab tests and the
-    ray/triangle tests their walk ran, the operation count behind a bound."""
-    tb = terrain["tr"].bvh
-    rays = _tray(terrain["jrays"])
-    n = rays.origin.shape[0]
-    t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
-    lists, counts, scales, _, _ = cluster.cull_clusters(tb.cluster_min, tb.cluster_max, rays, t_eff, n, 128)
-    cb = cluster._cid_bits(tb.num_clusters)
-    key0 = (t_eff.view(torch.int32) & ~63) | 63
-    work = torch.zeros(2, dtype=torch.int64)
-    ct.trace_closest_clusters_plain(tb.tri_tab, tb.cluster_min, tb.cluster_max, lists, counts, scales, cb,
-                                    rays.origin, rays.direction, key0, torch.full_like(key0, -1), work=work)
-    slabs, tests = (int(w) for w in work)
-    assert tests % 64 == 0 and 0 < tests // 64 <= slabs <= int(counts.sum()) * cluster.TILE
-    work.zero_()
-    ct.trace_any_clusters_plain(tb.tri_tab, tb.cluster_min, tb.cluster_max, lists, counts, scales, cb,
-                                rays.origin, rays.direction, torch.where(t_eff > 0, 1e4, 0.0), work=work)
-    slabs, tests = (int(w) for w in work)
-    # B4 stops inside a cluster at its first hit
-    assert 0 < tests < 64 * slabs and tests % 64 != 0
-
-
 def test_cuda_wrappers_refuse_cpu_tensors(terrain):
-    """A CUDA wrapper never runs the plain version: a CPU tensor is refused,
-    and so is a malformed input."""
+    """A CUDA wrapper never runs the plain version: a CPU tensor is refused;
+    and the routers refuse a device that is neither CUDA nor the CPU."""
     tb = terrain["tr"].bvh
     n = 64
     o, d = torch.zeros((n, 3)), torch.ones((n, 3))
-    lists, counts, scales = torch.zeros((1, 128), dtype=torch.int32), torch.ones(1, dtype=torch.int32), \
-        torch.ones(1)
     key0, cid0 = torch.zeros(n, dtype=torch.int32), torch.full((n,), -1, dtype=torch.int32)
-    cb = cluster._cid_bits(tb.num_clusters)
-    args = (tb.tri_tab, tb.cluster_min, tb.cluster_max, lists, counts, scales, cb, o, d)
-    with pytest.raises(ValueError, match="CUDA"):
-        ct.trace_closest_clusters_cuda(*args, key0, cid0)
-    with pytest.raises(ValueError, match="CUDA"):
-        ct.trace_any_clusters_cuda(*args, torch.ones(n))
+    walk = (tb.tri_tab, tb.cluster_min, tb.cluster_max, tb.sc_min, tb.sc_max)
     with pytest.raises(ValueError, match="CUDA"):
         ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key0, cid0)
-    with pytest.raises(ValueError, match=r"\(C\*64, 16\)"):
-        ct.trace_closest_clusters_cuda(tb.tri_tab[:-64], *args[1:], key0, cid0)
-    with pytest.raises(ValueError, match=r"origin must be \(N, 3\)"):
-        ct.trace_any_clusters_cuda(*args[:7], o[:, :2], d, torch.ones(n))
     with pytest.raises(ValueError, match="device"):
-        ct.trace_closest_clusters(*args[:7], o.to("meta"), d.to("meta"), key0, cid0)
+        ct.fetch_winner_attrs(tb.shade_a, tb.shade_b, key0.to("meta"), cid0.to("meta"))
+    with pytest.raises(ValueError, match="device"):
+        ct.trace_closest_walk(*walk, o.to("meta"), d.to("meta"), key0, cid0)
+    with pytest.raises(ValueError, match="device"):
+        ct.trace_any_walk(*walk, o.to("meta"), d.to("meta"), torch.ones(n))

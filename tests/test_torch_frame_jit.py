@@ -11,7 +11,7 @@ outputs), and the table is baked on the CPU where it matters.  Held, at
 
 * ``render(n)`` bit for bit against n ``_frame_impl`` frames in PATH,
   RATIO, LTC_BASELINE, NORMALS and DIFFUSE: state, g-buffers, aux and
-  ``metrics`` (honest rays, ``alive_per_bounce``, the cull statistics);
+  ``metrics`` (honest rays, ``alive_per_bounce``);
 * ``render(4)`` against the JAX ``render(4)``: relative RMSE as
   ``tests/goldens/test_goldens.py::_check``, 5e-3 for PATH and 1e-4 for
   LTC_BASELINE;
@@ -80,9 +80,9 @@ class _StandInGraph:
 
     def replay(self):
         self.replays += 1
-        gb, aux, stats = fg.frames_step(*self._args, **self._static)
+        gb, aux = fg.frames_step(*self._args, **self._static)
         if self.outputs is None:
-            self.outputs = (gb, aux, stats)
+            self.outputs = (gb, aux)
         else:
             for f in GB_FIELDS:
                 getattr(self.outputs[0], f).copy_(getattr(gb, f))
@@ -106,13 +106,12 @@ def _renderer(paths, name, mode, **kw):
 
 
 def _eager(r: Renderer, state, n: int):
-    """n ``_frame_impl`` frames from ``state`` with r's table: (state, each frame's (gbuffers, aux, stats))."""
+    """n ``_frame_impl`` frames from ``state`` with r's table: (state, each frame's (gbuffers, aux))."""
     frames = []
     for _ in range(n):
-        state, gb, aux, stats = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width,
-                                            height=r.height, path_depth=r.path_depth,
-                                            ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
-        frames.append((gb, aux, stats))
+        state, gb, aux = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
+                                     path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
+        frames.append((gb, aux))
     return state, frames
 
 
@@ -125,7 +124,7 @@ def _assert_frames_equal(r: Renderer, want_state, frames) -> None:
     """r's published state, g-buffers and aux are what ``frames`` (eager, from one state) give."""
     assert r.state.accum_id == want_state.accum_id and torch.equal(r.state.accum, want_state.accum)
     _assert_gbuffers_equal(r.gbuffers, frames[-1][0])
-    auxes = [aux for _gb, aux, _stats in frames]
+    auxes = [aux for _gb, aux in frames]
     if r.mode == RendererType.RATIO:  # the mean over the call's frames, summed in frame order
         for k in auxes[0]:
             total = auxes[0][k]
@@ -139,14 +138,11 @@ def _assert_frames_equal(r: Renderer, want_state, frames) -> None:
 
 
 def _eager_metrics(r: Renderer, frames) -> dict:
-    """The ``metrics`` a call rendering ``frames`` adds: frames, honest rays and the cull statistics."""
+    """The ``metrics`` a call rendering ``frames`` adds: frames and honest rays."""
     rays = len(frames) * r.width * r.height * (1 + (r.ratio_samples if r.mode == RendererType.RATIO else 0))
-    alive = [aux["path_alive_counts"] for _gb, aux, _stats in frames if "path_alive_counts" in aux]
+    alive = [aux["path_alive_counts"] for _gb, aux in frames if "path_alive_counts" in aux]
     rays += sum(int(a[:, 1:].sum()) for a in alive)
     out = {"frames": len(frames), "rays_traced": rays}
-    for name, key in (("cull_overflow", "overflow"), ("cull_retraces", "retraced"),
-                      ("cull_unresolved_tiles", "unresolved_tiles")):
-        out[name] = sum(int(stats[key]) for _gb, _aux, stats in frames)
     if alive:
         out["alive_per_bounce"] = [int(x) for x in alive[-1][:, 0]]
     return out
@@ -335,10 +331,10 @@ def test_spp_split_through_graphs_matches_sequential_frames(paths, graphed):
     reps = [sharding.replicate(x, cpus) for x in (r.device_scene, r.bvh, r.baked_tab)]
     state = r.state
     for k in range(3):  # each device's eager frame, then a capture and a replay, then replays
-        got, gbs, auxs, _stats = step(state, *reps)
+        got, gbs, auxs = step(state, *reps)
         want, frames = _eager(r, state, 3)
         assert got.accum_id == want.accum_id and torch.equal(got.accum, want.accum)
-        for (gb, aux, _st), g, a in zip(frames, gbs, auxs):
+        for (gb, aux), g, a in zip(frames, gbs, auxs):
             _assert_gbuffers_equal(g, gb)
             assert torch.equal(a["path_alive_counts"], aux["path_alive_counts"])
         state = got
@@ -403,7 +399,7 @@ def test_two_threads_take_turns_on_the_buffers(paths, graphed, monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads) and not errors
     assert len(results) == 8 and len(overlaps) == 8 and not any(overlaps)
-    for state, gb, aux, _stats in results:
+    for state, gb, aux in results:
         assert state.accum_id == 2 and torch.equal(state.accum, want.accum)
         _assert_gbuffers_equal(gb, frames[0][0])
         assert torch.equal(aux["path_alive_counts"], frames[0][1]["path_alive_counts"])

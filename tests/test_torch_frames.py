@@ -5,7 +5,7 @@ counterpart of the JAX ``_frames_scan_impl``, on the CPU.
   and to the JAX ``core/rng.make_rng``;
 * n eager ``frames_step`` calls: bit-equal to n ``_frame_impl`` frames in
   PATH and RATIO (accumulator, RATIO's sums, PATH's per-bounce counts, the
-  last frame's own g-buffers, aux and stats), on Cornell and the
+  last frame's own g-buffers and aux), on Cornell and the
   three-light Cornell;
 * ``Renderer.render(4)`` of the port against the JAX ``Renderer.render(4)``,
   which takes ``_frames_scan_jit`` (the port's versions of JAX's
@@ -105,24 +105,22 @@ def test_frames_step_matches_frame_impl(scenes, scene_name, mode):
     n = 3
     state, frames = r.state, []
     for _ in range(n):
-        state, gb, aux, stats = _frame_impl(state, r.device_scene, r.bvh, **kw)
-        frames.append((aux, stats))
+        state, gb, aux = _frame_impl(state, r.device_scene, r.bvh, **kw)
+        frames.append(aux)
 
     buf = fg.FrameBuffers.for_frames(r.mode, r.width, r.height, r.path_depth, r.device)
     buf.load(r.state)
     for _ in range(n):
-        got_gb, got_aux, got_stats = fg.frames_step(buf, r.device_scene, r.bvh, **kw)
+        got_gb, got_aux = fg.frames_step(buf, r.device_scene, r.bvh, **kw)
     assert int(buf.frame_id) == n
     assert torch.equal(buf.accum, state.accum)
     for f in ("position", "normal", "albedo", "alpha", "uv", "material_id"):  # the last frame's own outputs
         assert torch.equal(getattr(got_gb, f), getattr(gb, f)), f
-    assert sorted(buf.sums) == sorted(frames[0][0]) == sorted(got_aux)
+    assert sorted(buf.sums) == sorted(frames[0]) == sorted(got_aux)
     for k, total in buf.sums.items():  # the n frames' sum, in frame order
-        assert total.dtype == frames[0][0][k].dtype
-        assert torch.equal(total, (frames[0][0][k] + frames[1][0][k]) + frames[2][0][k]), k
-        assert torch.equal(got_aux[k], frames[2][0][k]), k
-    assert {k: int(v) for k, v in buf.stats.items()} == {k: sum(int(f[1][k]) for f in frames) for k in buf.stats}
-    assert {k: int(v) for k, v in got_stats.items()} == {k: int(frames[2][1][k]) for k in got_stats}
+        assert total.dtype == frames[0][k].dtype
+        assert torch.equal(total, (frames[0][k] + frames[1][k]) + frames[2][k]), k
+        assert torch.equal(got_aux[k], frames[2][k]), k
     assert r.state.accum_id == 0 and float(r.state.accum.abs().sum()) == 0.0  # load() copied, left it
 
 
@@ -136,7 +134,7 @@ def test_frame_buffers_load_resets_the_sums(scenes):
     r.render(2)
     buf.load(r.state)
     assert int(buf.frame_id) == 2 and torch.equal(buf.accum, r.state.accum)
-    assert all(float(t.abs().sum()) == 0 for t in (*buf.sums.values(), *buf.stats.values()))
+    assert all(float(t.abs().sum()) == 0 for t in buf.sums.values())
     for name in ("pos", "dir_00", "dir_du", "dir_dv"):
         assert torch.equal(getattr(buf.camera, name), getattr(r.state.camera, name))
         assert getattr(buf.camera, name) is not getattr(r.state.camera, name)
@@ -199,8 +197,7 @@ def test_render_n_matches_n_single_frames(scenes, scene_name, mode):
     else:
         assert torch.equal(a.aux["path_alive_counts"], b.aux["path_alive_counts"])  # the last frame's
     ma, mb = a.metrics, b.metrics
-    for k in ("frames", "rays_traced", "alive_per_bounce", "cull_overflow", "cull_retraces",
-              "cull_unresolved_tiles"):
+    for k in ("frames", "rays_traced", "alive_per_bounce"):
         assert ma[k] == mb[k], k
     assert ma["frames"] == 4
     # the state render(4) started from is left as it was
@@ -226,9 +223,9 @@ class _StandInGraph:
 
     def replay(self):
         self.replays += 1
-        gb, aux, stats = fg.frames_step(*self._args, **self._static)
+        gb, aux = fg.frames_step(*self._args, **self._static)
         if self.outputs is None:
-            self.outputs = (gb, aux, stats)
+            self.outputs = (gb, aux)
         else:
             for f in ("position", "normal", "albedo", "alpha", "uv", "material_id"):
                 getattr(self.outputs[0], f).copy_(getattr(gb, f))
@@ -349,7 +346,7 @@ def test_replays_count_the_captured_launches(monkeypatch):
         for _ in range(2):
             launches.count_launch(bt.LAUNCHES, "brute_any")
         launches.count_launch(lk.LAUNCHES, "ltc")
-        return "gbuffers", "aux", "stats"
+        return "gbuffers", "aux"
 
     monkeypatch.setattr(fg, "frames_step", step)
     for mod in (bt, ct, lk):
@@ -359,7 +356,7 @@ def test_replays_count_the_captured_launches(monkeypatch):
     assert bt.LAUNCHES == {"brute_closest": 0, "brute_any": 0} and lk.LAUNCHES["ltc"] == 0  # capture ran nothing
     assert not any(ct.LAUNCHES.values())
     for _ in range(5):
-        assert graph.replay() == ("gbuffers", "aux", "stats")  # the static outputs of the capture
+        assert graph.replay() == ("gbuffers", "aux")  # the static outputs of the capture
     assert graph.graph.replays == 5
     assert bt.LAUNCHES == {"brute_closest": 15, "brute_any": 10} and lk.LAUNCHES["ltc"] == 5
     assert not any(ct.LAUNCHES.values())

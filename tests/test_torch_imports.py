@@ -69,8 +69,8 @@ top = r.bvh.cluster_max.amax(dim=0)
 o = torch.rand((64, 3), generator=g) * top
 o[:, 1] = top[1] * 1.1
 d = torch.nn.functional.normalize(torch.randn((64, 3), generator=g), dim=-1)
-key, cid, t_b, stats = traverse.trace_closest_winners(r.bvh, Ray(origin=o, direction=d), coherent=False)
-occ, _ = traverse.trace_any_with_stats(r.bvh, Ray(origin=o, direction=d), t_max=1e4, refine=True, coherent=False)
+key, cid, t_b, _ = traverse.trace_closest_winners(r.bvh, Ray(origin=o, direction=d), coherent=False)
+occ = traverse.trace_any(r.bvh, Ray(origin=o, direction=d), t_max=1e4, coherent=False)
 assert (occ == (cid >= 0)).all() and 0 < int(occ.sum()) < 64, int(occ.sum())
 from optix_renderer_tpu_torch.accel import cluster
 from optix_renderer_tpu_torch.engine import cli

@@ -281,7 +281,7 @@ def test_frame_is_a_pure_function_of_the_state(small_scene, mode, tol):
     tstate = RenderState(accum=torch.as_tensor(start.copy()), accum_id=3, camera=t.state.camera)
     kw = dict(mode=mode, width=res, height=res, path_depth=depth, ratio_samples=4)
     jnew, _, _ = jrenderer._frame_impl(jstate, j.device_scene, j.bvh, **kw)
-    tnew, _, _, _ = trenderer._frame_impl(tstate, t.device_scene, t.bvh, **kw)
+    tnew, _, _ = trenderer._frame_impl(tstate, t.device_scene, t.bvh, **kw)
     np.testing.assert_array_equal(np.asarray(jstate.accum), start)
     np.testing.assert_array_equal(tstate.accum.numpy(), start)
     assert tnew.accum is not tstate.accum and tstate.accum_id == 3 and tnew.accum_id == 4 == int(jnew.accum_id)

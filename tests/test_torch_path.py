@@ -71,7 +71,7 @@ def test_path_color_matches_jax(setup, accum_id):
 
     tsi = SurfaceInteraction(**{f.name: _t(getattr(si, f.name)) for f in dataclasses.fields(si)})
     trng = _t(np.asarray(rstate).astype(np.int64))
-    got, got_rng, got_counts, stats = tpath.path_color(
+    got, got_rng, got_counts = tpath.path_color(
         setup["tds"], setup["tbvh"], Ray(_t(rays.origin), _t(rays.direction)), tsi, trng, max_depth=DEPTH)
 
     want = np.asarray(want)
@@ -84,7 +84,6 @@ def test_path_color_matches_jax(setup, accum_id):
     assert got_counts.shape == (DEPTH, 3) and got_counts.device == got.device
     assert want_counts[:, 1:].sum() > 0
     np.testing.assert_array_less(np.abs(got_counts.numpy() - want_counts), 1e-3 * want_counts + 1e-9)
-    assert stats == {"overflow": 0, "retraced": 0, "unresolved_tiles": 0}
 
 
 def test_light_gather_and_pdf_conversion(setup):

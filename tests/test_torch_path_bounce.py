@@ -35,7 +35,7 @@ from optix_renderer_tpu.engine.shade import trace_closest_si as jtrace_closest_s
 from optix_renderer_tpu.integrators import path as jpath
 from optix_renderer_tpu.scene import device as jdevice
 from optix_renderer_tpu_torch.accel.build import bvh_from_numpy
-from optix_renderer_tpu_torch.accel.traverse import trace_any_with_stats
+from optix_renderer_tpu_torch.accel.traverse import trace_any
 from optix_renderer_tpu_torch.core import math as cm
 from optix_renderer_tpu_torch.core.types import Ray, SurfaceInteraction
 from optix_renderer_tpu_torch.engine.shade import trace_closest_si
@@ -111,10 +111,9 @@ def _composed(ds, bvh, rays, si, rng, depth):
     for d in range(depth):
         b = pk.path_sample_plain(ds, state, rng)
         rng = b.rng
-        occluded, _ = trace_any_with_stats(bvh, Ray(b.origin, b.shadow_dir), t_max=b.shadow_t, refine=True,
-                                           coherent=False)
-        bounce_si, _ = trace_closest_si(ds, bvh, Ray(b.origin, b.bounce_dir), active=b.sample_ok, coherent=False,
-                                        t_max=b.bounce_t)
+        occluded = trace_any(bvh, Ray(b.origin, b.shadow_dir), t_max=b.shadow_t, coherent=False)
+        bounce_si = trace_closest_si(ds, bvh, Ray(b.origin, b.bounce_dir), active=b.sample_ok, coherent=False,
+                                     t_max=b.bounce_t)
         counts[d] = torch.stack([state.alive.sum(), b.shadow_needed.sum(), b.sample_ok.sum()])
         color, state = pk.path_combine_plain(ds.num_lights, color, state, b, occluded, bounce_si)
     out = torch.where(si.is_light[:, None], si.emit, torch.clamp(color, min=EPS))
@@ -141,9 +140,8 @@ def test_composed_bounce_matches_jax(scenes, name, depth):
     np.testing.assert_array_equal(got_counts.numpy(), want_counts)
 
     # the port's path_color is this composition, and writes no primary tensor
-    color, rng_out, counts, stats = tpath.path_color(s["tds"], s["tbvh"], rays, si, rng, max_depth=depth)
+    color, rng_out, counts = tpath.path_color(s["tds"], s["tbvh"], rays, si, rng, max_depth=depth)
     assert torch.equal(color, got) and torch.equal(rng_out, got_rng) and torch.equal(counts, got_counts)
-    assert stats == {"overflow": 0, "retraced": 0, "unresolved_tiles": 0}
     for k, v in before.items():
         assert torch.equal(getattr(si, k), v), k
 
@@ -165,8 +163,8 @@ def test_plain_split_keeps_its_inputs(scenes):
     color = torch.rand((n, 3), generator=torch.Generator().manual_seed(3))
     color0 = color.clone()
     occluded = torch.arange(n) % 2 == 0
-    bounce_si, _ = trace_closest_si(s["tds"], s["tbvh"], Ray(b.origin, b.bounce_dir), active=b.sample_ok,
-                                    coherent=False, t_max=b.bounce_t)
+    bounce_si = trace_closest_si(s["tds"], s["tbvh"], Ray(b.origin, b.bounce_dir), active=b.sample_ok,
+                                 coherent=False, t_max=b.bounce_t)
     new_color, nxt = pk.path_combine_plain(s["tds"].num_lights, color, state, b, occluded, bounce_si)
     assert torch.equal(color, color0)
     for k, v in snap.items():

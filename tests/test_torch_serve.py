@@ -216,9 +216,9 @@ class _SlowFakeRenderer:
         self.started[self.frames].set()
         self.frames += 1
         time.sleep(self.frame_s)
-        return self._State(self.state.accum_id + 1), None, {}, {}
+        return self._State(self.state.accum_id + 1), None, {}
 
-    def commit_step(self, state, gb, aux, stats, seconds):
+    def commit_step(self, state, gb, aux, seconds):
         self.state = state
         self.commits += 1
 

@@ -6,7 +6,7 @@ Held, at 32^2 on the procedural Cornell box:
   DIFFUSE, PATH depth 2, RATIO (its aux buffers too) and LTC_BASELINE, the
   g-buffers included;
 - the grid-60 terrain (cluster tier) at 32 x 64 in NORMALS, bit for bit,
-  on the CPU's list path and with the baked table forced on the CPU (every
+  on the CPU's plain walk and with the baked table forced on the CPU (every
   tile must get the table);
 - the state's row shards are (4, 32, 3);
 - the spp split against 8 sequential frames, bit for bit, ``accum_id`` + 8;
@@ -54,9 +54,8 @@ def _single(r: Renderer, frames: int):
     """``frames`` frames of one device: (state, gbuffers, aux of the last)."""
     state = r.state
     for _ in range(frames):
-        state, gb, aux, _stats = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width,
-                                             height=r.height, path_depth=r.path_depth,
-                                             ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
+        state, gb, aux = _frame_impl(state, r.device_scene, r.bvh, mode=r.mode, width=r.width, height=r.height,
+                                     path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
     return state, gb, aux
 
 
@@ -66,7 +65,7 @@ def _split(r: Renderer, frames: int, devices=CPUS):
     ds, bvh, baked = (sharding.replicate(x, devices) for x in (r.device_scene, r.bvh, r.baked_tab))
     state = sharding.shard_render_state(r.state, devices)
     for _ in range(frames):
-        state, gbs, auxs, _stats = frame(state, ds, bvh, baked)
+        state, gbs, auxs = frame(state, ds, bvh, baked)
     return state, gbs, auxs
 
 
@@ -133,7 +132,7 @@ def test_spp_split_matches_sequential_frames(scene_path):
     want, _gb, _aux = _single(r, N_DEV)
     frame = sharding.make_spp_sharded_frame_fn(CPUS, RendererType.PATH, RES, RES, path_depth=2)
     ds, bvh, baked = (sharding.replicate(x, CPUS) for x in (r.device_scene, r.bvh, r.baked_tab))
-    got, gbs, auxs, _stats = frame(r.state, ds, bvh, baked)
+    got, gbs, auxs = frame(r.state, ds, bvh, baked)
     assert got.accum_id == r.state.accum_id + N_DEV == N_DEV
     assert len(gbs) == len(auxs) == N_DEV
     assert torch.equal(got.accum, want.accum)  # colors added in frame order: the same sums

@@ -157,7 +157,7 @@ def test_the_capture_maps_every_node_once(monkeypatch):
         with span("frame.accumulate"):  # adjacent: one entry
             make()
         make()
-        return "gbuffers", "aux", "stats"
+        return "gbuffers", "aux"
 
     monkeypatch.setattr(fg, "frames_step", step)
     bt.reset_launch_counts()
@@ -190,7 +190,7 @@ def test_a_capture_without_a_node_counter_has_no_map(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", _Capture)
     monkeypatch.setattr(launches, "capture_node_counter", lambda: None)
-    monkeypatch.setattr(fg, "frames_step", lambda buf, ds, bvh, **static: ("gbuffers", "aux", "stats"))
+    monkeypatch.setattr(fg, "frames_step", lambda buf, ds, bvh, **static: ("gbuffers", "aux"))
     buf = types.SimpleNamespace(accum=types.SimpleNamespace(device=torch.device("cuda", 0)))
     assert fg.FrameGraph(("key",), buf, None, None).stages is None
 

@@ -34,7 +34,7 @@ import torch
 
 from optix_renderer_tpu_torch.accel import cluster
 from optix_renderer_tpu_torch.accel import sweep_kernel as sk
-from optix_renderer_tpu_torch.accel.traverse import trace_any_with_stats, trace_closest
+from optix_renderer_tpu_torch.accel.traverse import trace_any, trace_closest
 from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine.modes import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer, _frame_impl
@@ -128,7 +128,7 @@ def test_a_cpu_cluster_trace_never_loads_the_sweep_kernel(terrain_cpu, monkeypat
     assert torch.equal(cluster.ray_t_bounds(b.cluster_min, b.cluster_max, rays, 3.0e38,
                                             sc_boxes=(b.sc_min, b.sc_max)), t_plain)
     hit = trace_closest(b, rays, coherent=False)
-    occ, _ = trace_any_with_stats(b, rays, t_max=torch.full((512,), 50.0), coherent=False)
+    occ = trace_any(b, rays, t_max=torch.full((512,), 50.0), coherent=False)
     assert bool((hit.tri_id >= 0).any()) and bool(occ.any())
     assert sk.LAUNCHES == {"sc_sweep": 0}
     assert not torch.cuda.is_initialized()
@@ -171,7 +171,7 @@ def test_the_routing_hands_the_kernel_the_plain_sweeps_inputs(scene, t_kind, ter
         key, t_eff = cluster.corridor_keys_and_t_bounds_plain(bmin, bmax, r, t)
         return t_eff, key
 
-    monkeypatch.setattr(cluster, "_walks", lambda rays: True)
+    monkeypatch.setattr(cluster, "_k_sweep", lambda rays: True)
     monkeypatch.setattr(sk, "sc_sweep_cuda", stand_in)
     boxes = (b.sc_min, b.sc_max)
     got_t = cluster.ray_t_bounds(b.cluster_min, b.cluster_max, rays, t_max, sc_boxes=boxes)

@@ -1,6 +1,7 @@
-"""The walk form of kernels B3 and B4 (``accel.cluster_trace``: per ray, the
+"""The walk of kernels B3 and B4 (``accel.cluster_trace``: per ray, the
 supercluster boxes, then the cluster boxes of those it passes, then the
-triangles, with no lists) in its plain PyTorch version on the CPU.
+triangles, with no lists) in its plain PyTorch version on the CPU, which
+every CPU trace of the cluster tier takes.
 
 Two scenes: a seeded grid-100 terrain (19,614 triangles, 307 clusters, 5
 superclusters) and the committed gallery (5670 triangles, 89 clusters, 2
@@ -14,11 +15,10 @@ Tolerances:
   and equal keys on at least 99 % (XLA's CPU lowering contracts a*b + c*d
   into fused multiply-adds, the port rounds each operation; see
   tests/test_torch_cluster.py);
-* B3 against the port's own list path (per-lane cull, plain list walk,
-  checked fallback): the packed key bit for bit on every lane, the cluster
-  id wherever the key is held by one cluster only;
 * B3 against brute force over the whole table: t to rtol 1e-5;
-* B4 against the JAX package, the list path and brute force: every lane.
+* B4 against the JAX package and brute force: every lane;
+* the port's trace entry points on CPU rays against the plain walk called
+  directly: bit for bit on every lane.
 """
 
 import os
@@ -33,7 +33,7 @@ from optix_renderer_tpu.core.types import Ray as JRay
 from optix_renderer_tpu.engine.renderer import Renderer as JRenderer
 from optix_renderer_tpu.scene import procedural
 from optix_renderer_tpu.scene.config import parse_scene as jparse_scene
-from optix_renderer_tpu_torch.accel import brute_trace, build, cluster
+from optix_renderer_tpu_torch.accel import brute_trace, build, cluster, sweep_kernel, traverse
 from optix_renderer_tpu_torch.accel import cluster_trace as ct
 from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine.modes import RendererType
@@ -60,8 +60,8 @@ def _t_up(key: torch.Tensor) -> torch.Tensor:
 @pytest.fixture(scope="module")
 def scenes(tmp_path_factory):
     """Per scene: the two packages' tables, 2048 seeded rays with their t
-    bounds, a seeded per-lane t_max with dead lanes, and the port's list
-    path on them."""
+    bounds, a seeded per-lane t_max with dead lanes, and the plain walk's
+    winners."""
     paths = {
         "terrain": procedural.write_terrain_scene(str(tmp_path_factory.mktemp("terrain100")), grid=100, width=32,
                                                   height=32),
@@ -84,13 +84,10 @@ def scenes(tmp_path_factory):
         rays = Ray(origin=torch.tensor(o), direction=torch.tensor(d))
         t_eff = cluster.ray_t_bounds(tb.cluster_min, tb.cluster_max, rays, 3.0e38, sc_boxes=(tb.sc_min, tb.sc_max))
         t_any = torch.minimum(t_eff, torch.tensor(t_max))
-        key_l, cid_l, _ = cluster.trace_closest_lists(tb, rays, t_eff, True)
-        occ_l, _ = cluster.trace_any_lists(tb, rays, t_any, True)
         key_w, cid_w = ct.trace_closest_walk_plain(*_walk_args(tb), rays.origin, rays.direction,
                                                    *cluster.cold_start_keys(t_eff))
         out[name] = dict(jb=jb, tb=tb, rays=rays, jrays=JRay(origin=jnp.asarray(o), direction=jnp.asarray(d)),
-                         t_eff=t_eff, t_max=t_max, t_any=t_any, key_l=key_l, cid_l=cid_l, occ_l=occ_l,
-                         key_w=key_w, cid_w=cid_w)
+                         t_eff=t_eff, t_max=t_max, t_any=t_any, key_w=key_w, cid_w=cid_w)
     return out
 
 
@@ -120,12 +117,30 @@ def test_walk_closest_matches_jax(scenes, scene):
 
 
 @pytest.mark.parametrize("scene", SCENES)
-def test_walk_closest_matches_list_path(scenes, scene):
+def test_cpu_entry_points_take_the_plain_walk(scenes, scene):
+    """On CPU rays the port's trace entry points are the plain walk: the
+    dispatcher's packed winners in the given order (``coherent=True``),
+    corridor-sorted and unsorted (``coherent=False``) and with an ``active``
+    mask, and its occlusion both ways, equal the plain walk called directly
+    on every lane, and no kernel launch is counted."""
     s = scenes[scene]
-    np.testing.assert_array_equal(s["key_w"].numpy(), s["key_l"].numpy())
-    # a key that two clusters hold (a shared edge) may keep either cluster's id
-    assert (s["cid_w"] == s["cid_l"]).float().mean() >= B3_AGREE_MIN
-    assert ((s["cid_w"] >= 0) == (s["cid_l"] >= 0)).all()
+    tb, rays = s["tb"], s["rays"]
+    ct.reset_launch_counts()
+    sweep_kernel.reset_launch_counts()
+    for coherent in (True, False):
+        key, cid, t_b, _ = traverse.trace_closest_winners(tb, rays, coherent=coherent)
+        np.testing.assert_array_equal(t_b.numpy(), s["t_eff"].numpy())
+        np.testing.assert_array_equal(key.numpy(), s["key_w"].numpy())
+        np.testing.assert_array_equal(cid.numpy(), s["cid_w"].numpy())
+        occ = traverse.trace_any(tb, rays, t_max=torch.as_tensor(s["t_max"]), coherent=coherent)
+        want = ct.trace_any_walk_plain(*_walk_args(tb), rays.origin, rays.direction, s["t_any"])
+        np.testing.assert_array_equal(occ.numpy(), want.numpy())
+    active = torch.tensor(s["t_max"] > 0.0)
+    key, cid, _t, _ = traverse.trace_closest_winners(tb, rays, active=active, coherent=False)
+    np.testing.assert_array_equal(key[active].numpy(), s["key_w"][active].numpy())
+    np.testing.assert_array_equal(cid[active].numpy(), s["cid_w"][active].numpy())
+    assert (cid[~active] == -1).all() and (~active).sum() > 100
+    assert not any(ct.LAUNCHES.values()) and not any(sweep_kernel.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("scene", SCENES)
@@ -144,6 +159,8 @@ def test_walk_closest_matches_brute_force(scenes, scene):
 
 @pytest.mark.parametrize("scene", SCENES)
 def test_walk_any_matches_jax_list_path_and_brute_force(scenes, scene):
+    """B4's plain walk against the JAX package's per-lane list path and
+    brute force."""
     s = scenes[scene]
     jb, tb, rays = s["jb"], s["tb"], s["rays"]
     occ = ct.trace_any_walk_plain(*_walk_args(tb), rays.origin, rays.direction, s["t_any"])
@@ -151,7 +168,6 @@ def test_walk_any_matches_jax_list_path_and_brute_force(scenes, scene):
                                     t_max=jnp.asarray(s["t_max"]), refine=True, interpret=True)
     assert 0.05 < occ.float().mean() < 0.9
     np.testing.assert_array_equal(occ.numpy(), np.asarray(wocc))
-    np.testing.assert_array_equal(occ.numpy(), s["occ_l"].numpy())
     want = brute_trace.trace_any_plain(tb.tri_tab, rays.origin[:N_BRUTE], rays.direction[:N_BRUTE],
                                        s["t_any"][:N_BRUTE])
     np.testing.assert_array_equal(occ[:N_BRUTE].numpy(), want.numpy())
@@ -226,17 +242,20 @@ def test_walk_bound_counts(scenes):
     assert tb.num_clusters % 64 != 0 and slabs_far <= N_RAYS * (S + tb.num_clusters)
 
 
-def test_per_lane_traces_on_the_cpu_take_the_list_path(scenes):
-    """The rays' device decides: CPU tensors never reach a walk kernel."""
+def test_per_lane_traces_on_the_cpu_take_the_plain_walk(scenes):
+    """The rays' device decides: CPU tensors never reach a kernel, and the
+    cluster tier's traces return the plain walk's answers."""
     s = scenes["gallery"]
     tb, rays = s["tb"], s["rays"]
-    assert not cluster._walks(rays)
+    assert not cluster._k_sweep(rays)
     ct.reset_launch_counts()
-    key, cid, _, stats = cluster.trace_closest_clusters_packed(tb, rays, refine=True, t_eff=s["t_eff"])
-    occ, _ = cluster.trace_any_clusters(tb, rays, refine=True, t_eff=s["t_any"])
-    assert not any(ct.LAUNCHES.values()) and stats == cluster.zero_trace_stats()
-    np.testing.assert_array_equal(key.numpy(), s["key_l"].numpy())
-    np.testing.assert_array_equal(occ.numpy(), s["occ_l"].numpy())
+    key, cid, _ = cluster.trace_closest_clusters_packed(tb, rays, t_eff=s["t_eff"])
+    occ = cluster.trace_any_clusters(tb, rays, t_eff=s["t_any"])
+    assert not any(ct.LAUNCHES.values())
+    np.testing.assert_array_equal(key.numpy(), s["key_w"].numpy())
+    np.testing.assert_array_equal(cid.numpy(), s["cid_w"].numpy())
+    want = ct.trace_any_walk_plain(*_walk_args(tb), rays.origin, rays.direction, s["t_any"])
+    np.testing.assert_array_equal(occ.numpy(), want.numpy())
 
 
 def test_walk_cuda_wrappers_refuse_cpu_tensors(scenes):
