@@ -12,10 +12,10 @@ raises and exits non-zero):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the hand-written kernels from ``optix_renderer_tpu_torch/csrc``,
    one nvcc per library (brute_trace, ltc, cluster_trace, camera_rng,
-   path_bounce, brute_shade, sc_sweep), all started together, with ptxas' register and spill
+   path_bounce, brute_shade, cluster_shade, sc_sweep), all started together, with ptxas' register and spill
    report (B1/B2 may not spill) and B1/B2's rays a thread, chunk rows and
    shared memory a block, the SASS instructions on a lane's
-   straight-line path of K1, K2 and K3 (``cuobjdump -sass``,
+   straight-line path of K1, K2, K3 and K4 (``cuobjdump -sass``,
    ``utils.brute_bench.sass_path``), and K-sweep's SASS instructions a box
    over its passes (``utils.brute_bench.sweep_box_instructions``);
 3. kernels vs plain, at the main paths' shapes, timed with CUDA events in
@@ -72,7 +72,8 @@ raises and exits non-zero):
    config 5), the walk of B3 on 1024^2 primaries, against its plain
    version on every ray (the key on every lane, the cluster id on 99.99 %)
    and timed in turns with it on a seeded sample of 64 tiles of 1024 rays,
-   B5 on its winners (bit-equal on every lane), K-sweep (the supercluster
+   K4 (``cluster_shade``, the cluster tier's winners to the
+   SurfaceInteraction) on its winners, K-sweep (the supercluster
    sweep) on the primaries (t bound) and on 1M cosine bounce rays from
    their hits and 1M NEE shadow rays, with their dead lanes moved above
    the scene (key and t bound), bit-equal to the plain sweep on every
@@ -91,6 +92,13 @@ raises and exits non-zero):
    unbaked walk, and the bake's own time; and both walks against
    their plain versions on a 1.28M-triangle terrain with 312
    superclusters, which takes two rounds of supercluster boxes per ray;
+   K4 against its plain version (the winners' gather, then the fused
+   build) on every lane of the terrain's primary winners and the winners
+   of its 1M cosine bounce rays (corridor-sorted trace), and of the first
+   frame's primary and bounce winners on SPD's tetra (1,048,576 triangles)
+   at 1024^2 and on the textured gallery at 512^2, bit-equal, each timed
+   in turns with the plain version and as graph replays beside its byte
+   bounds (214 bytes a hit lane; each distinct winning row once);
    the crossover frames count one baked walk per frame on the cluster
    tier and the unbaked walk on the bounces only;
 4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
@@ -251,6 +259,9 @@ LTC_BIT_EQUAL_MIN = 0.9999
 # heightfield triangles + the Cornell walls) and config 6's gallery
 TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 8
 GALLERY_RES = 512
+# K4 is also held on SPD's tetra (the benchmark's 1,048,576-triangle scene) and on the textured gallery
+TETRA_SCENE = os.path.join(ROOT, "portbench", "scenes", "spd-tetra", "scene.json")
+GALLERY_SCENE = os.path.join(ROOT, "scenes", "gallery", "scene.json")
 GALLERY_GOLDENS = {"gallery_diffuse": ("DIFFUSE", 1), "gallery_ltc": ("LTC_BASELINE", 1),
                    "gallery_path": ("PATH", 2)}  # tests/goldens/generate.py GALLERY_MODES
 SAMPLE_TILE, SAMPLE_TILES = 1024, 64  # the kernels and their plain versions timed in turns on 64 seeded tiles of rays
@@ -480,6 +491,76 @@ def _bounce_sass(built: dict) -> dict:
     out = {k: v["instructions"] for lib in ("path_bounce", "brute_shade")
            for k, v in bounce_paths(cuobjdump_sass(built[lib][0])).items()}
     _require(sorted(out) == sorted(BOUNCE_KERNELS), f"SASS of K1-K3: found {sorted(out)}")
+    return out
+
+
+def _k4_sass(built: dict) -> int:
+    """SASS instructions on K4's straight-line path (``utils.brute_bench.sass_path`` over ``cuobjdump -sass``)."""
+    from optix_renderer_tpu_torch.utils.brute_bench import cuobjdump_sass, sass_functions, sass_path
+
+    fns = [lines for name, lines in sass_functions(cuobjdump_sass(built["cluster_shade"][0])).items()
+           if "cluster_shade_kernel" in name]
+    _require(len(fns) == 1, f"SASS of K4: {len(fns)} functions named cluster_shade_kernel")
+    return sass_path(fns[0])["instructions"]
+
+
+def _check_cluster_shade(torch, sk, shade, ct, graph_ms, r, rays, key, cid, smi, label: str) -> dict:
+    """K4 against its plain version (the winners' gather, then the fused build) on every lane of one batch of
+    ``r``'s winners, bit for bit, one launch; its CUDA-event time in turns with the plain version's and as 30
+    launches replayed in a CUDA graph, beside two byte bounds: 214 bytes a hit lane (key, cid, ray and fields
+    a lane, the winner's rows a hit lane) and each distinct winning row read once."""
+    args = (r.device_scene, r.bvh.shade_a, r.bvh.shade_b, rays, key, cid)
+    n = key.shape[0]
+    sk.reset_launch_counts()
+    got = sk.cluster_shade_cuda(*args)
+    _require(sk.LAUNCHES["cluster_shade"] == 1, f"K4 {label}: {sk.LAUNCHES} launches for one call")
+    err = _check_bits(torch, f"K4 {label}", got, shade.shade_winners_plain(*args),
+                      {"key": key, "cid": cid, "origin": rays.origin, "direction": rays.direction})
+    del got
+    ms, plain_ms = _in_turns(torch, lambda: shade.shade_winners_plain(*args), lambda: sk.cluster_shade_cuda(*args),
+                             3, 30)
+    g_ms = graph_ms(lambda: sk.cluster_shade_cuda(*args), 30)
+    rows, hit = ct.winner_rows(key, cid)
+    hits = int(hit.sum().item())
+    distinct = torch.unique(rows[hit]).numel()
+    lane_bound = _bound(n * sk.BYTES_WINNER + hits * sk.BYTES_WINNER_ROW, 0)
+    bound = _bound(n * sk.BYTES_WINNER + distinct * sk.BYTES_WINNER_ROW, 0)
+    print(f"  K4 {label}: {n} lanes, {hits} hits ({distinct} distinct triangles), bit-equal on every lane; "
+          f"{ms:.4f} ms ({g_ms:.4f} replayed in a graph) vs plain {plain_ms:.4f} ms; bound {lane_bound[0]:.4f} ms "
+          f"at 214 bytes a hit lane, {bound[0]:.4f} ms with each distinct row once ({bound[1]}) on {smi}", flush=True)
+    return {"lanes": n, "hits": hits, "distinct_rows": distinct, "max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound": bound, "hit_lane_bound_ms": lane_bound[0]}
+
+
+def _cosine_bounce(torch, cm, bsdf, si, seed: int):
+    """Cosine-sampled bounce rays (origin, direction) from the hits of ``si``, offset along the normal as the
+    path tracer offsets them (miss lanes too: callers mask them)."""
+    from optix_renderer_tpu_torch.integrators.path import RAY_EPS
+
+    g = torch.Generator(device=si.p.device).manual_seed(seed)
+    u = torch.rand((2, si.p.shape[0]), generator=g, device=si.p.device)
+    _, to_world = cm.orthonormal_basis(si.n_geom)
+    d = cm.normalize(cm.apply_mat(to_world, bsdf.sample_cosine_hemisphere(u[0], u[1])), eps=1e-30)
+    return (si.p + si.n_geom * RAY_EPS).contiguous(), d.contiguous()
+
+
+def _cluster_shade_scene(torch, sk, shade, ct, cm, bsdf, Ray, graph_ms, r, smi, label: str) -> dict:
+    """K4 (``_check_cluster_shade``) on ``r``'s first-frame primary winners (the baked walk, as a frame traces
+    them) and on the corridor-sorted winners of cosine bounce rays from their hits."""
+    from optix_renderer_tpu_torch.accel.traverse import trace_closest_winners
+    from optix_renderer_tpu_torch.engine.camera_kernel import pixel_order
+    from optix_renderer_tpu_torch.utils.bench_rays import first_frame_primaries
+
+    b = r.bvh
+    prim = first_frame_primaries(r, pixel_order(r.width, r.height, r.device))
+    key, cid, _t, _ = trace_closest_winners(b, prim, baked_tab=r.baked_tab)
+    out = {"primaries": _check_cluster_shade(torch, sk, shade, ct, graph_ms, r, prim, key, cid, smi,
+                                             f"{label} primary winners")}
+    si = shade.shade_winners_plain(r.device_scene, b.shade_a, b.shade_b, prim, key, cid)
+    bounce = Ray(*_cosine_bounce(torch, cm, bsdf, si, SEED + 7))
+    key_b, cid_b, _t, _ = trace_closest_winners(b, bounce, active=si.hit, coherent=False)
+    out["bounce"] = _check_cluster_shade(torch, sk, shade, ct, graph_ms, r, bounce, key_b, cid_b, smi,
+                                         f"{label} cosine bounce winners (corridor-sorted trace)")
     return out
 
 
@@ -1171,6 +1252,7 @@ def main() -> int:
     from optix_renderer_tpu_torch.accel import cluster
     from optix_renderer_tpu_torch.accel import cluster_trace as ct
     from optix_renderer_tpu_torch.accel import sweep_kernel as swk
+    from optix_renderer_tpu_torch.accel.traverse import trace_closest_winners
     from optix_renderer_tpu_torch.core import math as cm
     from optix_renderer_tpu_torch.engine import RendererType
     from optix_renderer_tpu_torch.core.types import Hit, Ray
@@ -1179,7 +1261,6 @@ def main() -> int:
     from optix_renderer_tpu_torch.engine import shade_kernel as sk
     from optix_renderer_tpu_torch.engine.camera import camera_from_lookat
     from optix_renderer_tpu_torch.engine.renderer import Renderer
-    from optix_renderer_tpu_torch.engine.shade import build_surface_interaction_fused
     from optix_renderer_tpu_torch.postprocess.denoise import denoise_and_combine
     from optix_renderer_tpu_torch.integrators import path_kernel as pk
     from optix_renderer_tpu_torch.integrators.path import RAY_EPS
@@ -1284,7 +1365,8 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per library, all started together --------------
     libs = {"brute_trace": bt.SOURCES, "ltc": lk.SOURCES, "cluster_trace": ct.SOURCES, "camera_rng": ck.SOURCES,
-            "path_bounce": pk.SOURCES, "brute_shade": sk.SOURCES, "sc_sweep": swk.SOURCES}
+            "path_bounce": pk.SOURCES, "brute_shade": sk.SOURCES, "cluster_shade": sk.CLUSTER_SOURCES,
+            "sc_sweep": swk.SOURCES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(cuda_build.build_library, name, srcs) for name, srcs in libs.items()}
@@ -1292,6 +1374,7 @@ def main() -> int:
     build_wall = time.perf_counter() - t0
     for mod in (bt, lk, ct, ck, pk, sk, swk):
         mod.kernel_library()
+    sk.cluster_kernel_library()
     print(f"[2 build] {len(libs)} libraries in {build_wall:.2f} s wall", flush=True)
     for name, (lib_path, build_s) in built.items():
         with open(lib_path + ".log") as f:
@@ -1308,6 +1391,8 @@ def main() -> int:
     bounce_sass = _bounce_sass(built)
     print("  K1-K3, SASS instructions on a lane's straight-line path (brute_bench.sass_path): "
           + ", ".join(f"{k} {v}" for k, v in bounce_sass.items()), flush=True)
+    k4_sass = _k4_sass(built)
+    print(f"  K4, SASS instructions on a lane's straight-line path (brute_bench.sass_path): {k4_sass}", flush=True)
     sweep_sass = _sweep_sass(built)
     print("  K-sweep, SASS instructions a box over its passes (brute_bench.sweep_box_instructions): "
           + ", ".join(f"{('t bound', 'key of first and last', 'key of first, middle and last')[k]} {v:.2f}"
@@ -1460,29 +1545,11 @@ def main() -> int:
                           "terrain primary 1024^2")
     key_p, cid_p = ct.trace_closest_walk_cuda(tb.tri_tab, tb.cluster_min, tb.cluster_max, tb.sc_min, tb.sc_max,
                                               prim_t.origin, prim_t.direction, key0, cid0)
-    # B5 on the primaries' winners, every lane
-    cols_k = ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key_p, cid_p)
-    cols_p = ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key_p, cid_p)
-    torch.cuda.synchronize()
-    _require(bool((cols_k == cols_p).all()), "B5: winner attributes differ from the plain gather")
-    err_b5 = (cols_k - cols_p).abs().max().item()
-    win_rows, _ = ct.winner_rows(key_p, cid_p)
-    tab26 = torch.cat([tb.shade_a, tb.shade_b[:, :6]], dim=1)  # the library call's table, made once
-    ms_b5, plain_b5 = _in_turns(torch, lambda: ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key_p, cid_p),
-                                lambda: ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key_p, cid_p), 10, 50)
-    lib_b5 = _time_ms(torch, lambda: torch.index_select(tab26, 0, win_rows), 50)
-    hits_p = int((cid_p >= 0).sum().item())
-    # bytes: key and cid in, the (26, N) columns out, and the 26 used
-    # columns of each distinct winning row read once
-    distinct_p = torch.unique(win_rows[cid_p >= 0]).numel()
-    bound_b5 = _bound(n_t * 8 + n_t * ct.N_SHADE_ATTR * 4 + distinct_p * ct.N_SHADE_ATTR * 4, 0)
-    print(f"  B5 terrain primary winners: {n_t} lanes, {hits_p} hits ({distinct_p} distinct triangles), "
-          f"bit-equal on every lane; kernel "
-          f"{ms_b5:.4f} ms vs plain {plain_b5:.4f} ms, torch.index_select of the same rows {lib_b5:.4f} ms, "
-          f"bound {bound_b5[0]:.4f} ms ({bound_b5[1]})", flush=True)
-
+    # K4 on the primaries' winners, every lane
+    k4 = {"terrain primaries": _check_cluster_shade(torch, sk, shade, ct, graph_ms, rt, prim_t, key_p, cid_p, smi,
+                                                    "terrain primary winners")}
     # 1M cosine bounce rays from the primary hits, and 1M NEE shadow rays
-    si_p = build_surface_interaction_fused(rt.device_scene, prim_t, cid_p, cols_k)
+    si_p = shade.shade_winners_plain(rt.device_scene, tb.shade_a, tb.shade_b, prim_t, key_p, cid_p)
     g = torch.Generator(device=dev).manual_seed(SEED)
     u = torch.rand((4, n_t), generator=g, device=dev)
     _, to_world = cm.orthonormal_basis(si_p.n_geom)
@@ -1490,6 +1557,10 @@ def main() -> int:
     org_b = si_p.p + si_p.n_geom * RAY_EPS
     bounce = Ray(origin=org_b, direction=d_b)
     ob, db, teb = _sorted_rays(torch, cluster, tb, bounce, si_p.hit, 3.0e38)
+    key_b, cid_b, _t, _ = trace_closest_winners(tb, bounce, active=si_p.hit, coherent=False)
+    k4["terrain bounce"] = _check_cluster_shade(torch, sk, shade, ct, graph_ms, rt, bounce, key_b, cid_b, smi,
+                                                "terrain 1M cosine bounce winners (corridor-sorted trace)")
+    del key_b, cid_b
     ds_t = rt.device_scene
     lidx = torch.randint(0, ds_t.num_lights, (n_t,), generator=g, device=dev)
     lp = cm.sample_point_on_triangle(ds_t.light_v1[lidx], ds_t.light_v2[lidx], ds_t.light_v3[lidx], u[2], u[3])
@@ -1528,7 +1599,7 @@ def main() -> int:
     print(f"  bake_shared_origin_tab of the {tb.num_tris}-triangle table {tuple(tb.tri_tab.shape)}: {bake_ms:.4f} ms "
           f"(CUDA events), paid per camera move", flush=True)
     del prim_1
-    del bounce, shadow, ob, db, teb, os_, ds_, tes, si_p, cols_k, cols_p, tab26, u
+    del bounce, shadow, ob, db, teb, os_, ds_, tes, si_p, u
 
     # the walks on a scene that needs two rounds of supercluster boxes per ray
     with tempfile.TemporaryDirectory() as tmp:
@@ -1556,6 +1627,16 @@ def main() -> int:
           f"({int(occ_q.sum().item())} occluded)", flush=True)
     del big, args2, rays2, o2, d2, key_k, cid_k, key_q, cid_q, occ_k, occ_q
     del key0, cid0, key_p, cid_p, lp, to_light, ldir, org_b, d_b
+    # K4 on SPD's tetra (1,048,576 triangles, the benchmark's scene) and the textured gallery
+    for label, path, res in (("tetra 1024^2", TETRA_SCENE, TERRAIN_RES), ("gallery 512^2", GALLERY_SCENE,
+                                                                         GALLERY_RES)):
+        rk = Renderer(parse_scene(path), width=res, height=res, mode=RendererType.PATH, path_depth=MAIN_DEPTH,
+                      device=dev)
+        _require(rk.bvh.clustered and (rk.device_scene.has_textures == label.startswith("gallery")),
+                 f"{label}: clustered {rk.bvh.clustered}, textures {rk.device_scene.has_textures}")
+        for batch, v in _cluster_shade_scene(torch, sk, shade, ct, cm, bsdf, Ray, graph_ms, rk, smi, label).items():
+            k4[f"{label.split()[0]} {batch}"] = v
+        del rk
     phase_done("phase 3")
 
     # ---- 4. the slice against the committed goldens ------------------------
@@ -1772,7 +1853,7 @@ def main() -> int:
         rt.render(1)
         secs += rt.metrics["seconds"] - s0
     launches_c5 = launch_counts()
-    want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, winner_attrs=TERRAIN_FRAMES,
+    want = expected(camera_rng=TERRAIN_FRAMES, cluster_closest_walk_baked=TERRAIN_FRAMES, cluster_shade=TERRAIN_FRAMES,
                     sc_sweep=TERRAIN_FRAMES)
     _require(launches_c5 == want, f"config 5 launch counts {launches_c5}, expected {want}")
     img = rt.image()
@@ -1799,7 +1880,7 @@ def main() -> int:
     traces = TIMED_FRAMES * (1 + MAIN_DEPTH)
     want = expected(camera_rng=TIMED_FRAMES, cluster_closest_walk_baked=TIMED_FRAMES,
                     cluster_closest_walk=TIMED_FRAMES * MAIN_DEPTH,
-                    cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, winner_attrs=traces,
+                    cluster_any_walk=TIMED_FRAMES * MAIN_DEPTH, cluster_shade=traces,
                     path_sample=TIMED_FRAMES * MAIN_DEPTH, path_combine=TIMED_FRAMES * MAIN_DEPTH,
                     sc_sweep=TIMED_FRAMES * (1 + 2 * MAIN_DEPTH))
     _require(launches_c6 == want, f"config 6 launch counts {launches_c6}, expected {want}")
@@ -1831,7 +1912,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     n_fr = TERRAIN_PATH_FRAMES
     want = expected(camera_rng=n_fr, cluster_closest_walk_baked=n_fr, cluster_closest_walk=n_fr * MAIN_DEPTH,
-                    cluster_any_walk=n_fr * MAIN_DEPTH, winner_attrs=n_fr * (1 + MAIN_DEPTH),
+                    cluster_any_walk=n_fr * MAIN_DEPTH, cluster_shade=n_fr * (1 + MAIN_DEPTH),
                     path_sample=n_fr * MAIN_DEPTH, path_combine=n_fr * MAIN_DEPTH, sc_sweep=n_fr * traces)
     _require(launches_c5b == want, f"config 5b launch counts {launches_c5b}, expected {want}")
     img = rt.image()
@@ -1995,7 +2076,7 @@ def main() -> int:
         launches_split_t = launch_counts()
         want = expected(camera_rng=SPLIT_DEVICES * SPLIT_FRAMES,
                         cluster_closest_walk_baked=SPLIT_DEVICES * SPLIT_FRAMES,
-                        winner_attrs=SPLIT_DEVICES * SPLIT_FRAMES, sc_sweep=SPLIT_DEVICES * SPLIT_FRAMES)
+                        cluster_shade=SPLIT_DEVICES * SPLIT_FRAMES, sc_sweep=SPLIT_DEVICES * SPLIT_FRAMES)
         _require(launches_split_t == want, f"row-split terrain launch counts {launches_split_t}, expected {want}")
         ms_t = {k: sum(v) / len(v) * 1e3 for k, v in secs_t.items()}
         print(f"[12 split] {SPLIT_DEVICES} shares of {dev}, each tile a replay of its own graph: Cornell PATH depth "
@@ -2099,7 +2180,7 @@ def main() -> int:
         _require(server.error is None and not any(t.is_alive() for t in server._threads),
                  f"the viewer's render loop failed: {server.error!r}")
         for name in ("camera_rng", "cluster_closest_walk_baked", "cluster_closest_walk", "cluster_any_walk",
-                     "winner_attrs", "ltc", "path_sample", "path_combine", "sc_sweep"):
+                     "cluster_shade", "ltc", "path_sample", "path_combine", "sc_sweep"):
             _require(launches_viewer[name] > 0, f"the viewer never launched {name}: {launches_viewer}")
         img = rv.image()
         _require(img.shape == (TERRAIN_RES, TERRAIN_RES, 3) and bool(np.isfinite(img).all()) and float(img.mean()) > 0,
@@ -2477,9 +2558,14 @@ def main() -> int:
          "sample_ms": b3k["camera 0"]["sample_ms"], "bound_ms": b3k["camera 0"]["bound_ms"],
          "bound_by": b3k["camera 0"]["bound_by"], "library_ms": None,
          "unbaked_walk_ms": b3k["camera 0"]["unbaked_walk_ms"], "bake_ms": bake_ms, "origins": b3k},
-        {"name": "winner_attrs", "route": "cuda", "source": csrc, "replaces": f"{pc}:1657",
-         "launches": launches["winner_attrs"], "max_abs_err": err_b5, "ms": ms_b5, "plain_ms": plain_b5,
-         "bound_ms": bound_b5[0], "bound_by": bound_b5[1], "library_ms": lib_b5},
+        # K4: the cluster tier's winners to the SurfaceInteraction, B5's fetch fused in; ms, plain_ms and bound_ms
+        # (each distinct row once) at the tetra's 1M cosine bounce winners; `inputs` holds every batch's
+        {"name": "cluster_shade", "route": "cuda", "source": "optix_renderer_tpu_torch/csrc/cluster_shade.cu",
+         "replaces": f"{pc}:1657 and optix_renderer_tpu/engine/shade.py:168", "launches": launches["cluster_shade"],
+         "max_abs_err": max(v["max_abs_err"] for v in k4.values()), "ms": k4["tetra bounce"]["ms"],
+         "plain_ms": k4["tetra bounce"]["plain_ms"], "bound_ms": k4["tetra bounce"]["bound"][0],
+         "bound_by": k4["tetra bounce"]["bound"][1], "library_ms": None, "sass_instructions": k4_sass,
+         "inputs": k4},
         # B6: ms, plain_ms and bound_ms at the Cornell LTC frame (L = 2); `by_lights` at every input
         {"name": "ltc", "route": "cuda", "source": "optix_renderer_tpu_torch/csrc/ltc.cu",
          "replaces": "optix_renderer_tpu/shading/ltc_pallas.py:154",

@@ -1,18 +1,23 @@
-"""Cluster-tier kernels B3 (closest hit), B4 (occlusion) and B5 (winner
-attributes).
+"""Cluster-tier kernels B3 (closest hit) and B4 (occlusion), and the plain
+winner-attribute gather.
 
 Counterpart of the Pallas half of ``optix_renderer_tpu/accel/pallas_cluster.py``
-(its closest-hit, any-hit and winner-attribute kernels, ``:848``, ``:1020``
-and ``:1657``).  Each kernel has three pieces here:
+(its closest-hit and any-hit kernels, ``:848`` and ``:1020``).  Each kernel
+has three pieces here:
 
 * the wrapper (``*_cuda``), which checks its inputs, allocates the outputs
   and launches the hand-written CUDA kernel in ``csrc/cluster_trace.cu`` on
   the current stream, counting each launch in ``LAUNCHES``;
 * the plain PyTorch version (``*_plain``), which applies the kernel's
   per-lane rules in the same f32 order;
-* the router (``trace_closest_walk``, ``trace_any_walk``,
-  ``fetch_winner_attrs``): a CUDA tensor launches the kernel, a CPU tensor
-  runs the plain version, any other device raises.
+* the router (``trace_closest_walk``, ``trace_any_walk``): a CUDA tensor
+  launches the kernel, a CPU tensor runs the plain version, any other
+  device raises.
+
+The winner-attribute kernel (``:1657``) has only its plain version here,
+``fetch_winner_attrs_plain``: on the card the fetch is part of the shading
+kernel K4 (``engine.shade_kernel.cluster_shade_cuda``), whose plain version
+it begins.
 
 **Walk** (B3, B4; every trace of the cluster tier).  Per ray, the kernel
 slab-tests the supercluster boxes (``BVH.sc_min/sc_max``, runs of
@@ -57,16 +62,16 @@ import torch
 
 from ..utils.launches import count_launch, open_work_records
 from .brute_trace import moller_trumbore
-from .build import CLUSTER_SIZE, SC_GROUP, SHADE_A_COLS, SHADE_B_COLS
+from .build import CLUSTER_SIZE, SC_GROUP
 
 MISS_KEY = 0x7FFFFFFF
-N_SHADE_ATTR = 26  # B5 output rows: the 20 shade_a columns, then the 6 uv columns of shade_b
+N_SHADE_ATTR = 26  # the gather's rows: the 20 shade_a columns, then the 6 uv columns of shade_b
 _LOCAL_MASK = CLUSTER_SIZE - 1
 
 # Launches of each kernel since the last reset_launch_counts(), counted by
 # utils.launches.count_launch (a CUDA graph's replays included); the plain
 # versions are not counted.
-LAUNCHES = {"cluster_closest_walk": 0, "cluster_closest_walk_baked": 0, "cluster_any_walk": 0, "winner_attrs": 0}
+LAUNCHES = {"cluster_closest_walk": 0, "cluster_closest_walk_baked": 0, "cluster_any_walk": 0}
 # plain walk: lanes per dense chunk, and (lane, cluster) pairs per block of 64 Moller-Trumbore tests
 _WALK_LANES = 4096
 _WALK_PAIRS = 1 << 14
@@ -91,10 +96,8 @@ def kernel_library() -> ctypes.CDLL:
         lib.cluster_closest_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, p, i32, p, p, p, p]
         lib.cluster_closest_walk_baked.argtypes = lib.cluster_closest_walk.argtypes
         lib.cluster_any_walk.argtypes = [p, p, p, i32, p, p, i32, p, p, p, i32, p, p, p]
-        lib.winner_attrs.argtypes = [p, p, p, p, i32, p, p]
         lib.cluster_group.argtypes = []
-        for fn in (lib.cluster_closest_walk, lib.cluster_closest_walk_baked, lib.cluster_any_walk, lib.winner_attrs,
-                   lib.cluster_group):
+        for fn in (lib.cluster_closest_walk, lib.cluster_closest_walk_baked, lib.cluster_any_walk, lib.cluster_group):
             fn.restype = ctypes.c_int
         if lib.cluster_group() != SC_GROUP:
             raise RuntimeError(f"csrc/cluster_trace.cu walks superclusters of {lib.cluster_group()} clusters, "
@@ -237,8 +240,9 @@ def winner_rows(key, cid):
 
 
 def fetch_winner_attrs_plain(shade_a, shade_b, key, cid):
-    """B5's function as an index gather (pallas_cluster's fallback
-    ``_gather_cols``, with zeros on a miss): (26, N) f32."""
+    """The winner-attribute kernel's function as an index gather
+    (pallas_cluster's fallback ``_gather_cols``, with zeros on a miss):
+    (26, N) f32."""
     rows, valid = winner_rows(key, cid)
     cols = torch.cat([shade_a[rows], shade_b[rows, :6]], dim=1)
     return torch.where(valid[:, None], cols, 0.0).t().contiguous()
@@ -356,28 +360,6 @@ def trace_any_walk_cuda(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_ma
     return occ
 
 
-def fetch_winner_attrs_cuda(shade_a, shade_b, key, cid):
-    """Kernel B5 on the card; same output as fetch_winner_attrs_plain."""
-    n = key.shape[0] if key.dim() == 1 else -1
-    _require(key.dim() == 1 and tuple(cid.shape) == (n,), f"key and cid must be (N,), got {tuple(key.shape)}, "
-             f"{tuple(cid.shape)}")
-    _require(shade_a.dim() == 2 and shade_a.shape[1] == SHADE_A_COLS, f"shade_a must be (Tp, {SHADE_A_COLS})")
-    _require(tuple(shade_b.shape) == (shade_a.shape[0], SHADE_B_COLS), f"shade_b must be (Tp, {SHADE_B_COLS})")
-    _require(n < 2**31 and N_SHADE_ATTR * n < 2**31, "too many lanes")
-    _check(key.device, shade_a=(shade_a, torch.float32), shade_b=(shade_b, torch.float32),
-           key=(key, torch.int32), cid=(cid, torch.int32))
-    out = torch.empty((N_SHADE_ATTR, n), dtype=torch.float32, device=key.device)
-    if n == 0:
-        return out
-    lib = kernel_library()
-    with torch.cuda.device(key.device):
-        err = lib.winner_attrs(shade_a.data_ptr(), shade_b.data_ptr(), key.data_ptr(), cid.data_ptr(), n,
-                               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "winner_attrs")
-    count_launch(LAUNCHES, "winner_attrs", "winner_attr_kernel")
-    return out
-
-
 # ---------------------------------------------------------------------------
 # routing by the rays' device
 # ---------------------------------------------------------------------------
@@ -401,7 +383,3 @@ def trace_any_walk(tab, cmin, cmax, sc_min, sc_max, origin, direction, t_max):
     return _route(origin, trace_any_walk_cuda, trace_any_walk_plain)(tab, cmin, cmax, sc_min, sc_max, origin,
                                                                      direction, t_max)
 
-
-def fetch_winner_attrs(shade_a, shade_b, key, cid):
-    """(26, N) shade columns of each lane's winning triangle, zeros on a miss."""
-    return _route(key, fetch_winner_attrs_cuda, fetch_winner_attrs_plain)(shade_a, shade_b, key, cid)

@@ -1,10 +1,10 @@
 // Cluster-tier ray/triangle kernels for scenes above 4096 triangles.
 //
 // B3 (closest hit) replaces the closest-hit kernel of
-// optix_renderer_tpu/accel/pallas_cluster.py (:848), B4 (occlusion) its any-hit
-// kernel (:1020) and winner_attrs (B5) its winner-attribute kernel (:1657). They
-// compute what the TPU kernels compute, without their DMA rings, visit groups,
-// SMEM lists and (8, 128) planes.
+// optix_renderer_tpu/accel/pallas_cluster.py (:848) and B4 (occlusion) its any-hit
+// kernel (:1020).  They compute what the TPU kernels compute, without their DMA
+// rings, visit groups, SMEM lists and (8, 128) planes.  The winner-attribute
+// kernel (:1657) is fused into the shading, kernel K4 (cluster_shade.cu).
 //
 // The walk (cluster_closest_walk, cluster_any_walk): what every trace of the
 // cluster tier takes on the card (accel/cluster.py).  The TPU kernels walk dense
@@ -52,11 +52,6 @@
 // the row type and its test differ (the template argument of ray_walk).  The
 // boxes are the unbaked ones and the slab tests use the rays' own origins.
 //
-// B5: for each lane, the 20 shade_a columns and the 6 uv columns of shade_b of
-// its winning sorted triangle cid * 64 + (key & 63), attribute-major (26, N),
-// zeros on a miss.  One thread per lane reads its two rows: 112 bytes a lane
-// (8 in, 104 out) and 104 bytes of its winner's rows, bound by bytes.
-//
 // Build with --fmad=false: the float operations are those of the plain PyTorch
 // versions (optix_renderer_tpu_torch/accel/cluster_trace.py) operation for
 // operation, and FMA contraction would move their rounding.
@@ -66,7 +61,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // B5
 constexpr int kTraceThreads = 128;  // B3/B4: four independent warps
 constexpr int kWarps = kTraceThreads / 32;
 constexpr int kCluster = 64;    // triangles per cluster
@@ -74,7 +68,6 @@ constexpr int kGroup = 64;      // clusters per supercluster (accel.build.SC_GRO
 constexpr int kTabCols = 16;    // flat table row: v0(3) e1(3) e2(3) prim(1) n(3) mesh area pad
 constexpr int kLocalMask = kCluster - 1;
 constexpr int32_t kMissKey = 0x7FFFFFFF;
-constexpr int kShadeA = 20, kShadeB = 8, kUv = 6;
 constexpr int kStageCols = 12;  // staged floats per row: the 9 used and 3 more (three 16-byte pieces)
 constexpr int kStageFloats = kCluster * kStageCols;  // 3 KB per buffer
 constexpr int kStagePieces = kStageFloats / 4;       // 16-byte pieces per buffer
@@ -467,29 +460,6 @@ __global__ void __launch_bounds__(kTraceThreads) any_walk_kernel(const WalkArgs 
   ray_walk<true, kCount, Tri>(a);
 }
 
-// ---- B5 ------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-winner_attr_kernel(const float* __restrict__ shade_a, const float* __restrict__ shade_b,
-                   const int32_t* __restrict__ key, const int32_t* __restrict__ cid, int n,
-                   float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t c = cid[i];
-  if (c < 0) {
-#pragma unroll
-    for (int j = 0; j < kShadeA + kUv; ++j) out[(size_t)j * n + i] = 0.0f;
-    return;
-  }
-  const size_t row = (size_t)c * kCluster + (key[i] & kLocalMask);
-  const float* __restrict__ a = shade_a + row * kShadeA;
-  const float* __restrict__ b = shade_b + row * kShadeB;
-#pragma unroll
-  for (int j = 0; j < kShadeA; ++j) out[(size_t)j * n + i] = __ldg(a + j);
-#pragma unroll
-  for (int j = 0; j < kUv; ++j) out[(size_t)(kShadeA + j) * n + i] = __ldg(b + j);
-}
-
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
 
 template <class Q>
@@ -544,10 +514,3 @@ extern "C" int cluster_any_walk(const float* tab, const float* cmin, const float
 }
 
 extern "C" int cluster_group() { return kGroup; }
-
-extern "C" int winner_attrs(const float* shade_a, const float* shade_b, const int32_t* key, const int32_t* cid,
-                            int n, float* out, void* stream) {
-  winner_attr_kernel<<<blocks_for(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(shade_a, shade_b, key, cid, n,
-                                                                                     out);
-  return (int)cudaGetLastError();
-}

@@ -10,10 +10,12 @@ interpolation, texture sample and miss fill, is one launch of kernel K3
 (``shade_kernel``); ``build_surface_interaction`` is its plain version.
 
 Big scenes (cluster tier): the trace returns the packed winner (key, cid)
-per lane, kernel B5 fetches the winning triangle's 26 shade columns, and
-``build_surface_interaction_fused`` recomputes exact (t, u, v) from them
-and interpolates the corner normals and uvs; the per-mesh material row is
-an index gather.
+per lane; ``accel.cluster_trace.fetch_winner_attrs_plain`` gathers the
+winning triangle's 26 shade columns, and ``build_surface_interaction_fused``
+recomputes exact (t, u, v) from them and interpolates the corner normals
+and uvs; the per-mesh material row is an index gather.  On the card the
+whole of it is one launch of kernel K4 (``shade_kernel``);
+``shade_winners_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def build_surface_interaction_fused(ds: DeviceScene, rays: Ray, cid: torch.Tenso
                                     cols: torch.Tensor) -> SurfaceInteraction:
     """SurfaceInteraction from the cluster tier's winners: ``cols`` (26, N)
     are the winning triangles' shade columns (``cluster_trace.
-    fetch_winner_attrs``: v0 e1 e2 | n1 n2 n3 | mesh prim | uv1 uv2 uv3),
+    fetch_winner_attrs_plain``: v0 e1 e2 | n1 n2 n3 | mesh prim | uv1 uv2 uv3),
     ``cid`` < 0 marks a miss.  The kernels' Moller-Trumbore is repeated for
     exact (t, u, v); the area is 0.5 |e1 x e2|.  Matches hit_miss.cuh:14-50
     in the operation order of the JAX package's fused build."""
@@ -147,6 +149,28 @@ def build_surface_interaction_fused(ds: DeviceScene, rays: Ray, cid: torch.Tenso
     )
 
 
+def shade_winners_plain(ds: DeviceScene, shade_a: torch.Tensor, shade_b: torch.Tensor, rays: Ray,
+                        key: torch.Tensor, cid: torch.Tensor) -> SurfaceInteraction:
+    """The cluster tier's winners (``key``, ``cid``; cid < 0 a miss) to the
+    SurfaceInteraction of ``rays``: the shade columns' gather, then the
+    fused build.  K4's plain version."""
+    return build_surface_interaction_fused(ds, rays, cid,
+                                           cluster_trace.fetch_winner_attrs_plain(shade_a, shade_b, key, cid))
+
+
+def _cluster_shade(dev: torch.device, plain: bool):
+    """The cluster tier's winners -> SurfaceInteraction for lanes on
+    ``dev``: kernel K4 on a CUDA device (its plain version only when the
+    caller asks, ``plain=True``), the plain version on the CPU; any other
+    device raises."""
+    if dev.type == "cuda" and not plain:  # the kernel reads (N, 3) rows; the plain pair takes any layout
+        return lambda ds, a, b, rays, key, cid: shade_kernel.cluster_shade_cuda(
+            ds, a, b, Ray(origin=rays.origin.contiguous(), direction=rays.direction.contiguous()), key, cid)
+    if dev.type in ("cuda", "cpu"):
+        return shade_winners_plain
+    raise ValueError(f"no shading for device {dev}")
+
+
 def _brute_shade(dev: torch.device, plain: bool):
     """The brute tier's Hit -> SurfaceInteraction for lanes on ``dev``:
     kernel K3 on a CUDA device (its plain version only when the caller
@@ -173,13 +197,13 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
     and, on the brute tier, whether kernel B1's warps vote to leave a test
     (primary rays True, bounce rays False); the closest hit is the same
     either way.  The tier decides the shading: the brute tier's
-    Hit reads the packed rows (kernel K3 on a CUDA tensor; ``plain=True``
-    takes its plain version there too), the cluster tier's winners their
-    B5 columns.
+    Hit reads the packed rows (kernel K3 on a CUDA tensor), the cluster
+    tier's winners their rows of the shade tables (kernel K4 on a CUDA
+    tensor); ``plain=True`` takes their plain versions there too.
 
     ``baked_tab`` (cluster tier, ``accel.cluster.BakedTable``): the rays
-    share its origin and take the baked walk; B5 and the shading still read
-    the unbaked rows.
+    share its origin and take the baked walk; the shading still reads the
+    unbaked rows.
     """
     if baked_tab is not None and not bvh.clustered:
         raise ValueError(f"baked tables belong to the cluster tier (above {BRUTE_MAX_TRIS} triangles)")
@@ -190,6 +214,5 @@ def trace_closest_si(ds: DeviceScene, bvh, rays: Ray, active: torch.Tensor | Non
         with span("trace.shade"):
             return _brute_shade(hit.tri_id.device, plain)(ds, rays, hit)
     key, cid, _t_eff, _ = trace_closest_winners(bvh, rays, active=active, coherent=coherent, baked_tab=baked_tab)
-    cols = cluster_trace.fetch_winner_attrs(bvh.shade_a, bvh.shade_b, key, cid)
     with span("trace.shade"):
-        return build_surface_interaction_fused(ds, rays, cid, cols)
+        return _cluster_shade(key.device, plain)(ds, bvh.shade_a, bvh.shade_b, rays, key, cid)

@@ -12,8 +12,8 @@ an eager Cornell PATH frame's inputs and K3 at the brute tier's cap.
 A variant is a source file (``shipped`` is the package's own source of the
 kernel; any other path, such as a copy with a design element taken out,
 is taken from the working directory; for ``bounce`` it is a directory
-holding both ``path_bounce.cu`` and ``brute_shade.cu``, and ``shipped`` is
-``csrc/``) compiled with the package's nvcc
+holding both ``path_bounce.cu`` and ``brute_shade.cu``, and the headers
+they include (``shade_common.cuh``), and ``shipped`` is ``csrc/``) compiled with the package's nvcc
 flags plus its own, e.g. ``r4=shipped,-DBRUTE_RAYS_PER_THREAD=4``.  The flag ``+fma`` drops
 ``--fmad=false`` instead of adding anything, which lets nvcc contract
 multiplies and adds; ``+vote`` launches B1 as for coherent rays (its warps

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def find_nvcc() -> str:
@@ -51,13 +53,28 @@ def find_nvcc() -> str:
     return found
 
 
+def _hash_source(h, path: str, label: str, seen: set) -> None:
+    """Add the file at ``path`` to ``h``, then each header it includes with
+    quotes (found beside it, where nvcc looks first), each file once."""
+    if path in seen:
+        return
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    h.update(label.encode() + b"\0" + text)
+    for inc in _QUOTED_INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(path), inc.decode())
+        _hash_source(h, header, inc.decode(), seen)
+
+
 def library_path(name: str, sources: list[str], flags: tuple = NVCC_FLAGS) -> str:
-    """Where the library built from ``sources`` lives (content-addressed)."""
+    """Where the library built from ``sources`` lives (content-addressed:
+    the flags, the sources and the headers they include)."""
     h = hashlib.sha256()
     h.update(" ".join(flags).encode())
+    seen = set()
     for src in sources:
-        with open(os.path.join(CSRC_DIR, src), "rb") as f:
-            h.update(src.encode() + b"\0" + f.read())
+        _hash_source(h, os.path.join(CSRC_DIR, src), src, seen)
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -17,10 +17,11 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 ``torch.profiler``, timing those on the host clock too.  The stages:
 
 * ``B1``, ``B2`` (brute tier), ``B3_baked`` (the baked walk of the
-  primaries), ``B3_walk``, ``B4_walk`` (the cluster tier's walks), ``B5``,
+  primaries), ``B3_walk``, ``B4_walk`` (the cluster tier's walks),
   ``B6`` (LTC), ``K0`` (the camera and RNG head), ``K1``, ``K2``
   (the path bounce before and after its traces), ``K3`` (the brute tier's
-  shading), ``S`` (K-sweep, the cluster tier's supercluster sweep): the
+  shading), ``K4`` (the cluster tier's shading, the winners' rows
+  included), ``S`` (K-sweep, the cluster tier's supercluster sweep): the
   hand-written kernels, found by their names in the device trace (the
   first stage whose name matches);
 * ``sweep``: the PyTorch operations of the per-ray supercluster sweep (t
@@ -30,8 +31,8 @@ in ``torch.cuda.synchronize()``), then renders as many again under
 * ``camera_rng``: the primary rays in plain PyTorch (pixel order, the
   RNG's seeds and jitter draws, the camera; ``frame.camera_rng``: in a
   kernel frame K0);
-* ``shade``: the fused surface interaction from B5's columns, and the
-  brute tier's plain shade gather (``trace.shade``);
+* ``shade``: the plain shadings of both tiers, outside K3 and K4
+  (``trace.shade``);
 * ``nee``, ``bsdf``, ``combine``: the plain path bounce
   (``integrators.path_kernel``): the light sample and NEE
   (``bounce.nee``), the shading frame with the BSDF sample and evaluation
@@ -61,7 +62,7 @@ device ms and calls per frame, and the ten kernels that take the most
 device time.
 A deterministic mode (NORMALS, LTC_BASELINE) renders one frame per
 accumulation, so ``set_camera`` comes before each of its frames.
-``--plain``: the eager frames take the plain versions of K0-K3 on the card
+``--plain``: the eager frames take the plain versions of K0-K4 on the card
 (``_frame_impl(..., plain=True)``), the glue as it ran before those
 kernels, split into the stages above; the replays still launch them.
 
@@ -122,12 +123,12 @@ SPAN_STAGES = {"trace.sweep": "sweep", "trace.sort": "sort", "trace.shade": "sha
                "frame.bounce.combine": "combine"}
 STAGES = tuple(SPAN_STAGES.values())
 # the hand-written kernels' names in csrc/brute_trace.cu, csrc/cluster_trace.cu, csrc/ltc.cu,
-# csrc/camera_rng.cu, csrc/path_bounce.cu, csrc/brute_shade.cu and csrc/sc_sweep.cu, the first match
-# decides (the baked walk is closest_walk_kernel over BakedTri rows)
+# csrc/camera_rng.cu, csrc/path_bounce.cu, csrc/brute_shade.cu, csrc/cluster_shade.cu and csrc/sc_sweep.cu, the
+# first match decides (the baked walk is closest_walk_kernel over BakedTri rows)
 KERNEL_STAGES = {"B1": "closest_kernel", "B2": "any_kernel", "B3_baked": "BakedTri", "B3_walk": "closest_walk_kernel",
-                 "B4_walk": "any_walk_kernel", "B5": "winner_attr_kernel", "B6": "ltc_kernel",
+                 "B4_walk": "any_walk_kernel", "B6": "ltc_kernel",
                  "K0": "camera_rng_kernel", "K1": "path_sample_kernel", "K2": "path_combine_kernel",
-                 "K3": "brute_shade_kernel", "S": "supercluster_sweep_kernel"}
+                 "K3": "brute_shade_kernel", "K4": "cluster_shade_kernel", "S": "supercluster_sweep_kernel"}
 TOP_KERNELS = 10
 
 
@@ -158,7 +159,7 @@ def main(argv=None) -> int:
     ap.add_argument("--config", choices=sorted(CONFIGS), nargs="+", required=True)
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--plain", action="store_true",
-                    help="eager frames through the plain versions of K0-K3 (the glue before those kernels)")
+                    help="eager frames through the plain versions of K0-K4 (the glue before those kernels)")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -1,6 +1,7 @@
 """The port's cluster tier (``accel.build`` cluster half, ``accel.cluster``,
-the plain versions of kernels B3, B4 and B5 in ``accel.cluster_trace``, and
-the fused shading) against the JAX package on the same inputs.  The port
+the plain versions of kernels B3 and B4 and the winner-attribute gather in
+``accel.cluster_trace``, and the fused shading) against the JAX package on
+the same inputs.  The port
 walks; the JAX package culls into lists, and its culls are forced into
 each of their regimes (single level, two level, a binding supercluster
 cap whose checked fallback runs) to show that the walk returns what the
@@ -22,7 +23,7 @@ Tolerances:
   near a multiple of the key's 64-ulp quantum can land on either side;
   decoded t within rtol 1e-4 / atol 1e-3 of the brute-force oracle
   (tests/unit/test_pallas_cluster.py);
-* B4 and B5: equal on every lane;
+* B4 and the winner-attribute gather: equal on every lane;
 * fused shading: rtol 1e-5 / atol 1e-6 (tests/test_torch_shading.py).
 """
 
@@ -49,6 +50,7 @@ from optix_renderer_tpu_torch.accel import cluster_trace as ct
 from optix_renderer_tpu_torch.accel import traverse as ttraverse
 from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine import shade as tshade
+from optix_renderer_tpu_torch.engine import shade_kernel
 from optix_renderer_tpu_torch.engine.modes import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer
 from optix_renderer_tpu_torch.scene.config import parse_scene
@@ -324,7 +326,7 @@ def test_overflow_fallback_matches_jax(terrain100):
 def test_b5_plain_matches_jax(terrain):
     tb, jb = terrain["tr"].bvh, terrain["jr"].bvh
     key, cid = _t(terrain["key"]), _t(terrain["cid"])
-    got = ct.fetch_winner_attrs(tb.shade_a, tb.shade_b, key, cid)
+    got = ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key, cid)
     assert got.shape == (ct.N_SHADE_ATTR, key.shape[0])
     np.testing.assert_array_equal(got.numpy(), terrain["cols"])
     # and the JAX package's gather columns, on the hit lanes
@@ -360,8 +362,7 @@ def test_fused_shading_matches_jax(scene, terrain, gallery):
         assert tr.device_scene.has_textures
     want = jshade.build_surface_interaction_fused(jr.device_scene, jrays, jnp.asarray(key.numpy()),
                                                   jnp.asarray(cid.numpy()), jr.bvh.shade_tab)
-    cols = ct.fetch_winner_attrs(tr.bvh.shade_a, tr.bvh.shade_b, key, cid)
-    got = tshade.build_surface_interaction_fused(tr.device_scene, _tray(jrays), cid, cols)
+    got = tshade.shade_winners_plain(tr.device_scene, tr.bvh.shade_a, tr.bvh.shade_b, _tray(jrays), key, cid)
     assert np.asarray(want.hit).mean() > 0.8
     for f in dataclasses.fields(want):
         g, w = getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name))
@@ -402,15 +403,15 @@ def test_sorted_traces_match_unsorted(terrain100):
 def test_cuda_wrappers_refuse_cpu_tensors(terrain):
     """A CUDA wrapper never runs the plain version: a CPU tensor is refused;
     and the routers refuse a device that is neither CUDA nor the CPU."""
-    tb = terrain["tr"].bvh
+    tb, ds = terrain["tr"].bvh, terrain["tr"].device_scene
     n = 64
     o, d = torch.zeros((n, 3)), torch.ones((n, 3))
     key0, cid0 = torch.zeros(n, dtype=torch.int32), torch.full((n,), -1, dtype=torch.int32)
     walk = (tb.tri_tab, tb.cluster_min, tb.cluster_max, tb.sc_min, tb.sc_max)
     with pytest.raises(ValueError, match="CUDA"):
-        ct.fetch_winner_attrs_cuda(tb.shade_a, tb.shade_b, key0, cid0)
+        shade_kernel.cluster_shade_cuda(ds, tb.shade_a, tb.shade_b, Ray(o, d), key0, cid0)
     with pytest.raises(ValueError, match="device"):
-        ct.fetch_winner_attrs(tb.shade_a, tb.shade_b, key0.to("meta"), cid0.to("meta"))
+        tshade._cluster_shade(torch.device("meta"), False)
     with pytest.raises(ValueError, match="device"):
         ct.trace_closest_walk(*walk, o.to("meta"), d.to("meta"), key0, cid0)
     with pytest.raises(ValueError, match="device"):

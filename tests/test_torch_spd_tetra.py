@@ -322,7 +322,9 @@ def test_a_captured_tetra_frame_names_the_cluster_stages(cuda):
         r.render(2)
     b = profile_frames.stage_breakdown(*profile_frames.profiled_events(prof), 2, stage_map)
     assert b["unmapped_replays"] == 0
-    # the sweep is a hand kernel (K-sweep, stage S), nine launches a frame inside its span
-    assert {"trace.sort", "trace.shade"} <= set(b["glue_stages"]) and "trace.sweep" in b["frame_stages"]
+    # the sweep and the shading are hand kernels (K-sweep, stage S; K4), nine and five launches a frame inside
+    # their spans
+    assert "trace.sort" in b["glue_stages"] and {"trace.sweep", "trace.shade"} <= set(b["frame_stages"])
     assert b["stages"]["S"]["calls_per_frame"] == 9 and "supercluster_sweep_kernel" in kernels
+    assert b["stages"]["K4"]["calls_per_frame"] == 5 and kernels.count("cluster_shade_kernel") == 5
 

@@ -331,7 +331,7 @@ def test_a_frame_through_k_sweep_equals_one_through_the_plain_sweep(scene, res, 
                            ratio_samples=1, baked_tab=r.baked_tab)
 
     sk.reset_launch_counts()
-    state_k, gb_k, _aux, _st = frame()
+    state_k, gb_k, _aux = frame()
     torch.cuda.synchronize(dev)
     assert sk.LAUNCHES["sc_sweep"] == 1 + 2 * depth
 
@@ -342,7 +342,7 @@ def test_a_frame_through_k_sweep_equals_one_through_the_plain_sweep(scene, res, 
         return cluster.ray_t_bounds_plain(cmin, cmax, rays, t_max), None
 
     monkeypatch.setattr(cluster, "_sweep_cuda", plain)
-    state_p, gb_p, _aux, _st = frame()
+    state_p, gb_p, _aux = frame()
     torch.cuda.synchronize(dev)
     assert torch.equal(state_k.accum, state_p.accum) and bool((state_k.accum > 0).any())
     assert torch.equal(gb_k.normal, gb_p.normal)
