@@ -100,7 +100,14 @@ raises and exits non-zero):
    in turns with the plain version and as graph replays beside its byte
    bounds (214 bytes a hit lane; each distinct winning row once);
    the crossover frames count one baked walk per frame on the cluster
-   tier and the unbaked walk on the bounces only;
+   tier and the unbaked walk on the bounces only; then RATIO's one
+   batched visibility trace at the benchmark's size: one eager RATIO frame
+   at 1024^2 with 4 shadow samples on SPD's tetra under three area lights
+   (``portbench/scenes/spd-tetra-3lights``), its launches counted (one
+   K-sweep and one B4 for the batch), its 4,194,304 rays and t_max
+   recorded as ``ratio_color`` hands them to the cluster tier, unsorted,
+   and K-sweep's t bound and B4's bits from that frame bit-equal to the
+   plain sweep and the plain walk on every ray;
 4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
    on the gallery at 64^2 against ``tests/goldens`` (g-buffers, LTC and
    the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE; the gallery's
@@ -261,6 +268,10 @@ TERRAIN_GRID, TERRAIN_RES, TERRAIN_FRAMES, TERRAIN_PATH_FRAMES = 708, 1024, 16, 
 GALLERY_RES = 512
 # K4 is also held on SPD's tetra (the benchmark's 1,048,576-triangle scene) and on the textured gallery
 TETRA_SCENE = os.path.join(ROOT, "portbench", "scenes", "spd-tetra", "scene.json")
+# RATIO's visibility batch on the same tetra under three area lights (the benchmark's tetra3 cell): 4 shadow rays
+# a pixel at 1024^2, 4,194,304 rays; the plain sweep's reference runs over slices of 1M lanes
+TETRA3_SCENE = os.path.join(ROOT, "portbench", "scenes", "spd-tetra-3lights", "scene.json")
+TETRA3_SAMPLES, RATIO_SWEEP_SLICE = 4, 1 << 20
 GALLERY_SCENE = os.path.join(ROOT, "scenes", "gallery", "scene.json")
 GALLERY_GOLDENS = {"gallery_diffuse": ("DIFFUSE", 1), "gallery_ltc": ("LTC_BASELINE", 1),
                    "gallery_path": ("PATH", 2)}  # tests/goldens/generate.py GALLERY_MODES
@@ -1056,6 +1067,84 @@ def _check_ray_walk(torch, ct, kind: str, bvh, o, d, extra, label: str) -> dict:
             "plain_every_ray_s": every_s}
 
 
+def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, launch_counts) -> dict:
+    """RATIO's one batched visibility trace on the cluster tier at the benchmark's size: one eager frame of ``r``
+    (SPD's tetra under three area lights at 1024^2, 4 shadow samples a pixel: 4,194,304 rays), its launches
+    counted, with the rays and t_max that ``ratio_color`` hands ``trace_any`` recorded as the cluster tier takes
+    them (``cluster.trace_any_clusters``: unsorted), and the t bound K-sweep and the bits B4 gave them in the
+    frame.  Then, on every ray: that t bound bit-equal to the plain sweep's (run in slices of
+    RATIO_SWEEP_SLICE lanes, which changes no lane's bits) and to a second launch of K-sweep; the frame's bits
+    equal to a second launch of B4; and B4 against the plain walk (``_check_ray_walk``: every ray, the
+    tile sample, the work counters, the times)."""
+    from optix_renderer_tpu_torch.core.types import Ray
+
+    bvh = r.bvh
+    boxes = (bvh.sc_min, bvh.sc_max)
+    seen = []
+    any_clusters = cluster.trace_any_clusters
+
+    def record(bvh_, rays, t_max, t_eff=None):  # trace_any_clusters, its two launches split out and kept
+        _require(t_eff is None, "RATIO's visibility trace came with a t bound: not the unsorted path")
+        before = dict(launch_counts())
+        t_eff = cluster.ray_t_bounds(bvh_.cluster_min, bvh_.cluster_max, rays, t_max, sc_boxes=boxes)
+        occ = any_clusters(bvh_, rays, t_max, t_eff=t_eff)
+        after = launch_counts()
+        seen.append((rays, t_max, t_eff, occ, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        return occ
+
+    reset_counts()
+    cluster.trace_any_clusters = record
+    try:
+        frame_impl(r.state, r.device_scene, bvh, mode=r.mode, width=r.width, height=r.height,
+                   path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
+        torch.cuda.synchronize()
+    finally:
+        cluster.trace_any_clusters = any_clusters
+    frame_launches = {k: v for k, v in launch_counts().items() if v}
+    _require(len(seen) == 1, f"a RATIO frame on the cluster tier made {len(seen)} unsorted visibility traces, not 1")
+    rays, t_max, t_eff, occ, vis_launches = seen[0]
+    n = r.width * r.height * r.ratio_samples
+    _require(rays.origin.shape[0] == n and isinstance(t_max, torch.Tensor) and tuple(t_max.shape) == (n,),
+             f"RATIO's visibility batch: {rays.origin.shape[0]} rays and t_max {getattr(t_max, 'shape', t_max)}, "
+             f"expected {n} and a ({n},) tensor")
+    _require(vis_launches == {"sc_sweep": 1, "cluster_any_walk": 1} and frame_launches.get("cluster_any_walk") == 1,
+             f"RATIO's visibility batch launched {vis_launches}, the frame {frame_launches}: expected one K-sweep "
+             "and one B4 for the batch, and no other B4 in the frame")
+    o, d = rays.origin.contiguous(), rays.direction.contiguous()
+    t0 = time.perf_counter()
+    want = torch.cat([cluster.ray_t_bounds_plain(bvh.cluster_min, bvh.cluster_max,
+                                                 Ray(origin=o[s:s + RATIO_SWEEP_SLICE],
+                                                     direction=d[s:s + RATIO_SWEEP_SLICE]),
+                                                 t_max[s:s + RATIO_SWEEP_SLICE])
+                      for s in range(0, n, RATIO_SWEEP_SLICE)])
+    torch.cuda.synchronize()
+    plain_sweep_s = time.perf_counter() - t0
+    label = f"tetra3 RATIO {r.ratio_samples} x {r.width}^2 visibility rays, unsorted"
+    inputs = {"origin": o, "direction": d, "t_max": t_max}
+    _check_bits(torch, f"K-sweep {label} (the frame's)", (t_eff,), (want,), inputs)
+
+    def sweep():
+        return cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max, sc_boxes=boxes)
+
+    _check_bits(torch, f"K-sweep {label} (a second launch)", (sweep(),), (want,), inputs)
+    sweep_ms = _time_ms(torch, sweep, 10)
+    again = ct.trace_any_walk_cuda(bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, *boxes, o, d, t_eff)
+    _require(bool(torch.equal(again, occ)), f"B4 {label}: the frame's bits differ from a second launch's on "
+                                            f"{int((again != occ).sum())} lanes")
+    b4 = _check_ray_walk(torch, ct, "any", bvh, o, d, (t_eff.contiguous(),), label)
+    live = int((want > 0).sum())
+    print(f"  RATIO's visibility batch on the tetra under three area lights ({bvh.num_tris} triangles, "
+          f"{boxes[0].shape[0]} superclusters), one eager frame: {n} rays in one K-sweep and one B4 launch "
+          f"(the frame's launches: {frame_launches}); K-sweep's t bound bit-equal to the plain sweep's on every "
+          f"lane ({live} above 0; the plain sweep {plain_sweep_s:.1f} s in slices of {RATIO_SWEEP_SLICE}), "
+          f"kernel {sweep_ms:.4f} ms; B4's bits in the frame equal to a second launch's and to the plain walk's "
+          f"on every ray ({int(occ.sum())} occluded)", flush=True)
+    return {"lanes": n, "frame_launches": frame_launches, "visibility_launches": vis_launches,
+            "sweep": {"lanes": n, "boxes": boxes[0].shape[0], "key": False, "ms": sweep_ms,
+                      "plain_every_ray_s": plain_sweep_s, "live": live},
+            "b4": b4}
+
+
 def _check_baked(torch, ct, cluster, bvh, rays, baked, label: str) -> dict:
     """The baked walk of B3 on primaries that share ``baked.origin``: held
     against its plain version on the lanes of SAMPLE_TILES seeded tiles (key
@@ -1637,6 +1726,13 @@ def main() -> int:
         for batch, v in _cluster_shade_scene(torch, sk, shade, ct, cm, bsdf, Ray, graph_ms, rk, smi, label).items():
             k4[f"{label.split()[0]} {batch}"] = v
         del rk
+    # RATIO's 4M-ray visibility batch on the benchmark's tetra3 scene, unsorted, as the cell's frames trace it
+    r3 = Renderer(parse_scene(TETRA3_SCENE), width=TERRAIN_RES, height=TERRAIN_RES, mode=RendererType.RATIO,
+                  ratio_samples=TETRA3_SAMPLES, device=dev)
+    _require(r3.bvh.clustered and r3.device_scene.num_lights == 6,
+             f"tetra3: clustered {r3.bvh.clustered}, {r3.device_scene.num_lights} light triangles")
+    ratio_vis = _check_ratio_visibility(torch, cluster, ct, r3, _frame_impl, reset_counts, launch_counts)
+    del r3
     phase_done("phase 3")
 
     # ---- 4. the slice against the committed goldens ------------------------
@@ -2548,7 +2644,9 @@ def main() -> int:
          "launches": launches["cluster_any_walk"], "max_abs_err": b4w["max_abs_err"], "ms": b4w["ms"],
          "plain_ms": b4w["plain_ms"], "plain_tiles": SAMPLE_TILES, "sample_ms": b4w["sample_ms"],
          "bound_ms": b4w["bound_ms"], "bound_by": b4w["bound_by"], "library_ms": None,
-         "inputs": {"1M NEE rays": b4w}},
+         "inputs": {"1M NEE rays": b4w, "tetra3 4M RATIO visibility rays": ratio_vis["b4"]},
+         "ratio_visibility_launches": {"frame": ratio_vis["frame_launches"],
+                                       "batch": ratio_vis["visibility_launches"]}},
         # B3-baked: ms, unbaked_walk_ms and bound_ms on the 1024^2 terrain primaries from the Renderer's own
         # table (camera 0); plain_ms on the 64-tile sample; `origins` holds both cameras' numbers
         {"name": "cluster_closest_baked", "route": "cuda", "source": csrc, "replaces": f"{pc}:848 (baked, :984)",
@@ -2579,7 +2677,8 @@ def main() -> int:
          "replaces": f"{pc}:151", "launches": launches["sc_sweep"], "max_abs_err": 0.0,
          "ms": sweep_k["1M cosine bounce rays"]["ms"], "plain_ms": sweep_k["1M cosine bounce rays"]["plain_ms"],
          "bound_ms": sweep_k["1M cosine bounce rays"]["bound"][0],
-         "bound_by": sweep_k["1M cosine bounce rays"]["bound"][1], "library_ms": None, "inputs": sweep_k},
+         "bound_by": sweep_k["1M cosine bounce rays"]["bound"][1], "library_ms": None,
+         "inputs": {**sweep_k, "tetra3 4M RATIO visibility rays": ratio_vis["sweep"]}},
         # K0-K3: hand kernels with no Pallas counterpart (the JAX package leaves this code to XLA's fusions);
         # ms, plain_ms and bound_ms at a 1024^2 Cornell frame's camera head (K0) and at an eager Cornell PATH
         # frame's 1M lanes (K1, K2 its second bounce, K3 its primaries; `bounce 1` K3 at that bounce)

@@ -9,7 +9,8 @@ frame is ``frames_step``: one frame done in place on static buffers
 baked primary table from the buffers, adds the frame's color to the
 accumulator, its per-mode buffers (RATIO: ``ltc``, ``sto_direct``,
 ``sto_no_vis``; PATH: the (depth, 3) ``path_alive_counts``) to sums,
-advances the frame id and returns the frame's own (g-buffers, aux).  The
+RATIO's live-lane count to its counter, advances the frame id and returns
+the frame's own (g-buffers, aux).  The
 RNG streams are keyed by the carried frame id and ``accum.add_(color)`` is
 the same f32 add as ``state.accum + color``, so n steps are bit-identical
 to n ``_frame_impl`` frames.
@@ -62,8 +63,9 @@ class FrameBuffers:
     tile of ``rows`` image rows from ``row_offset``: the accumulator (rows,
     W, 3), the frame id (0-d int64), the camera's four vectors, the table
     baked for the primaries' shared origin (a copy; None where the
-    primaries take none) and the sums of the per-mode buffers (RATIO (rows,
-    W, c) f32, PATH (depth, 3) int64)."""
+    primaries take none), the sums of the per-mode buffers (RATIO (rows,
+    W, c) f32, PATH (depth, 3) int64) and RATIO's counter of live lanes
+    (0-d int64, summed over the frames; None in other modes)."""
 
     accum: torch.Tensor
     frame_id: torch.Tensor
@@ -72,6 +74,7 @@ class FrameBuffers:
     sums: dict
     row_offset: int
     rows: int
+    live: torch.Tensor | None = None
 
     @classmethod
     def for_frames(cls, mode: RendererType, width: int, height: int, path_depth: int, device, *,
@@ -92,16 +95,17 @@ class FrameBuffers:
         if baked_tab is not None:  # no origin yet: the first load copies the table in
             baked = BakedTable(tab=zeros(tuple(baked_tab.tab.shape), baked_tab.tab.dtype),
                                origin=np.full(3, np.nan, np.float32))
+        live = zeros((), torch.int64) if RendererType(mode) == RendererType.RATIO else None
         return cls(accum=zeros((rows, width, 3)), frame_id=zeros((), torch.int64),
                    camera=Camera(*(zeros(3) for _ in range(4))), baked=baked, sums=sums, row_offset=row_offset,
-                   rows=rows)
+                   rows=rows, live=live)
 
     def load(self, state: RenderState, baked_tab: BakedTable | None = None) -> None:
         """Start from ``state`` (its accumulator of this tile's rows) and
         ``baked_tab``: the accumulator and camera copied in, the frame id
         set on the device (a kernel argument, no host copy), the table
         copied only when its origin differs from the one the buffers hold
-        (decided on the host), the sums zeroed.  ``state`` and ``baked_tab``
+        (decided on the host), the sums and the counter zeroed.  ``state`` and ``baked_tab``
         are left as they are."""
         if (baked_tab is None) != (self.baked is None):
             raise ValueError("these buffers were made for frames "
@@ -115,6 +119,8 @@ class FrameBuffers:
             self.baked = dataclasses.replace(self.baked, origin=np.array(baked_tab.origin, np.float32))
         for t in self.sums.values():
             t.zero_()
+        if self.live is not None:
+            self.live.zero_()
 
 
 def frames_step(buf: FrameBuffers, ds: DeviceScene, bvh: BVH, *, mode: RendererType, width: int, height: int,
@@ -123,13 +129,15 @@ def frames_step(buf: FrameBuffers, ds: DeviceScene, bvh: BVH, *, mode: RendererT
     the frame's own (g-buffers (rows, W, ...), aux)."""
     from .renderer import render_tile  # renderer imports this module
 
-    color, gb, aux = render_tile(buf.camera, buf.frame_id, ds, bvh, mode=mode, width=width, height=height,
-                                 path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=buf.baked,
-                                 row_offset=buf.row_offset, rows=buf.rows)
+    color, gb, aux, live = render_tile(buf.camera, buf.frame_id, ds, bvh, mode=mode, width=width, height=height,
+                                       path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=buf.baked,
+                                       row_offset=buf.row_offset, rows=buf.rows)
     with span("frame.accumulate"):
         buf.accum.add_(color.reshape(buf.rows, width, 3))
         for name, total in buf.sums.items():
             total.add_(aux[name])
+        if buf.live is not None:
+            buf.live.add_(live)
         buf.frame_id.add_(1)
     return gb, aux
 
@@ -214,11 +222,12 @@ class FrameSlot:
 
     def frames(self, state: RenderState, baked_tab: BakedTable | None, n: int):
         """``n`` >= 1 frames from ``state``: ``(state', gbuffers, aux,
-        path_alive_counts summed over the frames or None)``, clones that the
-        next user of the buffers does not touch.  ``aux``: RATIO's buffers
-        as the mean over the n frames (JAX renderer.py:473-480), PATH's last
-        frame's ``path_alive_counts``.  On a card the work is only enqueued,
-        on the current stream."""
+        alive, live)``, clones that the next user of the buffers does not
+        touch.  ``aux``: RATIO's buffers as the mean over the n frames (JAX
+        renderer.py:473-480), PATH's last frame's ``path_alive_counts``.
+        Summed over the n frames: ``alive``, PATH's ``path_alive_counts``,
+        and ``live``, RATIO's live lanes (0-d); None in other modes.  On a
+        card the work is only enqueued, on the current stream."""
         if n < 1:
             raise ValueError(f"frames needs n >= 1, got {n}")
         buf = self.buf
@@ -240,11 +249,12 @@ class FrameSlot:
                         aux, alive = {"path_alive_counts": aux["path_alive_counts"].clone()}, alive.clone()
                     else:  # the mean, so denoise and combine see n_samples * n shadow samples a pixel
                         aux = {k: v / n for k, v in buf.sums.items()}  # (deviceCode.cu:117-144)
+                    live = None if buf.live is None else buf.live.clone()
             finally:
                 if cuda:
                     self._done = torch.cuda.Event()
                     self._done.record(stream)
-        return new, gbuffers, aux, alive
+        return new, gbuffers, aux, alive, live
 
 
 class FrameSlots:

@@ -96,7 +96,9 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     ``chip_smoke.py`` and ``utils.profile_frames --plain`` hold the
     kernels' frames against.
 
-    Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict).
+    Returns (color (rows*width, 3), gbuffers (rows, width, ...), aux dict,
+    live): ``live`` is RATIO's count of the lanes that hit a non-emitting
+    surface (0-d int64 on the device, ``ratio_color``), None in other modes.
     """
     from ..integrators.gbuffer import gbuffer_color
     from ..integrators.ltc_direct import ltc_baseline_color
@@ -120,6 +122,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
         si = trace_closest_si(ds, bvh, rays, baked_tab=baked_tab, plain=plain)
 
     aux: dict = {}
+    live = None
     if mode in GBUFFER_MODES:
         with span("frame.gbuffer_color"):
             color = gbuffer_color(mode, si, ds.miss_color)
@@ -129,12 +132,12 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
     elif mode == RendererType.PATH:  # its stages are path_color's
         color, rstate, alive_counts = path_color(ds, bvh, rays, si, rstate, max_depth=path_depth, plain=plain)
         aux["path_alive_counts"] = alive_counts
-    else:  # RendererType.RATIO
-        with span("frame.ratio"):
-            color, rstate, raux = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
-            aux = {k: unblock(v).reshape(rows, width, -1) for k, v in raux.items()}
+    else:  # RendererType.RATIO: its stages are ratio_color's (frame.ratio.*)
+        color, rstate, aux, live = ratio_color(ds, bvh, rays, si, rstate, n_samples=ratio_samples)
 
-    with span("frame.gbuffers"):  # the unblock copies to pixel order: the six g-buffers and the color
+    with span("frame.gbuffers"):  # the unblock copies to pixel order: the six g-buffers, the color, RATIO's buffers
+        if mode == RendererType.RATIO:
+            aux = {k: unblock(v).reshape(rows, width, -1) for k, v in aux.items()}
         gb = GBuffers(
             position=unblock(si.p).reshape(rows, width, 3),
             normal=unblock(si.n_geom).reshape(rows, width, 3),
@@ -144,7 +147,7 @@ def render_tile(camera: Camera, accum_id: int, ds: DeviceScene, bvh: BVH, *,
             material_id=unblock(si.material_id.to(torch.float32)).reshape(rows, width),
         )
         color = unblock(color)
-    return color, gb, aux
+    return color, gb, aux, live
 
 
 def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: RendererType,
@@ -154,9 +157,9 @@ def _frame_impl(state: RenderState, ds: DeviceScene, bvh: BVH, *, mode: Renderer
     reference (JAX ``_frame_impl``): the Renderer's frames run through
     ``frame_graph.FrameSlot`` and must equal it bit for bit.  ``plain``: see
     ``render_tile``."""
-    color, gb, aux = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width, height=height,
-                                 path_depth=path_depth, ratio_samples=ratio_samples, baked_tab=baked_tab,
-                                 plain=plain)
+    color, gb, aux, _live = render_tile(state.camera, state.accum_id, ds, bvh, mode=mode, width=width,
+                                        height=height, path_depth=path_depth, ratio_samples=ratio_samples,
+                                        baked_tab=baked_tab, plain=plain)
     accum = state.accum + color.reshape(height, width, 3)  # a new buffer: the input state stays as it was
     return RenderState(accum=accum, accum_id=state.accum_id + 1, camera=state.camera), gb, aux
 
@@ -230,6 +233,7 @@ class Renderer:
         # ``metrics`` is read, so the render loop never syncs for them.
         self._metrics: dict = {"frames": 0, "rays_traced": 0, "seconds": 0.0, "alive_per_bounce": []}
         self._pending_counts: list[tuple] = []  # (sum over frames, last frame's) per-bounce counts
+        self._pending_live: list[tuple] = []  # RATIO: (live lanes summed over a call's frames, its frames)
         self.set_camera(scene.cameras[0])
 
     def _zero_accum(self) -> torch.Tensor:
@@ -329,26 +333,31 @@ class Renderer:
         with span("renderer.render"):
             state, mode, baked_tab, slot = self._snapshot()
             n = frames_to_run(mode, state.accum_id, n_frames)
-            alive = None
+            alive = live = None
             if n:
-                state, self.gbuffers, self.aux, alive = slot.frames(state, baked_tab, n)
+                state, self.gbuffers, self.aux, alive, live = slot.frames(state, baked_tab, n)
                 with self._lock:
                     self.state = state
             if self.device.type == "cuda":
                 with span("render.sync"):
                     torch.cuda.synchronize(self.device)  # the frames are done, not just enqueued
             self.record_frames(time.perf_counter() - t0, n,
-                               None if alive is None else (alive, self.aux["path_alive_counts"]))
+                               None if alive is None else (alive, self.aux["path_alive_counts"]), live)
 
-    def record_frames(self, seconds: float, count: int, alive_counts: tuple | None = None) -> None:
+    def record_frames(self, seconds: float, count: int, alive_counts: tuple | None = None,
+                      live_lanes: torch.Tensor | None = None) -> None:
         """Account ``count`` frames in ``metrics``: ``seconds`` of host time
         and, in PATH, ``alive_counts``, their per-bounce counts as (the sum
         over the frames, the last frame's), both left on the device;
-        ``alive_per_bounce`` reads the last frame's.  :meth:`render` and
-        :meth:`commit_step` call it, and so does the multi-device split for
-        frames it rendered itself."""
+        ``alive_per_bounce`` reads the last frame's.  In RATIO,
+        ``live_lanes``: the frames' lanes that hit a non-emitting surface,
+        summed on the device.  :meth:`render` and :meth:`commit_step` call
+        it, and so does the multi-device split for frames it rendered
+        itself."""
         if alive_counts is not None:
             self._pending_counts.append(alive_counts)
+        if live_lanes is not None:
+            self._pending_live.append((live_lanes, count))
         self._metrics["seconds"] += seconds
         self._metrics["frames"] += count
         rays = count * self.width * self.height  # primary
@@ -379,7 +388,21 @@ class Renderer:
 
     @property
     def metrics(self) -> dict:
-        """Observability dict; drains the device-side per-bounce counts."""
+        """Observability dict; drains the device-side per-bounce counts
+        and, once RATIO frames are counted, RATIO's live lanes:
+        ``ratio_shadow_rays``, the visibility rays those frames traced
+        (``ratio_samples`` a pixel, all traced), and
+        ``ratio_live_shadow_rays``, those of lanes that hit a non-emitting
+        surface, the rest being rays of miss and light lanes, whose
+        visibility no buffer reads."""
+        if self._pending_live:
+            lanes = int(torch.stack([t for t, _n in self._pending_live]).sum())
+            frames = sum(n for _t, n in self._pending_live)
+            self._pending_live = []
+            m = self._metrics
+            m["ratio_live_shadow_rays"] = m.get("ratio_live_shadow_rays", 0) + lanes * self.ratio_samples
+            traced = frames * self.width * self.height * self.ratio_samples
+            m["ratio_shadow_rays"] = m.get("ratio_shadow_rays", 0) + traced
         if self._pending_counts:
             # (depth, 3) each: [alive lanes, shadow rays traced, bounce rays
             # traced] per bounce (integrators.path.path_color), summed over

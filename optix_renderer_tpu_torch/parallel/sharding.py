@@ -131,13 +131,13 @@ def merge_aux(auxs: list, device) -> dict:
 
 def _row_frames(shares: FrameSlots, state: ShardedState, ds: list, bvh: list, baked_tab: list, n: int):
     """``n`` frames of every row tile, each tile's back to back:
-    ``(state', gbuffers, aux, alive)`` as ``FrameSlot.frames`` gives them,
-    per tile."""
+    ``(state', gbuffers, aux, alive, live)`` as ``FrameSlot.frames`` gives
+    them, per tile."""
     outs = [shares.slot(i, ds[i], bvh[i], baked_tab[i]).frames(
                 RenderState(accum=state.accum[i], accum_id=state.accum_id, camera=state.camera[i]), baked_tab[i], n)
             for i in range(len(shares.devices))]
     new = ShardedState(accum=[o[0].accum for o in outs], accum_id=state.accum_id + n, camera=state.camera)
-    return new, [o[1] for o in outs], [o[2] for o in outs], [o[3] for o in outs]
+    return new, *([o[k] for o in outs] for k in range(1, 5))
 
 
 def make_sharded_frame_fn(devices, mode: RendererType, width: int, height: int, path_depth: int = 10,
@@ -208,16 +208,18 @@ def render_rows(r, devices, n_frames: int = 1) -> None:
     ds, bvh = shares.inputs
     t0 = time.perf_counter()
     n = frames_to_run(mode, state.accum_id, n_frames)
-    alive = None
+    alive = live = None
     if n:
         # the table on r's device: each tile copies it in when its origin moves
-        state, gbs, auxs, alives = _row_frames(shares, shard_render_state(state, devices), ds, bvh,
-                                               [baked_tab] * len(devices), n)
+        state, gbs, auxs, alives, lives = _row_frames(shares, shard_render_state(state, devices), ds, bvh,
+                                                      [baked_tab] * len(devices), n)
         with r._lock:
             r.state = gather_state(state, r.device)
         r.gbuffers = gather_rows(gbs, r.device)
         r.aux = merge_aux(auxs, r.device)
         if alives[0] is not None:
             alive = (sum(a.to(r.device) for a in alives), r.aux["path_alive_counts"])
+        if lives[0] is not None:
+            live = sum(t.to(r.device) for t in lives)
     _synchronize(devices)
-    r.record_frames(time.perf_counter() - t0, n, alive)
+    r.record_frames(time.perf_counter() - t0, n, alive, live)

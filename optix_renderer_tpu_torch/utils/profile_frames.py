@@ -1,13 +1,15 @@
 """Where a frame's device time goes, on one CUDA card.
 
-    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap tetra
+    python -m optix_renderer_tpu_torch.utils.profile_frames --config 5 6 5b path ltc ratio cap tetra tetra3
         [--frames 2] [--plain] [--out prof.jsonl]
 
 Configs (``benchmarks/RESULTS.json``): ``5`` terrain NORMALS at 1024^2
 (999,710 triangles, grid 708), ``5b`` the same terrain in PATH depth 4,
 ``6`` the gallery in PATH depth 4 at 512^2, ``tetra`` SPD's tetra
 (``scene.procedural.write_spd_tetra_scene``, 1,048,576 triangles) in PATH
-depth 4 at 1024^2; and the brute tier's main
+depth 4 at 1024^2, ``tetra3`` the same tetra under three area lights
+(the benchmark's ``portbench/scenes/spd-tetra-3lights/``) in RATIO with 4
+shadow samples at 1024^2; and the brute tier's main
 paths at 1024^2: ``path`` (PATH depth 4 on Cornell), ``ltc``
 (LTC_BASELINE on Cornell), ``ratio`` (RATIO with 4 shadow samples on the
 three-light Cornell), and ``cap`` (PATH depth 4 on the terrain at grid
@@ -80,7 +82,10 @@ and the card's idle ms a frame inside the ``renderer.render`` spans:
 ``replay_gap_ms_per_frame`` between one graph replay and the next,
 ``call_gap_ms_per_frame`` the rest, the call's own host work.
 
-On the cluster tier the line also holds ``walk_work``: the walk kernels'
+In RATIO the line holds ``ratio_shadow_rays``: the visibility rays a frame
+traces and those of them from lanes that hit a non-emitting surface
+(``Renderer.metrics``' ``ratio_live_shadow_rays``).  On the cluster tier
+the line also holds ``walk_work``: the walk kernels'
 own counters (``csrc/cluster_trace.cu``'s ``add_work``) over the launches
 of B3-baked, B3 and B4 in one eager frame after the timed and profiled
 frames (``utils.launches.work_records``): slab tests, ray/triangle tests
@@ -114,6 +119,7 @@ CONFIGS = {  # name: (scene, mode, resolution, path depth)
     "ratio": ("cornell3", "RATIO", 1024, 4),
     "cap": ("terrain_cap", "PATH", 1024, 4),
     "tetra": ("spd_tetra", "PATH", 1024, 4),
+    "tetra3": ("spd_tetra3", "RATIO", 1024, 4),
 }
 # 2 * (grid - 1)^2 heightfield triangles + the 12 of the Cornell walls: 999,710 and 4,062
 TERRAIN_GRIDS = {"terrain": 708, "terrain_cap": 46}
@@ -188,6 +194,8 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
             scene = parse_scene(write_terrain_scene(tmp, grid=TERRAIN_GRIDS[scene_name], width=res, height=res))
         elif scene_name == "spd_tetra":
             scene = parse_scene(write_spd_tetra_scene(tmp))
+        elif scene_name == "spd_tetra3":
+            scene = parse_scene(os.path.join(root, "portbench", "scenes", "spd-tetra-3lights", "scene.json"))
         else:
             scene = parse_scene(os.path.join(root, "scenes", scene_name, "scene.json"))
         r = Renderer(scene, width=res, height=res, mode=RendererType[mode], path_depth=depth, device="cuda")
@@ -207,7 +215,20 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
     }
     if r.bvh.clustered:
         line["walk_work"] = walk_work(r)
+    if r.mode == RendererType.RATIO:
+        line["ratio_shadow_rays"] = ratio_shadow_rays(r.metrics)
     return line
+
+
+def ratio_shadow_rays(metrics: dict) -> dict:
+    """RATIO's visibility rays over the frames the Renderer rendered
+    (``Renderer.metrics``' counter; eager ``_frame_impl`` frames count
+    nothing): ``traced`` and ``live`` (those of lanes that hit a
+    non-emitting surface) a frame, and the live share."""
+    frames = metrics["frames"]
+    live, traced = metrics["ratio_live_shadow_rays"], metrics["ratio_shadow_rays"]
+    return {"frames": frames, "traced_per_frame": traced / frames, "live_per_frame": live / frames,
+            "live_share": live / traced}
 
 
 # the walk kernels' labels by their launch names (``cluster_trace.LAUNCHES``)
