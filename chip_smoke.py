@@ -107,7 +107,10 @@ raises and exits non-zero):
    K-sweep and one B4 for the batch), its 4,194,304 rays and t_max
    recorded as ``ratio_color`` hands them to the cluster tier, unsorted,
    and K-sweep's t bound and B4's bits from that frame bit-equal to the
-   plain sweep and the plain walk on every ray;
+   plain sweep and the plain walk on every ray; the rays of miss and light
+   lanes at t_max +0 and no other change, the frame bit-equal to one that
+   traces every ray, B4's work counters zero on the +0 rays, and K-sweep,
+   B4 and the batch timed masked against unmasked in turns;
 4. goldens: ``Renderer(device="cuda")`` on the procedural Cornell box and
    on the gallery at 64^2 against ``tests/goldens`` (g-buffers, LTC and
    the gallery's diffuse/ltc 1e-4, path 5e-3 relative RMSE; the gallery's
@@ -1071,17 +1074,22 @@ def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, lau
     """RATIO's one batched visibility trace on the cluster tier at the benchmark's size: one eager frame of ``r``
     (SPD's tetra under three area lights at 1024^2, 4 shadow samples a pixel: 4,194,304 rays), its launches
     counted, with the rays and t_max that ``ratio_color`` hands ``trace_any`` recorded as the cluster tier takes
-    them (``cluster.trace_any_clusters``: unsorted), and the t bound K-sweep and the bits B4 gave them in the
-    frame.  Then, on every ray: that t bound bit-equal to the plain sweep's (run in slices of
-    RATIO_SWEEP_SLICE lanes, which changes no lane's bits) and to a second launch of K-sweep; the frame's bits
-    equal to a second launch of B4; and B4 against the plain walk (``_check_ray_walk``: every ray, the
-    tile sample, the work counters, the times)."""
+    them (``cluster.trace_any_clusters``: unsorted), the t bound K-sweep and the bits B4 gave them in the frame,
+    and the light samples' distances, from which the unmasked t_max (every ray traced) follows.  Then: the
+    batch's t_max is the unmasked one, or +0 on the rays of the lanes a buffer does not read; the frame's
+    accumulator and buffers bit-equal (int32 views) to a frame that traces the unmasked batch; on every ray,
+    K-sweep's t bound bit-equal to the plain sweep's (run in slices of RATIO_SWEEP_SLICE lanes, which changes no
+    lane's bits) and to a second launch of K-sweep; the frame's bits equal to a second launch of B4; B4's work
+    counters zero on the +0 rays, and the batch's equal to its traced rays' alone; B4 against the plain walk
+    (``_check_ray_walk``: every ray, the tile sample, the work counters, the times); and K-sweep, B4 and the
+    batch (``cluster.trace_any_clusters``) timed on the masked and the unmasked batch in turns."""
     from optix_renderer_tpu_torch.core.types import Ray
+    from optix_renderer_tpu_torch.integrators import ratio
 
     bvh = r.bvh
     boxes = (bvh.sc_min, bvh.sc_max)
-    seen = []
-    any_clusters = cluster.trace_any_clusters
+    seen, dists = [], []
+    any_clusters, sample, trace_any = cluster.trace_any_clusters, ratio._stochastic_direct_sample, ratio.trace_any
 
     def record(bvh_, rays, t_max, t_eff=None):  # trace_any_clusters, its two launches split out and kept
         _require(t_eff is None, "RATIO's visibility trace came with a t bound: not the unsorted path")
@@ -1092,14 +1100,23 @@ def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, lau
         seen.append((rays, t_max, t_eff, occ, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
         return occ
 
-    reset_counts()
-    cluster.trace_any_clusters = record
-    try:
-        frame_impl(r.state, r.device_scene, bvh, mode=r.mode, width=r.width, height=r.height,
-                   path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
+    def record_sample(*args):  # a light sample, its distance kept
+        out = sample(*args)
+        dists.append(out[2])
+        return out
+
+    def frame():
+        out = frame_impl(r.state, r.device_scene, bvh, mode=r.mode, width=r.width, height=r.height,
+                         path_depth=r.path_depth, ratio_samples=r.ratio_samples, baked_tab=r.baked_tab)
         torch.cuda.synchronize()
+        return out
+
+    reset_counts()
+    cluster.trace_any_clusters, ratio._stochastic_direct_sample = record, record_sample
+    try:
+        state, _gb, aux = frame()
     finally:
-        cluster.trace_any_clusters = any_clusters
+        cluster.trace_any_clusters, ratio._stochastic_direct_sample = any_clusters, sample
     frame_launches = {k: v for k, v in launch_counts().items() if v}
     _require(len(seen) == 1, f"a RATIO frame on the cluster tier made {len(seen)} unsorted visibility traces, not 1")
     rays, t_max, t_eff, occ, vis_launches = seen[0]
@@ -1110,6 +1127,28 @@ def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, lau
     _require(vis_launches == {"sc_sweep": 1, "cluster_any_walk": 1} and frame_launches.get("cluster_any_walk") == 1,
              f"RATIO's visibility batch launched {vis_launches}, the frame {frame_launches}: expected one K-sweep "
              "and one B4 for the batch, and no other B4 in the frame")
+    _require(len(dists) == r.ratio_samples, f"{len(dists)} light samples, expected {r.ratio_samples}")
+    t_full = torch.cat(dists).mul_(1.0 - 1e-3)  # the batch's t_max with every ray traced
+    unread = t_max.view(torch.int32) == 0
+    n_unread = int(unread.sum())
+    kept = (t_max.view(torch.int32) == t_full.view(torch.int32)) | unread
+    _require(bool(kept.all()) and 0 < n_unread < n and n_unread % r.ratio_samples == 0,
+             f"RATIO's visibility batch: {int((~kept).sum())} rays whose t_max is neither the unmasked one nor +0, "
+             f"{n_unread} of {n} at +0")
+
+    def unmasked(bvh_, rays_, t_max=None):  # the same batch with every ray traced
+        return trace_any(bvh_, rays_, t_max=t_full)
+
+    ratio.trace_any = unmasked
+    try:
+        state_u, _gb_u, aux_u = frame()
+    finally:
+        ratio.trace_any = trace_any
+    same = {"accum": torch.equal(state.accum.view(torch.int32), state_u.accum.view(torch.int32)),
+            **{k: torch.equal(aux[k].view(torch.int32), aux_u[k].view(torch.int32)) for k in aux_u}}
+    _require(sorted(aux) == sorted(aux_u) and all(same.values()),
+             f"RATIO's frame with the unread rays at +0 differs from the one that traces every ray: {same}")
+
     o, d = rays.origin.contiguous(), rays.direction.contiguous()
     t0 = time.perf_counter()
     want = torch.cat([cluster.ray_t_bounds_plain(bvh.cluster_min, bvh.cluster_max,
@@ -1123,8 +1162,8 @@ def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, lau
     inputs = {"origin": o, "direction": d, "t_max": t_max}
     _check_bits(torch, f"K-sweep {label} (the frame's)", (t_eff,), (want,), inputs)
 
-    def sweep():
-        return cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t_max, sc_boxes=boxes)
+    def sweep(t=t_max):
+        return cluster.ray_t_bounds(bvh.cluster_min, bvh.cluster_max, rays, t, sc_boxes=boxes)
 
     _check_bits(torch, f"K-sweep {label} (a second launch)", (sweep(),), (want,), inputs)
     sweep_ms = _time_ms(torch, sweep, 10)
@@ -1132,14 +1171,52 @@ def _check_ratio_visibility(torch, cluster, ct, r, frame_impl, reset_counts, lau
     _require(bool(torch.equal(again, occ)), f"B4 {label}: the frame's bits differ from a second launch's on "
                                             f"{int((again != occ).sum())} lanes")
     b4 = _check_ray_walk(torch, ct, "any", bvh, o, d, (t_eff.contiguous(),), label)
+
+    # B4's work: none on the +0 rays, so the batch's is its traced rays' alone
+    work = {}
+    for name, lanes in (("batch", slice(None)), ("+0 rays", unread), ("traced rays", ~unread)):
+        w = torch.zeros(4, dtype=torch.int64, device=o.device)
+        ct.trace_any_walk_cuda(bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, *boxes, o[lanes].contiguous(),
+                               d[lanes].contiguous(), t_eff[lanes].contiguous(), work=w)
+        work[name] = [int(x) for x in w.tolist()]
+    _require(work["+0 rays"] == [0, 0, 0, 0] and work["batch"] == work["traced rays"],
+             f"B4 {label}: work (slab tests, triangle tests and their lane slots) {work}: expected none on the "
+             "+0 rays and the batch's equal to the traced rays'")
+    t_eff_full = sweep(t_full)
+    w_full = torch.zeros(4, dtype=torch.int64, device=o.device)
+    ct.trace_any_walk_cuda(bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, *boxes, o, d, t_eff_full, work=w_full)
+    work["unmasked batch"] = [int(x) for x in w_full.tolist()]
+
+    # masked against unmasked, in turns (unmasked, masked, masked, unmasked), twice: K-sweep, B4, the batch
+    def b4_on(te):
+        return lambda: ct.trace_any_walk_cuda(bvh.tri_tab, bvh.cluster_min, bvh.cluster_max, *boxes, o, d, te)
+
+    def batch_on(t):
+        return lambda: any_clusters(bvh, rays, t)
+
+    turns = {}
+    for name, masked_fn, full_fn, iters in (("K-sweep", lambda: sweep(t_max), lambda: sweep(t_full), 10),
+                                            ("B4", b4_on(t_eff), b4_on(t_eff_full), 5),
+                                            ("batch", batch_on(t_max), batch_on(t_full), 5)):
+        pairs = [_in_turns(torch, full_fn, masked_fn, iters, iters) for _ in range(2)]
+        turns[name] = {"masked_ms": [m for m, _f in pairs], "unmasked_ms": [f for _m, f in pairs]}
+        turns[name]["saved_ms"] = sum(f - m for m, f in pairs) / len(pairs)
     live = int((want > 0).sum())
+    smi = _nvidia_smi()
     print(f"  RATIO's visibility batch on the tetra under three area lights ({bvh.num_tris} triangles, "
           f"{boxes[0].shape[0]} superclusters), one eager frame: {n} rays in one K-sweep and one B4 launch "
-          f"(the frame's launches: {frame_launches}); K-sweep's t bound bit-equal to the plain sweep's on every "
-          f"lane ({live} above 0; the plain sweep {plain_sweep_s:.1f} s in slices of {RATIO_SWEEP_SLICE}), "
-          f"kernel {sweep_ms:.4f} ms; B4's bits in the frame equal to a second launch's and to the plain walk's "
-          f"on every ray ({int(occ.sum())} occluded)", flush=True)
+          f"(the frame's launches: {frame_launches}); {n - n_unread} rays traced ({(n - n_unread) / n:.4f}), "
+          f"{n_unread} of miss and light lanes at t_max +0; the frame's accumulator and buffers bit-equal to one "
+          f"that traces every ray; K-sweep's t bound bit-equal to the plain sweep's on every lane ({live} above 0; "
+          f"the plain sweep {plain_sweep_s:.1f} s in slices of {RATIO_SWEEP_SLICE}), kernel {sweep_ms:.4f} ms; "
+          f"B4's bits in the frame equal to a second launch's and to the plain walk's on every ray "
+          f"({int(occ.sum())} occluded); B4's work [slabs, tests, slab slots, test slots] {work}", flush=True)
+    for name, v in turns.items():
+        print(f"  {name}, tetra3 RATIO batch, masked against unmasked in turns (CUDA events, {smi}): masked "
+              f"{', '.join(f'{x:.4f}' for x in v['masked_ms'])} ms, unmasked "
+              f"{', '.join(f'{x:.4f}' for x in v['unmasked_ms'])} ms; saved {v['saved_ms']:.4f} ms", flush=True)
     return {"lanes": n, "frame_launches": frame_launches, "visibility_launches": vis_launches,
+            "traced": n - n_unread, "b4_work": work, "masked_vs_unmasked": turns,
             "sweep": {"lanes": n, "boxes": boxes[0].shape[0], "key": False, "ms": sweep_ms,
                       "plain_every_ray_s": plain_sweep_s, "live": live},
             "b4": b4}
@@ -2646,7 +2723,8 @@ def main() -> int:
          "bound_ms": b4w["bound_ms"], "bound_by": b4w["bound_by"], "library_ms": None,
          "inputs": {"1M NEE rays": b4w, "tetra3 4M RATIO visibility rays": ratio_vis["b4"]},
          "ratio_visibility_launches": {"frame": ratio_vis["frame_launches"],
-                                       "batch": ratio_vis["visibility_launches"]}},
+                                       "batch": ratio_vis["visibility_launches"]},
+         "ratio_visibility_masked": {k: ratio_vis[k] for k in ("lanes", "traced", "b4_work", "masked_vs_unmasked")}},
         # B3-baked: ms, unbaked_walk_ms and bound_ms on the 1024^2 terrain primaries from the Renderer's own
         # table (camera 0); plain_ms on the 64-tile sample; `origins` holds both cameras' numbers
         {"name": "cluster_closest_baked", "route": "cuda", "source": csrc, "replaces": f"{pc}:848 (baked, :984)",

@@ -28,6 +28,11 @@
 //   the registers (the others tie with it).  A warp skips a group when all its
 //   lanes do: the dead lanes a frame moves above the scene, and rays that pass
 //   only part of it.
+// * The t bound alone (mode 0) of a ray whose t_max is exactly +0 is +0 whatever
+//   the boxes (the minimum of +0 and a bound above 0, or a miss's 0), so such a
+//   lane tests no box: RATIO's rays of miss and light lanes, whose answer no
+//   buffer reads.  Any other t_max is swept, a -0, negative or NaN one too: the
+//   plain sweep passes it on where a box is hit and writes 0 where none is.
 // * Pass 1 keeps in registers the farthest exit of the hit boxes (which is
 //   above 0 exactly when some box is hit, so it also says whether one is), and
 //   for a key the first and last hit box by entry distance.  The key's middle
@@ -165,6 +170,10 @@ struct Args {
   int* key_out;
 };
 
+__device__ __forceinline__ float t_max_of(const Args& a, int i) {
+  return a.t_max != nullptr ? a.t_max[(size_t)i * a.t_stride] : a.t_value;
+}
+
 // kMode 0: the t bound; 1: and a key of the first and last box; 2: and a key of the first, middle and last box.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) supercluster_sweep_kernel(Args a) {
@@ -172,6 +181,9 @@ __global__ void __launch_bounds__(kThreads) supercluster_sweep_kernel(Args a) {
   __shared__ float4 sgroup[2 * kChunk / kGroup];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < a.n;
+  // the t bound alone reads t_max first: a lane whose t_max is +0 tests no box
+  const float t0 = kMode == 0 && live ? t_max_of(a, i) : 0.0f;
+  const bool sweep = live && !(kMode == 0 && __float_as_uint(t0) == 0u);
   Lane r{};
   if (live) {
     const size_t k = 3 * (size_t)i;
@@ -189,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) supercluster_sweep_kernel(Args a) {
     __syncthreads();
     stage(sbox, sgroup, a.bmin, a.bmax, c0, count);
     staged = c0;
-    if (!live) continue;
+    if (!sweep) continue;
     for (int g0 = 0; g0 < count; g0 += kGroup) {
       if (misses_group(sgroup + 2 * (g0 / kGroup), r)) {
         if (kMode > 0) {
@@ -269,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) supercluster_sweep_kernel(Args a) {
   }
   if (!live) return;
 
-  const float t = a.t_max != nullptr ? a.t_max[(size_t)i * a.t_stride] : a.t_value;
+  const float t = kMode == 0 ? t0 : t_max_of(a, i);
   a.t_out[i] = any_hit ? torch_minimum(t, __fadd_rn(__fmul_rn(far_bound, kMarginScale), kMarginAdd)) : 0.0f;
   if (kMode > 0) {
     const int sb = a.key_bits;

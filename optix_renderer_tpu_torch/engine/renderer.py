@@ -362,7 +362,7 @@ class Renderer:
         self._metrics["frames"] += count
         rays = count * self.width * self.height  # primary
         if self.mode == RendererType.RATIO:
-            rays *= 1 + self.ratio_samples  # shadow visibility rays, all traced
+            rays *= 1 + self.ratio_samples  # and the visibility batch, those of miss and light lanes included
         self._metrics["rays_traced"] += rays
 
     # -- detached frames (the live viewer, JAX renderer.py:503-530) ---------
@@ -390,11 +390,12 @@ class Renderer:
     def metrics(self) -> dict:
         """Observability dict; drains the device-side per-bounce counts
         and, once RATIO frames are counted, RATIO's live lanes:
-        ``ratio_shadow_rays``, the visibility rays those frames traced
-        (``ratio_samples`` a pixel, all traced), and
-        ``ratio_live_shadow_rays``, those of lanes that hit a non-emitting
-        surface, the rest being rays of miss and light lanes, whose
-        visibility no buffer reads."""
+        ``ratio_shadow_rays``, the rays of those frames' visibility batches
+        (``ratio_samples`` a pixel), and ``ratio_live_shadow_rays``, those
+        of lanes that hit a non-emitting surface: exactly the rays traced,
+        with a t bound above 0.  The rest are rays of miss and light lanes,
+        whose visibility no buffer reads; their bound is +0, so no trace
+        kernel tests them."""
         if self._pending_live:
             lanes = int(torch.stack([t for t, _n in self._pending_live]).sum())
             frames = sum(n for _t, n in self._pending_live)

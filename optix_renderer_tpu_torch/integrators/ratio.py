@@ -25,20 +25,23 @@ Deviations from the reference's quirks, kept from the JAX package:
   (ratio.cuh:61): with several lights of different emission the
   reference's estimator mixes pdfs and emissions of different lights.
 
-Every lane traces its ``n_samples`` visibility rays, in one batched
+Every lane's ``n_samples`` visibility rays go into one batched
 (n_samples * N,) any-hit trace: one launch of kernel B2 per frame, or on
-the cluster tier one sweep and one launch of B4.  Miss and light lanes
-trace theirs too; ``ratio_color``'s fourth value counts the lanes whose
-rays matter (a hit on a non-emitting surface), one reduction a frame on
-the device, which ``Renderer.metrics`` reads as
-``ratio_live_shadow_rays``.
+the cluster tier one sweep and one launch of B4.  Only the rays of lanes
+that hit a non-emitting surface are traced: no buffer reads the answer of
+a miss or light lane, so its rays get a t bound of exactly +0, which every
+trace answers False without a test (B2 drops such lanes, K-sweep and B4
+skip them).  Their light samples, RNG draws and contributions are made as
+before, so every buffer keeps its bits.  ``ratio_color``'s fourth value
+counts the traced lanes, one reduction a frame on the device, which
+``Renderer.metrics`` reads as ``ratio_live_shadow_rays``.
 
 A frame's RATIO work runs in four stages (``utils.launches.span``), as
 PATH's ``frame.bounce.*``: ``frame.ratio.ltc`` (the LTC term, B6 on a
 card), ``frame.ratio.sample`` (the shading frame and the light samples),
 ``frame.ratio.visibility`` (the batched trace, its ``trace.*`` stages
 inside) and ``frame.ratio.combine`` (the means, the grayscale, the
-buffers' ``where``s and the live count).
+buffers' ``where``s).
 """
 
 from __future__ import annotations
@@ -91,8 +94,8 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
 
     Returns (accumulated color = the LTC buffer (N, 3), rng, aux buffers
     {ltc (N, 3), sto_direct (N, 1), sto_no_vis (N, 1)}, live (0-d int64 on
-    the device: the lanes that hit a non-emitting surface, each of which
-    traces ``n_samples`` visibility rays that can matter)).
+    the device: the lanes that hit a non-emitting surface, the only ones
+    whose ``n_samples`` visibility rays are traced)).
     """
     with span("frame.ratio.ltc"):
         ltc_color = ltc_direct(ds, rays, si)
@@ -111,7 +114,14 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
 
     with span("frame.ratio.visibility"):  # one batched (n_samples * N,) visibility trace
         all_rays = Ray(origin=shadow_origin.repeat(n_samples, 1), direction=torch.cat(dirs, dim=0))
-        occ = trace_any(bvh, all_rays, t_max=torch.cat(dists, dim=0) * (1.0 - 1e-3))
+        t_max = torch.cat(dists, dim=0).mul_(1.0 - 1e-3)
+        # The lanes whose visibility a buffer reads: hit and not a light.  The others' rays get +0 and are not
+        # traced.  The mask is made here and reduced to its count at once, so that it adds nothing to the
+        # memory the light samples or the trace hold at their peak.
+        live = si.hit > si.is_light
+        t_max.view(n_samples, n).masked_fill_(~live[None], 0.0)
+        live = live.sum()
+        occ = trace_any(bvh, all_rays, t_max=t_max)
         occ = occ.reshape(n_samples, n)
 
     with span("frame.ratio.combine"):
@@ -130,7 +140,6 @@ def ratio_color(ds: DeviceScene, bvh, rays: Ray, si: SurfaceInteraction, rng_sta
         emit_gray = si.emit.mean(dim=-1, keepdim=True)
         sto_d = torch.where(hit, torch.where(is_l, emit_gray, g_direct), 0.0)
         sto_n = torch.where(hit, torch.where(is_l, emit_gray, g_no_vis), 0.0)
-        live = (si.hit > si.is_light).sum()  # hit and not a light: one pass and one reduction
 
     aux = {"ltc": ltc_buf, "sto_direct": sto_d, "sto_no_vis": sto_n}
     return ltc_buf, rng, aux, live

@@ -82,9 +82,10 @@ and the card's idle ms a frame inside the ``renderer.render`` spans:
 ``replay_gap_ms_per_frame`` between one graph replay and the next,
 ``call_gap_ms_per_frame`` the rest, the call's own host work.
 
-In RATIO the line holds ``ratio_shadow_rays``: the visibility rays a frame
-traces and those of them from lanes that hit a non-emitting surface
-(``Renderer.metrics``' ``ratio_live_shadow_rays``).  On the cluster tier
+In RATIO the line holds ``ratio_shadow_rays``: the rays of a frame's
+visibility batch and those of them from lanes that hit a non-emitting
+surface (``Renderer.metrics``' ``ratio_live_shadow_rays``), which are the
+rays traced: the others' t bound is +0, and no kernel tests them.  On the cluster tier
 the line also holds ``walk_work``: the walk kernels'
 own counters (``csrc/cluster_trace.cu``'s ``add_work``) over the launches
 of B3-baked, B3 and B4 in one eager frame after the timed and profiled
@@ -223,8 +224,10 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
 def ratio_shadow_rays(metrics: dict) -> dict:
     """RATIO's visibility rays over the frames the Renderer rendered
     (``Renderer.metrics``' counter; eager ``_frame_impl`` frames count
-    nothing): ``traced`` and ``live`` (those of lanes that hit a
-    non-emitting surface) a frame, and the live share."""
+    nothing): the batch's rays a frame (``traced_per_frame``: every ray
+    of the batch), ``live_per_frame`` (those of lanes that hit a
+    non-emitting surface, the rays the kernels test), and the live share,
+    the share of the batch traced."""
     frames = metrics["frames"]
     live, traced = metrics["ratio_live_shadow_rays"], metrics["ratio_shadow_rays"]
     return {"frames": frames, "traced_per_frame": traced / frames, "live_per_frame": live / frames,

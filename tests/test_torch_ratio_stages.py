@@ -7,18 +7,30 @@ tetra scene, on the CPU (no JAX).
   ``frame.ratio.visibility``.
 * ``Renderer.metrics``' ``ratio_live_shadow_rays`` equals a count made on
   the host from the frames' primary hits, and ``ratio_shadow_rays`` the
-  visibility rays the frames traced; ``profile_frames`` reads both a frame.
+  rays of the frames' visibility batches; ``profile_frames`` reads both a
+  frame.
 * The stages and the counter change no value: ``ratio_color``'s buffers
   and RNG state are bit-equal to the integrator's body written out here
   as it was before them, and a profiled render's accumulator and buffers
   equal an unprofiled one's.
+* Only the visibility rays a buffer reads are traced: on both tiers (the
+  three-light tetra on the cluster tier's plain path, Cornell-3, whose
+  light is in view, on the brute tier) the batch's t bound is exactly +0 on
+  the rays of miss and light lanes and nowhere else, the buffers and the
+  colour are bit-equal (``int32`` views) to the body above, which traces
+  every ray, and the rays with a +0 bound number ``ratio_shadow_rays``
+  less ``ratio_live_shadow_rays``.
 * ``portbench/scenes/spd-tetra-3lights/scene.json`` names the same
   ``tetra.obj`` as ``spd-tetra``, and its lights are the configuration's.
 * On a CUDA card (skipped without one; run it with
   ``python -m pytest --noconftest -m chip tests/test_torch_ratio_stages.py``):
   a 1024^2 RATIO frame of that scene replayed from its frame graph equals
   its eager ``_frame_impl`` frame bit for bit, and the stage map covers
-  every node once and maps every replayed operation.
+  every node once and maps every replayed operation; and in one 1024^2
+  frame of it the buffers equal the body's that traces every ray, K-sweep's
+  t bound of the batch is bit-equal to the plain sweep's on all 4,194,304
+  lanes, and B4's work counters read no slab and no triangle test on the
+  rays of miss and light lanes.
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+from optix_renderer_tpu_torch.accel import cluster
+from optix_renderer_tpu_torch.accel import cluster_trace as ct
 from optix_renderer_tpu_torch.accel.traverse import trace_any
 from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine.camera_kernel import camera_rng
@@ -61,6 +75,17 @@ def tetra3(tmp_path_factory):
     for name in ("light.obj", "light.mtl"):
         shutil.copy(os.path.join(TETRA3, name), os.path.join(out, name))
     return parse_scene(path)
+
+
+@pytest.fixture(scope="module")
+def cornell3():
+    """Cornell-3: three lights of different emission, one in view (14 lanes
+    at 32^2, every other lane a hit), 36 triangles: the brute tier."""
+    return parse_scene(os.path.join(ROOT, "scenes", "cornell3", "scene.json"))
+
+
+# each scene's resolution and tier (True: the cluster tier)
+TIERS = {"tetra3": (RES, True), "cornell3": (32, False)}
 
 
 def _renderer(scene, **kw):
@@ -129,7 +154,8 @@ def test_the_live_shadow_rays_equal_a_host_count(tetra3):
 
 
 def _ratio_color_before_the_stages(ds, bvh, rays, si, rng_state, n_samples=4):
-    """``ratio_color``'s body as it was before its stages and its counter."""
+    """``ratio_color``'s body as it was before its stages, its counter and
+    its mask: every visibility ray is traced."""
     ltc_color = ltc_direct(ds, rays, si)
     to_local, wo_local = ltc.shading_frame(rays.origin, si.p, si.n_geom)
     n = rays.origin.shape[0]
@@ -178,6 +204,62 @@ def test_the_stages_and_the_counter_change_no_value(tetra3):
     state, _gb, aux = _frame_impl(plain.state, plain.device_scene, plain.bvh, mode=RendererType.RATIO, width=RES,
                                   height=RES, path_depth=plain.path_depth, ratio_samples=4)
     assert sorted(aux) == ["ltc", "sto_direct", "sto_no_vis"]  # the frame's buffers alone
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)  # a signed zero shows
+
+
+def _record_bounds(monkeypatch) -> list:
+    """Have ``ratio_color`` leave each visibility batch's t bound in the
+    returned list; the trace is unchanged."""
+    bounds = []
+
+    def record(bvh, rays, t_max):
+        bounds.append(t_max.clone())
+        return trace_any(bvh, rays, t_max=t_max)
+
+    monkeypatch.setattr(ratio, "trace_any", record)
+    return bounds
+
+
+def _tier_renderer(request, scene_name):
+    res, clustered = TIERS[scene_name]
+    r = Renderer(request.getfixturevalue(scene_name), width=res, height=res, mode=RendererType.RATIO,
+                 ratio_samples=4, device="cpu")
+    assert r.bvh.clustered == clustered
+    return r
+
+
+@pytest.mark.parametrize("scene_name", sorted(TIERS))
+def test_only_the_visibility_rays_a_buffer_reads_are_traced(scene_name, request, monkeypatch):
+    r = _tier_renderer(request, scene_name)
+    rays, si, rng = _primary_hits(r)
+    read = si.hit & ~si.is_light
+    unread = ~read
+    assert bool(read.any()) and not bool(read.all())
+    bounds = _record_bounds(monkeypatch)
+    color, rng_out, aux, live = ratio.ratio_color(r.device_scene, r.bvh, rays, si, rng, n_samples=4)
+    want_color, want_rng, want_aux = _ratio_color_before_the_stages(r.device_scene, r.bvh, rays, si, rng)
+    assert torch.equal(_bits(color), _bits(want_color)) and torch.equal(rng_out, want_rng)
+    for k in want_aux:
+        assert torch.equal(_bits(aux[k]), _bits(want_aux[k])), k
+    assert len(bounds) == 1 and bounds[0].shape == (4 * r.width * r.height,)
+    zero = (_bits(bounds[0]) == 0).view(4, -1)
+    assert torch.equal(zero, unread[None].expand(4, -1))  # exactly +0 on the unread lanes' rays, nowhere else
+    assert int(live) == int(read.sum())
+
+
+@pytest.mark.parametrize("scene_name", sorted(TIERS))
+def test_the_untraced_rays_are_the_counters_difference(scene_name, request, monkeypatch):
+    r = _tier_renderer(request, scene_name)
+    bounds = _record_bounds(monkeypatch)
+    r.render(2)
+    r.render(1)
+    m = r.metrics
+    zero = sum(int((_bits(t) == 0).sum()) for t in bounds)
+    assert len(bounds) == 3 and m["ratio_shadow_rays"] == 3 * 4 * r.width * r.height
+    assert 0 < zero == m["ratio_shadow_rays"] - m["ratio_live_shadow_rays"]
 
 
 def test_the_three_light_scene_shares_the_tetra():
@@ -253,3 +335,44 @@ def test_a_replayed_tetra3_ratio_frame_equals_its_eager_frame_and_maps_every_nod
     assert set(STAGES) <= set(b["frame_stages"]) and b["stages"]["B6"]["calls_per_frame"] == 1
     m = r.metrics
     assert 0 < m["ratio_live_shadow_rays"] < m["ratio_shadow_rays"] and m["ratio_shadow_rays"] % (4 << 20) == 0
+
+
+@pytest.mark.chip
+def test_a_tetra3_frame_traces_only_the_visibility_rays_a_buffer_reads(cuda, monkeypatch):
+    r = Renderer(parse_scene(os.path.join(TETRA3, "scene.json")), width=1024, height=1024, mode=RendererType.RATIO,
+                 ratio_samples=4, device="cuda")
+    b = r.bvh
+    rays, si, rng = _primary_hits(r)
+    batches = []
+
+    def record(bvh, rays_, t_max):
+        batches.append((rays_, t_max.clone()))
+        return trace_any(bvh, rays_, t_max=t_max)
+
+    monkeypatch.setattr(ratio, "trace_any", record)
+    color, rng_out, aux, live = ratio.ratio_color(r.device_scene, b, rays, si, rng, n_samples=4)
+    want_color, want_rng, want_aux = _ratio_color_before_the_stages(r.device_scene, b, rays, si, rng)
+    assert torch.equal(_bits(color), _bits(want_color)) and torch.equal(rng_out, want_rng)
+    for k in want_aux:
+        assert torch.equal(_bits(aux[k]), _bits(want_aux[k])), k
+    ((batch, t_max),) = batches
+    n = 4 << 20
+    read = (si.hit & ~si.is_light)[None].expand(4, -1).reshape(n)
+    assert torch.equal(_bits(t_max) == 0, ~read) and 0 < int(live) < n // 4
+    o, d = batch.origin.contiguous(), batch.direction.contiguous()
+    t_eff = cluster.ray_t_bounds(b.cluster_min, b.cluster_max, batch, t_max, sc_boxes=(b.sc_min, b.sc_max))
+    step = 1 << 20  # the plain sweep in slices: the same bits, a quarter of the memory
+    want = torch.cat([cluster.ray_t_bounds_plain(b.cluster_min, b.cluster_max,
+                                                 Ray(origin=o[s:s + step], direction=d[s:s + step]), t_max[s:s + step])
+                      for s in range(0, n, step)])
+    assert torch.equal(_bits(t_eff), _bits(want))
+    assert bool((t_eff[~read] == 0).all())
+    work = {}
+    for name, lanes in (("batch", slice(None)), ("unread", ~read), ("read", read)):
+        w = torch.zeros(4, dtype=torch.int64, device=cuda)
+        ct.trace_any_walk_cuda(b.tri_tab, b.cluster_min, b.cluster_max, b.sc_min, b.sc_max, o[lanes].contiguous(),
+                               d[lanes].contiguous(), t_eff[lanes].contiguous(), work=w)
+        work[name] = w.tolist()
+    # slab tests, triangle tests and their lane slots: none for an unread ray, so the batch's are the read rays'
+    assert work["unread"] == [0, 0, 0, 0]
+    assert work["batch"] == work["read"] and min(work["read"]) > 0

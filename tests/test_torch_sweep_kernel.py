@@ -14,7 +14,8 @@ bit-equal to the plain sweep run on the card, through both entry points, on
 the 1M-triangle terrain's 1024^2 primaries and 1M bounce-like rays
 (``utils.bench_rays``), above-scene up-rays, origins inside several boxes
 (ties at near = 0), directions with components under 1e-20, scalar, 0-d and
-(N,) t_max with zeros and negatives, the gallery (at most 512 clusters: the
+(N,) t_max with +0, -0, negatives and NaN (a +0 t_max skips the boxes),
+the gallery (at most 512 clusters: the
 boxes are the clusters), synthetic cluster boxes with S = 625, 1,094 and
 32,770 superclusters (three key widths; more boxes than a block stages at a
 time), N = 1 and N = 1,000; one launch a call; a gallery frame and a frame
@@ -268,11 +269,13 @@ def test_k_sweep_on_edge_rays(terrain_1m):
     dirs = tiny[torch.randint(0, tiny.numel(), (n, 3), generator=g, device=dev)]
     dirs[:, 1] = torch.where(dirs.abs().sum(dim=1) == 0, -1.0, dirs[:, 1])
     _check_sweep(b.cluster_min, b.cluster_max, Ray(origin=inside, direction=dirs), 3.0e38, "tiny components", boxes)
-    # t_max: scalar 0 and negative, 0-d tensor, (N,) with zeros and negatives, NaN
+    # t_max: scalar +0, -0 and negative, 0-d tensor, (N,) with +0, -0, negatives and NaN; the origins lie inside
+    # boxes, so a -0, negative or NaN t_max reaches the t bound, and only a +0 one may skip the sweep
     tm = torch.rand(n, generator=g, device=dev) * 300.0 - 50.0
     tm[::7] = 0.0
     tm[::11] = float("nan")
-    for t_max, label in ((0.0, "scalar 0"), (-1.0, "scalar -1"), (25.0, "scalar 25"),
+    tm[::13] = -0.0
+    for t_max, label in ((0.0, "scalar 0"), (-0.0, "scalar -0"), (-1.0, "scalar -1"), (25.0, "scalar 25"),
                          (torch.tensor(25.0, device=dev), "0-d 25"), (torch.tensor([25.0], device=dev), "(1,) 25"),
                          (tm, "(N,) with zeros, negatives and NaN")):
         _check_sweep(b.cluster_min, b.cluster_max, Ray(origin=inside, direction=d), t_max, f"t_max {label}", boxes)
