@@ -8,12 +8,15 @@ trace kernels read (``pack_tri_table``; pad rows degenerate with prim =
 -1).
 
 Scenes above ``BRUTE_MAX_TRIS`` take the cluster tier
-(``accel.cluster``): the Morton order is cut into fixed runs of
-``CLUSTER_SIZE`` triangles whose AABBs the walk tests, the table is padded
-to a multiple of 64 rows so that cluster ``c`` is rows ``[64c, 64c+64)``
-(4 KB, contiguous; the JAX package's (C*8, 128) grouped layout exists only
-because Mosaic cannot read at a lane offset), and the fused shading rows
-``shade_a``/``shade_b`` are stored in sorted order.
+(``accel.cluster``): the Morton order is reordered by a top-down median
+split of the centroids (``median_split_order``; a Morton grid's cells do
+not line up with the geometry, so its runs' boxes are loose) and cut into
+fixed runs of ``CLUSTER_SIZE`` triangles whose AABBs the walk tests, the
+table is padded to a multiple of 64 rows so that cluster ``c`` is rows
+``[64c, 64c+64)`` (4 KB, contiguous; the JAX package's (C*8, 128) grouped
+layout exists only because Mosaic cannot read at a lane offset), and the
+fused shading rows ``shade_a``/``shade_b`` are stored in that order.
+``cluster_area_ratio`` says how tight the boxes are.
 
 ``build_bvh_cached`` keeps the host build products in a content-addressed
 ``.npz`` cache (JAX build.py:262-321), so a second run of a 1M-triangle
@@ -37,7 +40,7 @@ log = get_logger()
 BRUTE_MAX_TRIS = 4096  # the dispatch threshold: above it, the cluster tier
 TRI_SUB = 8  # brute-tier table rows are padded to a multiple of this
 CLUSTER_SIZE = 64  # triangles per cluster (cluster tier)
-SC_GROUP = 64  # clusters per supercluster: Morton-contiguous runs of cluster boxes
+SC_GROUP = 64  # clusters per supercluster: contiguous runs of cluster boxes
 ATTR_NRM_COLS = 12  # corner-normal group row width (9 used)
 ATTR_UVM_COLS = 8  # uv/mesh/area group row width (8 used)
 SHADE_A_COLS = 20  # fused decode+shade row: v0 e1 e2 | n1 n2 n3 | mesh prim
@@ -48,13 +51,13 @@ SHADE_B_COLS = 8  # corner uvs (6 used)
 class BVH:
     """Trace tables (tensors on one device)."""
 
-    tri_v0: torch.Tensor  # (T, 3) f32, Morton-sorted order
+    tri_v0: torch.Tensor  # (T, 3) f32, build order (Morton; the median split on the cluster tier)
     tri_e1: torch.Tensor  # (T, 3) f32 (v1 - v0)
     tri_e2: torch.Tensor  # (T, 3) f32 (v2 - v0)
     prim_id: torch.Tensor  # (T,) i32 sorted slot -> original triangle id
     tri_tab: torch.Tensor  # (Tpad, 16) f32 packed table (pack_tri_table layout);
     # Tpad a multiple of 64 on the cluster tier, so cluster c is rows [64c, 64c+64)
-    cluster_min: torch.Tensor  # (C, 3) f32 AABBs of the 64-triangle Morton runs
+    cluster_min: torch.Tensor  # (C, 3) f32 AABBs of the 64-triangle runs
     cluster_max: torch.Tensor  # (C, 3) f32
     shade_a: torch.Tensor  # (Tp, SHADE_A_COLS) f32 sorted order; (1, cols) on the brute tier
     shade_b: torch.Tensor  # (Tp, SHADE_B_COLS) f32
@@ -87,6 +90,62 @@ def morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
         return v
 
     return (expand(x) << 2 | expand(y) << 1 | expand(z)).astype(np.uint32)
+
+
+def split_size(n: int) -> int:
+    """How many of a split node's ``n`` triangles go to its first half: the
+    multiple of a supercluster's triangles (``CLUSTER_SIZE * SC_GROUP``)
+    while ``n`` is above two of them, else of ``CLUSTER_SIZE``, nearest
+    ``n / 2`` (a tie rounds up); ``0 < k < n`` since ``n`` is above the
+    unit."""
+    unit = CLUSTER_SIZE * SC_GROUP if n > 2 * CLUSTER_SIZE * SC_GROUP else CLUSTER_SIZE
+    return unit * ((n + unit) // (2 * unit))
+
+
+def median_split_order(centroid: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """``order`` (a permutation of the triangles) reordered by a top-down
+    object-median split of their centroids: a node of more than
+    ``CLUSTER_SIZE`` triangles puts the ``split_size(n)`` with the smallest
+    centroid coordinate on the longest axis of its centroid box (the lowest
+    of equal ones) first, keeping their order within each half, and both
+    halves split on.  Each half of a node starts at a multiple of its
+    node's unit, so every cluster of ``CLUSTER_SIZE`` rows but the last,
+    and every run of ``SC_GROUP`` clusters not cut by the last, is a node
+    of the split: its box holds its own triangles only."""
+    order = np.array(order, np.int32)
+    cent = np.ascontiguousarray(centroid[order])
+    stack = [(0, order.shape[0])]
+    while stack:
+        lo, hi = stack.pop()
+        n = hi - lo
+        if n <= CLUSTER_SIZE:
+            continue
+        c = cent[lo:hi]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        k = split_size(n)
+        first = np.zeros(n, bool)
+        first[np.argpartition(c[:, axis], k - 1)[:k]] = True
+        perm = np.concatenate([np.flatnonzero(first), np.flatnonzero(~first)])
+        cent[lo:hi] = c[perm]
+        order[lo:hi] = order[lo:hi][perm]
+        stack += [(lo + k, hi), (lo, lo + k)]
+    return order
+
+
+def cluster_area_ratio(bvh: BVH) -> tuple[float, float]:
+    """How tight the cluster tier's tables are: the summed surface area of
+    the cluster boxes over the scene box's, and the same of the
+    supercluster boxes (host float64 from ``cluster_min``/``cluster_max``
+    and ``sc_min``/``sc_max``)."""
+
+    def area(lo, hi):
+        d = hi - lo
+        return 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
+
+    cmin, cmax = bvh.cluster_min.cpu().double(), bvh.cluster_max.cpu().double()
+    smin, smax = bvh.sc_min.cpu().double(), bvh.sc_max.cpu().double()
+    scene = max(float(area(cmin.amin(dim=0, keepdim=True), cmax.amax(dim=0, keepdim=True))[0]), 1e-30)
+    return float(area(cmin, cmax).sum()) / scene, float(area(smin, smax).sum()) / scene
 
 
 def pack_tri_table(tri_v0, tri_e1, tri_e2, prim_id, normal=None, mesh_id=None,
@@ -160,12 +219,14 @@ def build_bvh_arrays(tri_verts: np.ndarray, tri_normal: np.ndarray | None = None
     extent = np.maximum(hi - lo, 1e-20)
     q = np.clip(((centroid - lo) / extent) * 1023.0, 0, 1023).astype(np.uint32)
     order = np.argsort(morton3d(q[:, 0], q[:, 1], q[:, 2]), kind="stable").astype(np.int32)
+    if T > BRUTE_MAX_TRIS:
+        order = median_split_order(centroid, order)
 
     v0 = tri_verts[order, 0]
     e1 = tri_verts[order, 1] - v0
     e2 = tri_verts[order, 2] - v0
 
-    # cluster AABBs over fixed-size Morton runs
+    # cluster AABBs over fixed-size runs
     C = -(-T // CLUSTER_SIZE)
     cmin = np.full((C, 3), np.inf, np.float32)
     cmax = np.full((C, 3), -np.inf, np.float32)
@@ -203,7 +264,7 @@ def build_bvh_arrays(tri_verts: np.ndarray, tri_normal: np.ndarray | None = None
 # the port's tables differ from the JAX package's (flat (C*64, 16) table,
 # shade_a/shade_b rows), so its entries have a tag and a file name of their
 # own: a JAX cache entry (bvh-<sha1>.npz) in the same directory is never read
-_CACHE_TAG = b"optix_renderer_tpu_torch-bvh-v1"
+_CACHE_TAG = b"optix_renderer_tpu_torch-bvh-v2"  # v2: the cluster tier's median-split order
 _CACHE_PREFIX = "torch-bvh-"
 
 
@@ -286,7 +347,7 @@ def bvh_from_numpy(arrs: dict, device) -> BVH:
 
     cluster_min, cluster_max = f32(arrs["cluster_min"]), f32(arrs["cluster_max"])
     sc_min, sc_max = supercluster_boxes(cluster_min, cluster_max)
-    return BVH(
+    bvh = BVH(
         tri_v0=f32(arrs["tri_v0"]),
         tri_e1=f32(arrs["tri_e1"]),
         tri_e2=f32(arrs["tri_e2"]),
@@ -299,3 +360,7 @@ def bvh_from_numpy(arrs: dict, device) -> BVH:
         sc_min=sc_min,
         sc_max=sc_max,
     )
+    if bvh.clustered:
+        log.info("bvh: %d clusters, box area over the scene box's: clusters %.4g, superclusters %.4g",
+                 bvh.num_clusters, *cluster_area_ratio(bvh))
+    return bvh

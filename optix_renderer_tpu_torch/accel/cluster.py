@@ -66,7 +66,7 @@ def _bcast_t(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _superclusters(cluster_min, cluster_max):
-    """(S, G, padded cmin, padded cmax, sc_min, sc_max): Morton-contiguous
+    """(S, G, padded cmin, padded cmax, sc_min, sc_max): contiguous
     groups of G cluster boxes, padded with inverted boxes."""
     C = cluster_min.shape[0]
     G = SC_GROUP

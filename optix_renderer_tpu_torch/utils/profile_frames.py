@@ -92,7 +92,9 @@ of B3-baked, B3 and B4 in one eager frame after the timed and profiled
 frames (``utils.launches.work_records``): slab tests, ray/triangle tests
 and the lane slots spent on each, per live ray (t bound above 0), beside
 ``cluster_trace.walk_bound_counts``, the least any walk to the same final
-bounds needs.
+bounds needs, and ``cluster_area_ratio``: the summed surface area of the
+cluster boxes, and of the supercluster boxes, over the scene box's (how
+tight the tables the walks read are; the build's order decides it).
 """
 
 from __future__ import annotations
@@ -184,6 +186,7 @@ def main(argv=None) -> int:
 
 
 def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> dict:
+    from ..accel.build import cluster_area_ratio
     from ..engine.modes import DETERMINISTIC_MODES, RendererType
     from ..engine.renderer import Renderer
     from ..scene import parse_scene, write_spd_tetra_scene, write_terrain_scene
@@ -216,6 +219,7 @@ def profile_config(config: str, frames: int, smi: str, plain: bool = False) -> d
     }
     if r.bvh.clustered:
         line["walk_work"] = walk_work(r)
+        line["cluster_area_ratio"] = dict(zip(("clusters", "superclusters"), cluster_area_ratio(r.bvh)))
     if r.mode == RendererType.RATIO:
         line["ratio_shadow_rays"] = ratio_shadow_rays(r.metrics)
     return line

@@ -6,7 +6,9 @@ on the grid-60 terrain (7,212 triangles, cluster tier) at 64^2, with the
 JAX camera's primary rays fed to both packages as numpy.
 
 Tolerances:
-* the bake against the JAX bake: columns 0-9 to rtol 1e-5, atol 1e-6 (XLA's
+* the bake of the JAX build's table (``tests/torch_jax_tables.py``: the
+  port's own build orders the clusters by a median split) against the
+  JAX bake: columns 0-9 to rtol 1e-5, atol 1e-6 (XLA's
   CPU lowering may contract the cross products into fused multiply-adds,
   the port rounds each operation); columns 10-14 equal the unbaked table;
 * the plain baked walk against the JAX baked kernel (interpret mode), JAX
@@ -39,6 +41,7 @@ from optix_renderer_tpu_torch.engine.modes import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer
 from optix_renderer_tpu_torch.engine.shade import trace_closest_si
 from optix_renderer_tpu_torch.scene.config import SceneCamera, parse_scene
+from tests.torch_jax_tables import jax_tables
 
 torch.set_num_threads(2)
 
@@ -85,15 +88,17 @@ def _baked_hit(s):
 
 def test_bake_matches_jax_bake(setup):
     s = setup
+    jt = jax_tables(s["jbvh"])
     flat_unbaked = build.flat_from_grouped(np.asarray(s["jbvh"].tri_tab))
-    np.testing.assert_array_equal(flat_unbaked[:, :15], s["bvh"].tri_tab.numpy()[:, :15])  # the same table
+    np.testing.assert_array_equal(flat_unbaked[:, :15], jt.tri_tab.numpy()[:, :15])  # the same table
+    baked = cluster.bake_shared_origin_tab(jt.tri_tab, s["o"][0])
     want = build.flat_from_grouped(np.asarray(s["jbaked"]))
-    got = s["baked"].tab.numpy()
-    assert got.shape == s["bvh"].tri_tab.shape
-    assert np.array_equal(s["baked"].origin, s["o"][0])
+    got = baked.tab.numpy()
+    assert got.shape == s["bvh"].tri_tab.shape == jt.tri_tab.shape
+    assert np.array_equal(baked.origin, s["o"][0]) and np.array_equal(s["baked"].origin, s["o"][0])
     np.testing.assert_allclose(got[:, :10], want[:, :10], rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(got[:, 10:15], s["bvh"].tri_tab.numpy()[:, 10:15])
-    pad = (s["bvh"].tri_tab.numpy()[:, 3:9] == 0.0).all(axis=1)  # e1 = e2 = 0
+    np.testing.assert_array_equal(got[:, 10:15], jt.tri_tab.numpy()[:, 10:15])
+    pad = (jt.tri_tab.numpy()[:, 3:9] == 0.0).all(axis=1)  # e1 = e2 = 0
     assert pad.any() and (got[pad, 0:3] == 0.0).all()  # n2 = 0: det = 0, a miss
 
 

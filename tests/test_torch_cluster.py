@@ -1,7 +1,10 @@
 """The port's cluster tier (``accel.build`` cluster half, ``accel.cluster``,
 the plain versions of kernels B3 and B4 and the winner-attribute gather in
 ``accel.cluster_trace``, and the fused shading) against the JAX package on
-the same inputs.  The port
+the same inputs.  The port's build orders the cluster tier by a median
+split, the JAX package's by Morton runs: the build products are held equal
+up to that order, and every kernel comparison runs the port on the JAX
+build's tables (``tests/torch_jax_tables.py``).  The port
 walks; the JAX package culls into lists, and its culls are forced into
 each of their regimes (single level, two level, a binding supercluster
 cap whose checked fallback runs) to show that the walk returns what the
@@ -12,8 +15,8 @@ The JAX side runs its Pallas kernels with ``interpret=True``, as
 the CPU, so every reference is computed once per module.
 
 Tolerances:
-* build products, t bounds and corridor keys: equal (the same f32
-  operations in the same order);
+* build products: equal, row for row through the two orders; t bounds and
+  corridor keys: equal (the same f32 operations in the same order);
 * B3: the same winner (cluster id and local triangle id) on at least
   99.9 % of lanes, with the packed keys at most one quantum of t apart,
   and equal keys on at least 99 %: XLA's CPU lowering contracts a*b + c*d
@@ -52,8 +55,10 @@ from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine import shade as tshade
 from optix_renderer_tpu_torch.engine import shade_kernel
 from optix_renderer_tpu_torch.engine.modes import RendererType
-from optix_renderer_tpu_torch.engine.renderer import Renderer
+from optix_renderer_tpu_torch.engine.renderer import Renderer, bvh_inputs
 from optix_renderer_tpu_torch.scene.config import parse_scene
+from optix_renderer_tpu_torch.scene.device import build_device_scene
+from tests.torch_jax_tables import jax_tables
 
 torch.set_num_threads(2)
 
@@ -68,11 +73,12 @@ def _t(a):
 
 
 def _pair(scene_path: str, width: int, height: int):
-    """(JAX Renderer, port Renderer on the CPU) of one scene: the two
-    packages' trace tables and device scenes."""
+    """(JAX Renderer, port Renderer on the CPU, the JAX build's tables as a
+    port BVH) of one scene: the two packages' trace tables and device
+    scenes."""
     jr = JRenderer(jparse_scene(scene_path), width=width, height=height, mode=RendererType.MASK)
     tr = Renderer(parse_scene(scene_path), width=width, height=height, mode=RendererType.MASK, device="cpu")
-    return jr, tr
+    return jr, tr, jax_tables(jr.bvh)
 
 
 def _primaries(jr, w: int, h: int):
@@ -117,14 +123,14 @@ def terrain(tmp_path_factory):
     """Grid-60 terrain (~7k triangles, 110 clusters) at 64x64, with the JAX
     coherent trace of its primaries (interpret mode) and B5 on its winners."""
     path = procedural.write_terrain_scene(str(tmp_path_factory.mktemp("terrain60")), grid=60, width=64, height=64)
-    jr, tr = _pair(path, 64, 64)
+    jr, tr, jt = _pair(path, 64, 64)
     jrays = _primaries(jr, 64, 64)
     jb = jr.bvh
     key, cid, t_eff, stats, (cids, counts) = pc.trace_closest_clusters_packed(
         jb.tri_tab, jb.cluster_min, jb.cluster_max, jrays, return_lists=True, interpret=True)
     cols, ok = pc.fetch_winner_attrs(jb.shade_gtab, cids, counts, key, cid, jrays.origin.shape[0], interpret=True)
     assert bool(ok)
-    return dict(jr=jr, tr=tr, jrays=jrays, key=np.asarray(key), cid=np.asarray(cid), t_eff=np.asarray(t_eff),
+    return dict(jr=jr, tr=tr, jt=jt, jrays=jrays, key=np.asarray(key), cid=np.asarray(cid), t_eff=np.asarray(t_eff),
                 cols=np.asarray(cols))
 
 
@@ -138,39 +144,53 @@ def terrain100(tmp_path_factory):
 
 
 def test_build_products_match_jax(terrain):
+    """The port's products are the JAX package's rows in the port's order:
+    ``rows`` maps each of the port's slots to the JAX slot of the same
+    triangle; each cluster box is the box of its own 64 rows."""
     jb, tb = terrain["jr"].bvh, terrain["tr"].bvh
     assert tb.clustered and tb.num_tris > 4096
-    C = tb.num_clusters
+    C, T = tb.num_clusters, tb.num_tris
     assert tb.tri_tab.shape == (C * 64, 16) and C == jb.cluster_min.shape[0]
-    for name in ("cluster_min", "cluster_max", "tri_v0", "tri_e1", "tri_e2", "prim_id"):
-        np.testing.assert_array_equal(getattr(tb, name).numpy(), np.asarray(getattr(jb, name)), err_msg=name)
-    np.testing.assert_array_equal(tb.shade_a.numpy(), np.asarray(jb.shade_tab[0]))
-    np.testing.assert_array_equal(tb.shade_b.numpy(), np.asarray(jb.shade_tab[1]))
-    # the flat table is the JAX grouped table regrouped; its column 15
-    # carries the cluster bounds there
+    jslot = np.empty(T, np.int64)
+    jslot[np.asarray(jb.prim_id)] = np.arange(T)
+    rows = jslot[tb.prim_id.numpy()]
+    for name in ("tri_v0", "tri_e1", "tri_e2", "prim_id"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(), np.asarray(getattr(jb, name))[rows], err_msg=name)
+    np.testing.assert_array_equal(tb.shade_a.numpy()[:T], np.asarray(jb.shade_tab[0])[rows])
+    np.testing.assert_array_equal(tb.shade_b.numpy()[:T], np.asarray(jb.shade_tab[1])[rows])
+    np.testing.assert_array_equal(tb.shade_a.numpy()[T:], np.asarray(jb.shade_tab[0])[T:])
+    np.testing.assert_array_equal(tb.shade_b.numpy()[T:], np.asarray(jb.shade_tab[1])[T:])
+    # the flat table is the JAX grouped table regrouped (its column 15
+    # carries the cluster bounds there), row for row
     flat = tbuild.flat_from_grouped(np.asarray(jb.tri_tab))
-    np.testing.assert_array_equal(tb.tri_tab.numpy()[:, :15], flat[:, :15])
+    np.testing.assert_array_equal(tb.tri_tab.numpy()[:T, :15], flat[rows, :15])
+    np.testing.assert_array_equal(tb.tri_tab.numpy()[T:, :15], flat[T:, :15])
     # and serves as the decode's geometry table (JAX geom_tab, columns 0-9)
-    T = tb.num_tris
-    np.testing.assert_array_equal(tb.tri_tab.numpy()[:T, :10], np.asarray(jb.geom_tab)[:T, :10])
+    np.testing.assert_array_equal(tb.tri_tab.numpy()[:T, :10], np.asarray(jb.geom_tab)[rows, :10])
     assert (tb.tri_tab[T:, 9] == -1.0).all()
+    tri_verts = bvh_inputs(build_device_scene(terrain["tr"].scene, torch.device("cpu"))[1])[0]
+    lo = np.full((C * 64, 3), np.inf, np.float32)
+    hi = np.full((C * 64, 3), -np.inf, np.float32)
+    lo[:T], hi[:T] = tri_verts.min(axis=1)[tb.prim_id.numpy()], tri_verts.max(axis=1)[tb.prim_id.numpy()]
+    np.testing.assert_array_equal(tb.cluster_min.numpy(), lo.reshape(C, 64, 3).min(axis=1))
+    np.testing.assert_array_equal(tb.cluster_max.numpy(), hi.reshape(C, 64, 3).max(axis=1))
 
 
 def test_bvh_from_jax_arrays(terrain):
     """The JAX package's build products carry across as they are."""
-    tb = terrain["tr"].bvh
     jb = terrain["jr"].bvh
-    arrs = {k: np.asarray(getattr(jb, k)) for k in ("tri_tab", "tri_v0", "tri_e1", "tri_e2", "prim_id",
-                                                     "cluster_min", "cluster_max")}
-    arrs["shade_a"], arrs["shade_b"] = (np.asarray(a) for a in jb.shade_tab)
-    carried = tbuild.bvh_from_numpy(arrs, "cpu")
-    np.testing.assert_array_equal(carried.tri_tab.numpy()[:, :15], tb.tri_tab.numpy()[:, :15])
-    for name in ("cluster_min", "cluster_max", "shade_a", "shade_b"):
-        np.testing.assert_array_equal(getattr(carried, name).numpy(), getattr(tb, name).numpy())
+    carried = jax_tables(jb)
+    flat = tbuild.flat_from_grouped(np.asarray(jb.tri_tab))
+    np.testing.assert_array_equal(carried.tri_tab.numpy()[:, :15], flat[:, :15])
+    for name in ("cluster_min", "cluster_max", "tri_v0", "tri_e1", "tri_e2", "prim_id"):
+        np.testing.assert_array_equal(getattr(carried, name).numpy(), np.asarray(getattr(jb, name)), err_msg=name)
+    np.testing.assert_array_equal(carried.shade_a.numpy(), np.asarray(jb.shade_tab[0]))
+    np.testing.assert_array_equal(carried.shade_b.numpy(), np.asarray(jb.shade_tab[1]))
+    assert carried.num_clusters == terrain["tr"].bvh.num_clusters
 
 
 def test_t_bounds_and_corridor_keys_match_jax(terrain):
-    jb, tb = terrain["jr"].bvh, terrain["tr"].bvh
+    jb, tb = terrain["jr"].bvh, terrain["jt"]
     jrays = terrain["jrays"]
     rays = _tray(jrays)
     boxes = (tb.sc_min, tb.sc_max)
@@ -206,7 +226,7 @@ def test_walk_matches_jax_in_every_cull_regime(terrain100, monkeypatch, fresh_ja
     B4 against the per-lane cull's occlusion ("lane"), on every lane; with
     a supercluster cap of 2 the lists overflow and the JAX checked fallback
     runs, and the port, which lists nothing, still agrees."""
-    jb, tb = terrain100[0].bvh, terrain100[1].bvh
+    jb, tb = terrain100[0].bvh, terrain100[2]
     n = 2048
     jrays = _random_rays(jb, n, seed=3, above=None)
     rays = _tray(jrays)
@@ -232,7 +252,7 @@ def test_walk_matches_jax_in_every_cull_regime(terrain100, monkeypatch, fresh_ja
 
 
 def test_b3_plain_matches_jax_and_brute(terrain):
-    jb, tb = terrain["jr"].bvh, terrain["tr"].bvh
+    jb, tb = terrain["jr"].bvh, terrain["jt"]
     jrays = terrain["jrays"]
     rays = _tray(jrays)
     key, cid, t_eff = cluster.trace_closest_clusters_packed(tb, rays)
@@ -254,7 +274,7 @@ def test_b3_b4_plain_per_lane_lists_match_jax(terrain100):
     """Incoherent rays against the JAX package's per-lane cull
     (refine=True): B3 against the JAX kernel and the oracle, B4 equal to
     the JAX kernel on every lane."""
-    jb, tb = terrain100[0].bvh, terrain100[1].bvh
+    jb, tb = terrain100[0].bvh, terrain100[2]
     n = 2048
     jrays = _random_rays(jb, n, seed=11, above=1.1)
     rays = _tray(jrays)
@@ -324,7 +344,7 @@ def test_overflow_fallback_matches_jax(terrain100):
 
 
 def test_b5_plain_matches_jax(terrain):
-    tb, jb = terrain["tr"].bvh, terrain["jr"].bvh
+    tb, jb = terrain["jt"], terrain["jr"].bvh
     key, cid = _t(terrain["key"]), _t(terrain["cid"])
     got = ct.fetch_winner_attrs_plain(tb.shade_a, tb.shade_b, key, cid)
     assert got.shape == (ct.N_SHADE_ATTR, key.shape[0])
@@ -340,29 +360,29 @@ def test_b5_plain_matches_jax(terrain):
 @pytest.fixture(scope="module")
 def gallery(tmp_path_factory):
     """The committed gallery (5670 triangles, textures) at 64x64 with the
-    port's primary trace."""
+    port's primary trace on the JAX build's tables."""
     import os
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes", "gallery",
                         "scene.json")
-    jr, tr = _pair(path, 64, 64)
+    jr, tr, jt = _pair(path, 64, 64)
     jrays = _primaries(jr, 64, 64)
-    key, cid, _ = cluster.trace_closest_clusters_packed(tr.bvh, _tray(jrays))
-    return jr, tr, jrays, key, cid
+    key, cid, _ = cluster.trace_closest_clusters_packed(jt, _tray(jrays))
+    return jr, tr, jt, jrays, key, cid
 
 
 @pytest.mark.parametrize("scene", ["terrain", "gallery"])
 def test_fused_shading_matches_jax(scene, terrain, gallery):
     """The same packed winners through both fused shading builds."""
     if scene == "terrain":
-        jr, tr, jrays, key, cid = terrain["jr"], terrain["tr"], terrain["jrays"], _t(terrain["key"]), \
-            _t(terrain["cid"])
+        jr, tr, jt, jrays, key, cid = terrain["jr"], terrain["tr"], terrain["jt"], terrain["jrays"], \
+            _t(terrain["key"]), _t(terrain["cid"])
     else:
-        jr, tr, jrays, key, cid = gallery
+        jr, tr, jt, jrays, key, cid = gallery
         assert tr.device_scene.has_textures
     want = jshade.build_surface_interaction_fused(jr.device_scene, jrays, jnp.asarray(key.numpy()),
                                                   jnp.asarray(cid.numpy()), jr.bvh.shade_tab)
-    got = tshade.shade_winners_plain(tr.device_scene, tr.bvh.shade_a, tr.bvh.shade_b, _tray(jrays), key, cid)
+    got = tshade.shade_winners_plain(tr.device_scene, jt.shade_a, jt.shade_b, _tray(jrays), key, cid)
     assert np.asarray(want.hit).mean() > 0.8
     for f in dataclasses.fields(want):
         g, w = getattr(got, f.name).numpy(), np.asarray(getattr(want, f.name))

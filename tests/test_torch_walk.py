@@ -10,7 +10,9 @@ side runs its Pallas kernels with ``interpret=True``, as
 ``tests/unit/test_pallas_cluster.py`` does, once per scene.
 
 Tolerances:
-* B3 against the JAX package's per-lane trace (``refine=True``): the same
+* B3 against the JAX package's per-lane trace (``refine=True``), the port
+  walking the JAX build's tables (``tests/torch_jax_tables.py``: the
+  port's own build orders the clusters by a median split): the same
   winner (cluster id and local triangle id) on at least 99.9 % of lanes
   and equal keys on at least 99 % (XLA's CPU lowering contracts a*b + c*d
   into fused multiply-adds, the port rounds each operation; see
@@ -39,6 +41,7 @@ from optix_renderer_tpu_torch.core.types import Ray
 from optix_renderer_tpu_torch.engine.modes import RendererType
 from optix_renderer_tpu_torch.engine.renderer import Renderer
 from optix_renderer_tpu_torch.scene.config import parse_scene
+from tests.torch_jax_tables import jax_tables
 
 torch.set_num_threads(2)
 
@@ -86,7 +89,8 @@ def scenes(tmp_path_factory):
         t_any = torch.minimum(t_eff, torch.tensor(t_max))
         key_w, cid_w = ct.trace_closest_walk_plain(*_walk_args(tb), rays.origin, rays.direction,
                                                    *cluster.cold_start_keys(t_eff))
-        out[name] = dict(jb=jb, tb=tb, rays=rays, jrays=JRay(origin=jnp.asarray(o), direction=jnp.asarray(d)),
+        out[name] = dict(jb=jb, jt=jax_tables(jb), tb=tb, rays=rays,
+                         jrays=JRay(origin=jnp.asarray(o), direction=jnp.asarray(d)),
                          t_eff=t_eff, t_max=t_max, t_any=t_any, key_w=key_w, cid_w=cid_w)
     return out
 
@@ -106,10 +110,13 @@ def test_supercluster_boxes_cover_their_clusters(scenes):
 @pytest.mark.parametrize("scene", SCENES)
 def test_walk_closest_matches_jax(scenes, scene):
     s = scenes[scene]
-    jb = s["jb"]
+    jb, jt, rays = s["jb"], s["jt"], s["rays"]
     wkey, wcid, _, _ = pc.trace_closest_clusters_packed(jb.tri_tab, jb.cluster_min, jb.cluster_max, s["jrays"],
                                                         refine=True, interpret=True)
-    key, cid, wkey, wcid = s["key_w"].numpy(), s["cid_w"].numpy(), np.asarray(wkey), np.asarray(wcid)
+    t_eff = cluster.ray_t_bounds(jt.cluster_min, jt.cluster_max, rays, 3.0e38, sc_boxes=(jt.sc_min, jt.sc_max))
+    key, cid = ct.trace_closest_walk_plain(*_walk_args(jt), rays.origin, rays.direction,
+                                           *cluster.cold_start_keys(t_eff))
+    key, cid, wkey, wcid = key.numpy(), cid.numpy(), np.asarray(wkey), np.asarray(wcid)
     assert (wcid >= 0).mean() > 0.2
     winner = (cid == wcid) & ((key & 63) == (wkey & 63)) & (np.abs((key >> 6) - (wkey >> 6)) <= 1)
     assert winner.mean() >= B3_AGREE_MIN, winner.mean()
